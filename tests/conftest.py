@@ -31,6 +31,11 @@ def pytest_configure(config):
         "slow: long compile-heavy drives excluded from the tier-1 budget "
         "(run explicitly or without -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (horovod_tpu_torch kernels); skips "
+        "without one",
+    )
 
 
 @pytest.fixture(scope="session")

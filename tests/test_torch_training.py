@@ -1,0 +1,305 @@
+"""horovod_tpu_torch.training against horovod_tpu.training: 3-step
+trajectories of make_train_step from the same weights and batches.
+
+Arrays are compared relative to their largest entry (``_close``): a
+parameter's change over 3 steps has entries near 0 that carry no
+relative precision of their own.
+
+* MLP, float32, world 1, the fused and the per-leaf update: losses,
+  parameter changes to float32 matmul-order error (1e-5).
+* narrow ResNet-18 / ResNet-50 (num_filters=8, 64x64, batch 4), world 1,
+  in float64 on both sides (the reference inside ``jax.enable_x64``):
+  in float32 the reference's own logits are off its float64 logits by
+  ~1e-3 at these sizes, which would hide an algorithmic difference.
+  Both models still cast the logits to float32, so the loss and its
+  gradient carry float32 rounding: losses, parameter changes and
+  BatchNorm statistics agree to 1e-6 (measured: 2e-7).  At 32x32 with
+  batch 2 the last stage's BatchNorm normalizes over 2 values and turns
+  that rounding into differences as large as the update itself.
+* MLP on 2 gloo processes against the reference on a 2-device mesh with
+  the same global batch.
+* the synthetic benchmark's ``run`` on the CPU, and the knobs this slice
+  refuses.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
+
+import horovod_tpu as hvd
+from horovod_tpu import training as ref_training
+from horovod_tpu.models.mlp import MLP as RefMLP
+from horovod_tpu.models.resnet import ResNet18 as RefResNet18
+from horovod_tpu.models.resnet import ResNet50 as RefResNet50
+from horovod_tpu.optim import fused_update as ref_fu
+from horovod_tpu_torch import core, training
+from horovod_tpu_torch.convert import (
+    export_flax_variables, flatten_flax, load_flax_variables,
+)
+from horovod_tpu_torch.models import MLP, ResNet18, ResNet50
+from horovod_tpu_torch.optim.fused_update import fused_sgd
+from torch_dist_worker import launch
+
+STEPS = 3
+
+
+def _ref_loss(logits, labels):
+    return optax.softmax_cross_entropy_with_integer_labels(
+        logits, labels).mean()
+
+
+@pytest.fixture()
+def port_cpu_world(monkeypatch):
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID",
+              "HVD_LOCAL_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    core.shutdown()
+    core.init(device="cpu")
+    yield
+    core.shutdown()
+
+
+def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats):
+    """STEPS steps of the reference's make_train_step on ``ndev`` CPU
+    devices; returns (losses, params, batch_stats) as flat numpy dicts."""
+    hvd.shutdown()
+    hvd.init(devices=jax.devices("cpu")[:ndev])
+    try:
+        opt = ref_fu.fused_sgd(0.1, momentum=0.9)
+        if batch_stats:
+            apply_fn = model.apply
+        else:
+            def apply_fn(v, a, train=True):
+                return model.apply(v, a)
+        step = ref_training.make_train_step(
+            apply_fn=apply_fn, loss_fn=_ref_loss, optimizer=opt,
+            has_batch_stats=batch_stats, fused_optimizer=fused,
+            loss_fetch_steps=0)
+        params = variables["params"]
+        state = ref_training.TrainState(
+            params=params, opt_state=opt.init(params),
+            model_state={"batch_stats": variables["batch_stats"]}
+            if batch_stats else {},
+            step=jnp.zeros((), jnp.int32))
+        state = jax.device_put(state, NamedSharding(hvd.core.mesh(), P()))
+        xs, ys = ref_training.shard_batch(x), ref_training.shard_batch(y)
+        losses = []
+        for _ in range(STEPS):
+            state, loss = step(state, xs, ys)
+            losses.append(float(jax.device_get(loss)))
+        stats = flatten_flax(state.model_state["batch_stats"]) \
+            if batch_stats else {}
+        return np.asarray(losses), flatten_flax(state.params), stats
+    finally:
+        hvd.shutdown()
+
+
+def _port_run(model, x, y, *, fused, batch_stats):
+    opt = fused_sgd(0.1, momentum=0.9)
+    step = training.make_train_step(
+        apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+        has_batch_stats=batch_stats, fused_optimizer=fused,
+        loss_fetch_steps=0)
+    state = training.init_train_state(model, opt,
+                                      has_batch_stats=batch_stats)
+    xs = training.shard_batch(torch.from_numpy(x))
+    ys = training.shard_batch(torch.from_numpy(y).long())
+    losses = []
+    for _ in range(STEPS):
+        state, loss = step(state, xs, ys)
+        losses.append(loss.item())
+    assert state.step == STEPS and state.opt_state.count == STEPS
+    stats = {k: t.numpy() for k, t in state.model_state.items()}
+    return np.asarray(losses), export_flax_variables(state.params), stats
+
+
+def _close(got, want, tol, err_msg=""):
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max(),
+                               err_msg=err_msg)
+
+
+def _assert_trajectories_match(port, ref, params0, tol):
+    """Losses, the parameters' change over the run (so the comparison
+    sees the gradients, not the initial weights) and the statistics."""
+    (pl, pp, ps), (rl, rp, rs) = port, ref
+    _close(pl, rl, tol)
+    assert list(pp) == list(rp) and list(ps) == list(rs)
+    for k in rp:
+        _close(pp[k] - params0[k], rp[k] - params0[k], tol, k)
+    for k in rs:
+        _close(ps[k], rs[k], tol, k)
+
+
+def _mlp_problem(n=8):
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    y = rng.integers(0, 6, size=(n,)).astype(np.int32)
+    ref = RefMLP(features=(16, 6))
+    variables = ref.init(jax.random.PRNGKey(3), x)
+    return ref, jax.tree_util.tree_map(np.asarray, variables), x, y
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_mlp_trajectory_matches_reference(port_cpu_world, fused):
+    ref, variables, x, y = _mlp_problem()
+    want = _reference_run(ref, variables, x, y, ndev=1, fused=fused,
+                          batch_stats=False)
+    model = MLP(12, (16, 6))
+    load_flax_variables(model, variables["params"])
+    got = _port_run(model, x, y, fused=fused, batch_stats=False)
+    _assert_trajectories_match(got, want, flatten_flax(variables["params"]),
+                               1e-5)
+
+
+def _resnet_variables(ref_cls, x):
+    ref = ref_cls(num_classes=10, num_filters=8, dtype=jnp.float32)
+    variables = ref.init(jax.random.PRNGKey(0), x)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float64), variables)
+
+
+@pytest.mark.parametrize("name,fused", [("ResNet18", True),
+                                        ("ResNet18", False),
+                                        ("ResNet50", True)])
+def test_resnet_trajectory_matches_reference_float64(port_cpu_world, name,
+                                                     fused):
+    ref_cls, cls = {"ResNet18": (RefResNet18, ResNet18),
+                    "ResNet50": (RefResNet50, ResNet50)}[name]
+    rng = np.random.default_rng(31)
+    x = rng.uniform(size=(4, 64, 64, 3))
+    y = rng.integers(0, 10, size=(4,)).astype(np.int32)
+    variables = _resnet_variables(ref_cls, x.astype(np.float32))
+    with jax.enable_x64(True):
+        ref = ref_cls(num_classes=10, num_filters=8, dtype=jnp.float64,
+                      param_dtype=jnp.float64)
+        want = _reference_run(ref, variables, x, y, ndev=1, fused=fused,
+                              batch_stats=True)
+    model = cls(num_classes=10, num_filters=8, dtype=torch.float32)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    got = _port_run(model.double(), x, y, fused=fused, batch_stats=True)
+    _assert_trajectories_match(got, want, flatten_flax(variables["params"]),
+                               1e-6)
+
+
+def test_fused_and_per_leaf_steps_are_bit_identical(port_cpu_world):
+    """The fused_optimizer knob changes the route, not the numbers."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(2, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=(2,)).astype(np.int32)
+    runs = []
+    for fused in (True, False):
+        model = ResNet18(num_classes=10, num_filters=8, dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(0))
+        runs.append(_port_run(model, x, y, fused=fused, batch_stats=True))
+    for a, b in zip(runs[0], runs[1]):
+        if isinstance(a, dict):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        else:
+            assert np.array_equal(a, b)
+
+
+def test_two_gloo_ranks_match_reference_two_device_mesh(tmp_path):
+    ref, variables, x, y = _mlp_problem(n=8)
+    want = _reference_run(ref, variables, x, y, ndev=2, fused=True,
+                          batch_stats=False)
+    params = flatten_flax(variables["params"])
+    np.savez(tmp_path / "inputs.npz", x=x, y=y, in_features=12,
+             features=np.array([16, 6]),
+             **{f"p:{k}": v for k, v in params.items()})
+    rcs, outs = launch("train_mlp", 2, tmp_path)
+    assert rcs == [0, 0], "\n".join(outs)
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"train_mlp.{r}.npz"))
+        got_params = {k[len("p:"):]: v for k, v in got.items()
+                      if k.startswith("p:")}
+        _assert_trajectories_match((got["losses"], got_params, {}), want,
+                                   params, 1e-5)
+
+
+def test_in_graph_steps_runs_k_steps_per_call(port_cpu_world):
+    ref, variables, x, y = _mlp_problem()
+    models = []
+    for _ in range(2):
+        m = MLP(12, (16, 6))
+        load_flax_variables(m, variables["params"])
+        models.append(m)
+    opt = fused_sgd(0.1, momentum=0.9)
+    one = training.make_train_step(apply_fn=models[0],
+                                   loss_fn=F.cross_entropy, optimizer=opt)
+    three = training.make_train_step(apply_fn=models[1],
+                                     loss_fn=F.cross_entropy, optimizer=opt,
+                                     in_graph_steps=STEPS)
+    s1 = training.init_train_state(models[0], opt)
+    s3 = training.init_train_state(models[1], opt)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    for _ in range(STEPS):
+        s1, l1 = one(s1, xt, yt)
+    s3, l3 = three(s3, xt, yt)
+    assert s3.step == STEPS and torch.equal(l1, l3)
+    for k in s1.params:
+        assert torch.equal(s1.params[k], s3.params[k])
+
+
+def test_trailing_loss_fetcher_reads_one_cadence_behind():
+    f = training.TrailingLossFetcher(2)
+    for i in range(1, 7):
+        f.push(torch.tensor(float(i)))
+    assert (f.value, f.step) == (4.0, 4)      # 6 is retained, unread
+    assert f.flush() == 6.0 and f.step == 6
+    off = training.TrailingLossFetcher(0)
+    off.push(torch.tensor(1.0))
+    assert off.flush() is None
+
+
+@pytest.mark.parametrize("kw,env", [
+    ({"hierarchical": True}, {}),
+    ({"two_level": True}, {}),
+    ({}, {"HVD_TWO_LEVEL_ALLREDUCE": "1"}),
+    ({"autotune": True}, {}),
+    ({"profile_guided": True}, {}),
+    ({}, {"HVD_PROFILE": "1"}),
+    ({"remat_policy": "full"}, {}),
+    ({"donate": False}, {}),
+    ({"compression": "int8"}, {}),
+    ({}, {"HVD_COMPRESSION": "bf16"}),       # error feedback by default
+    ({"op": "Adasum"}, {}),
+])
+def test_unported_knobs_raise(monkeypatch, kw, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
+                                 optimizer=fused_sgd(0.1), **kw)
+
+
+def test_optax_optimizer_is_refused():
+    with pytest.raises(TypeError, match="FusedOptimizer"):
+        training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
+                                 optimizer=torch.optim.SGD)
+
+
+def test_synthetic_benchmark_runs_on_cpu(monkeypatch):
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    core.shutdown()
+    try:
+        out = sb.run(sb.parse_args([
+            "--model", "ResNet18", "--image-size", "32", "--batch-size", "2",
+            "--num-classes", "10", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "2", "--num-iters", "2",
+            "--fused-optimizer", "--device", "cpu"]))
+    finally:
+        core.shutdown()
+    assert set(out) == {"img_sec_total", "img_sec_per_chip", "conf", "size",
+                        "final_loss"}
+    assert out["size"] == 1 and np.isfinite(out["final_loss"])
+    assert out["img_sec_per_chip"] > 0
