@@ -4,90 +4,168 @@ The port's parameters keep PyTorch's layouts (conv ``OIHW``, linear
 ``[out, in]``) under torch's names (``weight``, ``running_mean``...);
 the reference's flax state keeps ``HWIO`` / ``[in, out]`` under flax
 names (``kernel``, ``scale``, ``mean``...).  This module maps one onto
-the other.
+the other, with one rule per layer type:
+
+=================  ==================  ===================================
+port layer         torch → flax name   layout (flax → torch)
+=================  ==================  ===================================
+Conv, Dense        weight → kernel     HWIO → OIHW, ``[in, out]`` → ``[out, in]``
+BatchNorm          weight → scale      as is (and running_mean/var →
+                                       mean/var)
+LayerNorm          weight → scale      as is
+Embed              weight → embedding  as is (``[vocab, features]`` in both)
+DenseGeneral       weight → kernel     ``in_shape + out_shape`` →
+                                       ``[prod(out), prod(in)]``; bias
+                                       ``out_shape`` → ``[prod(out)]``
+=================  ==================  ===================================
+
+Each leaf's rule is a :class:`Layout`, decided by its module
+(:func:`canonical_layouts`); the functions that see tensors without
+their module (:func:`export_flax_variables`,
+:func:`fused_opt_state_from_flax`) take those layouts as an argument.
 
 The port's **canonical leaf order** is the reference's: the flax paths
 (``BottleneckBlock_0/Conv_1/kernel``) sorted the way ``jax.tree_util``
 flattens nested dicts, so ``BottleneckBlock_10`` comes before
-``BottleneckBlock_2``.  :func:`canonical_params` lists a module's
-parameters in that order under those names; the training state, the
-fusion buckets and the flat optimizer buffers all follow it, so the
-port's bucket lists equal the reference's, and its flat moment buffers
-equal the reference's once each leaf is transposed
-(:func:`fused_opt_state_from_flax`).
+``BottleneckBlock_2`` and ``LayerNorm_0`` before ``wpe``.
+:func:`canonical_params` lists a module's parameters in that order under
+those names; the training state, the fusion buckets and the flat
+optimizer buffers all follow it, so the port's bucket lists equal the
+reference's, and its flat moment buffers equal the reference's once each
+leaf takes its layout (:func:`fused_opt_state_from_flax`).
 
 Arrays cross as numpy: nothing here imports the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import math
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .models.layers import BatchNorm
+from .models.layers import BatchNorm, DenseGeneral, Embed, LayerNorm
 from .optim.fused_update import FusedOptState, dtype_name
 from .utils.tree import tree_flatten_with_path
 
 _PARAM_NAMES = {"weight": "kernel", "bias": "bias"}
-_BN_PARAM_NAMES = {"weight": "scale", "bias": "bias"}
+_NORM_PARAM_NAMES = {"weight": "scale", "bias": "bias"}
+_EMBED_PARAM_NAMES = {"weight": "embedding"}
 _BN_BUFFER_NAMES = {"running_mean": "mean", "running_var": "var"}
+
+#: flax HWIO → torch OIHW
+_CONV_PERM = (3, 2, 0, 1)
+
+
+def _rank_perm(ndim: int) -> Tuple[int, ...]:
+    if ndim == 4:
+        return _CONV_PERM
+    if ndim == 2:
+        return (1, 0)
+    return tuple(range(ndim))
+
+
+class Layout(NamedTuple):
+    """One leaf's rule: the flax array, reshaped to ``merged`` and
+    transposed by ``perm``, is the port's tensor."""
+
+    flax_shape: Tuple[int, ...]
+    merged: Tuple[int, ...]
+    perm: Tuple[int, ...]
+
+    @classmethod
+    def of_rank(cls, torch_shape) -> "Layout":
+        """The Conv / Dense / vector rule for a tensor of this shape."""
+        perm = _rank_perm(len(torch_shape))
+        flax = tuple(int(torch_shape[i]) for i in np.argsort(perm))
+        return cls(flax, flax, perm)
+
+    @classmethod
+    def same(cls, torch_shape) -> "Layout":
+        """The same array in both frameworks."""
+        shape = tuple(int(n) for n in torch_shape)
+        return cls(shape, shape, tuple(range(len(shape))))
+
+    def to_torch(self, a: np.ndarray) -> np.ndarray:
+        return np.transpose(np.reshape(a, self.merged), self.perm)
+
+    def to_flax(self, a: np.ndarray) -> np.ndarray:
+        return np.reshape(np.transpose(a, np.argsort(self.perm)),
+                          self.flax_shape)
+
+
+def _dense_general_layouts(mod: DenseGeneral) -> Dict[str, Layout]:
+    n_in, n_out = math.prod(mod.in_shape), math.prod(mod.out_shape)
+    return {"weight": Layout(mod.in_shape + mod.out_shape, (n_in, n_out),
+                             (1, 0)),
+            "bias": Layout(mod.out_shape, (n_out,), (0,))}
+
+
+def _rules(mod: nn.Module, buffers: bool):
+    """``(flax names, layout of a leaf)`` for a module's own leaves."""
+    if buffers:
+        return (_BN_BUFFER_NAMES if isinstance(mod, BatchNorm) else {},
+                lambda local, t: Layout.same(t.shape))
+    if isinstance(mod, (BatchNorm, LayerNorm)):
+        return _NORM_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
+    if isinstance(mod, Embed):
+        return _EMBED_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
+    if isinstance(mod, DenseGeneral):
+        layouts = _dense_general_layouts(mod)
+        return _PARAM_NAMES, lambda local, t: layouts[local]
+    return _PARAM_NAMES, lambda local, t: Layout.of_rank(t.shape)
 
 
 def _path_key(name: str) -> Tuple[str, ...]:
     return tuple(name.split("/"))
 
 
-def _collect(model: nn.Module, buffers: bool) -> Dict[str, torch.Tensor]:
+def _collect(model: nn.Module, buffers: bool
+             ) -> Dict[str, Tuple[torch.Tensor, Layout]]:
     out = {}
     for mod_name, mod in model.named_modules():
         prefix = mod_name.replace(".", "/")
-        if buffers:
-            names = _BN_BUFFER_NAMES if isinstance(mod, BatchNorm) else {}
-            items = mod.named_buffers(recurse=False)
-        else:
-            names = _BN_PARAM_NAMES if isinstance(mod, BatchNorm) \
-                else _PARAM_NAMES
-            items = mod.named_parameters(recurse=False)
+        names, layout = _rules(mod, buffers)
+        items = (mod.named_buffers(recurse=False) if buffers
+                 else mod.named_parameters(recurse=False))
         for local, t in items:
             if local not in names:
                 raise ValueError(
                     f"no flax name for {type(mod).__name__}.{local}")
-            out[f"{prefix}/{names[local]}" if prefix else names[local]] = t
+            out[f"{prefix}/{names[local]}" if prefix else names[local]] = \
+                (t, layout(local, t))
     return {k: out[k] for k in sorted(out, key=_path_key)}
 
 
 def canonical_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The module's parameters (the tensors themselves) keyed by flax
     path, in the reference's leaf order."""
-    return _collect(model, buffers=False)
+    return {k: t for k, (t, _) in _collect(model, buffers=False).items()}
 
 
 def canonical_batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The BatchNorm running statistics keyed by flax path
     (``bn_init/mean``), in the reference's leaf order."""
-    return _collect(model, buffers=True)
+    return {k: t for k, (t, _) in _collect(model, buffers=True).items()}
+
+
+def canonical_layouts(model: nn.Module) -> Dict[str, Layout]:
+    """Each canonical parameter's :class:`Layout`, same keys and order as
+    :func:`canonical_params`."""
+    return {k: lay for k, (_, lay) in _collect(model, buffers=False).items()}
 
 
 def to_torch_layout(a: np.ndarray) -> np.ndarray:
-    """flax → torch: conv ``HWIO`` → ``OIHW``, dense ``[in, out]`` →
-    ``[out, in]``; vectors unchanged."""
-    if a.ndim == 4:
-        return np.transpose(a, (3, 2, 0, 1))
-    if a.ndim == 2:
-        return a.T
-    return a
+    """flax → torch by rank: conv ``HWIO`` → ``OIHW``, dense ``[in, out]``
+    → ``[out, in]``; vectors unchanged."""
+    return np.transpose(a, _rank_perm(a.ndim))
 
 
 def to_flax_layout(a: np.ndarray) -> np.ndarray:
     """torch → flax, the inverse of :func:`to_torch_layout`."""
-    if a.ndim == 4:
-        return np.transpose(a, (2, 3, 1, 0))
-    if a.ndim == 2:
-        return a.T
-    return a
+    return np.transpose(a, np.argsort(_rank_perm(a.ndim)))
 
 
 def flatten_flax(tree: Mapping) -> Dict[str, np.ndarray]:
@@ -100,11 +178,12 @@ def flatten_flax(tree: Mapping) -> Dict[str, np.ndarray]:
 def load_flax_variables(model: nn.Module, params: Mapping,
                         batch_stats: Mapping = None) -> None:
     """Copy the reference's ``params`` (and ``batch_stats``) into the
-    module, in place, transposing to torch's layouts.  Every name must
-    match both ways."""
-    pairs = [(canonical_params(model), flatten_flax(params))]
+    module, in place, in the port's layouts.  Every name must match both
+    ways."""
+    pairs = [(_collect(model, buffers=False), flatten_flax(params))]
     if batch_stats is not None:
-        pairs.append((canonical_batch_stats(model), flatten_flax(batch_stats)))
+        pairs.append((_collect(model, buffers=True),
+                      flatten_flax(batch_stats)))
     with torch.no_grad():
         for ours, theirs in pairs:
             if set(ours) != set(theirs):
@@ -112,56 +191,61 @@ def load_flax_variables(model: nn.Module, params: Mapping,
                     "flax and torch names differ: only flax "
                     f"{sorted(set(theirs) - set(ours))[:5]}, only torch "
                     f"{sorted(set(ours) - set(theirs))[:5]}")
-            for name, t in ours.items():
-                src = to_torch_layout(theirs[name])
-                if tuple(src.shape) != tuple(t.shape):
+            for name, (t, layout) in ours.items():
+                if tuple(theirs[name].shape) != layout.flax_shape:
                     raise ValueError(f"{name}: flax {theirs[name].shape} vs "
                                      f"torch {tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.array(src)))
+                t.copy_(torch.from_numpy(np.array(
+                    layout.to_torch(theirs[name]))))
 
 
-def export_flax_variables(tree: Mapping[str, torch.Tensor]
+def _layouts_for(tree: Mapping[str, torch.Tensor],
+                 layouts: Mapping[str, Layout]) -> Dict[str, Layout]:
+    missing = [k for k in tree if k not in layouts]
+    if missing:
+        raise ValueError(f"no layout for {missing[:5]}")
+    return {k: layouts[k] for k in tree}
+
+
+def export_flax_variables(tree: Mapping[str, torch.Tensor],
+                          layouts: Mapping[str, Layout]
                           ) -> Dict[str, np.ndarray]:
     """A canonical dict of the port's tensors as flax-layout numpy
-    arrays, same keys."""
-    return {k: to_flax_layout(v.detach().cpu().numpy())
+    arrays, same keys; ``layouts`` is the model's
+    :func:`canonical_layouts`."""
+    lay = _layouts_for(tree, layouts)
+    return {k: lay[k].to_flax(v.detach().cpu().numpy())
             for k, v in tree.items()}
 
 
-def _flax_shape(t: torch.Tensor) -> Tuple[int, ...]:
-    s = tuple(t.shape)
-    if len(s) == 4:
-        return (s[2], s[3], s[1], s[0])
-    if len(s) == 2:
-        return (s[1], s[0])
-    return s
-
-
 def fused_opt_state_from_flax(count, mu: Mapping, nu: Mapping,
-                              params: Mapping[str, torch.Tensor]
+                              params: Mapping[str, torch.Tensor],
+                              layouts: Mapping[str, Layout]
                               ) -> FusedOptState:
     """The reference's ``FusedOptState(count, mu, nu)`` (flat numpy
     buffers per dtype name) as the port's, for the port's canonical
-    ``params``: each leaf's slice is reshaped to its flax shape,
-    transposed to torch's layout and flattened again."""
+    ``params``: each leaf's slice is reshaped to its flax shape, put in
+    the port's layout and flattened again; ``layouts`` is the model's
+    :func:`canonical_layouts`."""
+    lay = _layouts_for(params, layouts)
     by_dtype: Dict[str, list] = {}
-    for t in params.values():
-        by_dtype.setdefault(dtype_name(t.dtype), []).append(t)
+    for name, t in params.items():
+        by_dtype.setdefault(dtype_name(t.dtype), []).append((t, lay[name]))
 
     def convert(flat: Mapping) -> Dict[str, torch.Tensor]:
         out = {}
         for name, buf in flat.items():
             buf = np.asarray(buf)
             parts, offset = [], 0
-            for t in by_dtype[name]:
+            for t, layout in by_dtype[name]:
                 n = t.numel()
-                leaf = buf[offset:offset + n].reshape(_flax_shape(t))
-                parts.append(to_torch_layout(leaf).reshape(-1))
+                leaf = buf[offset:offset + n].reshape(layout.flax_shape)
+                parts.append(layout.to_torch(leaf).reshape(-1))
                 offset += n
             if offset != buf.size:
                 raise ValueError(f"{name} buffer holds {buf.size} elements, "
                                  f"the parameters {offset}")
-            ref = by_dtype[name][0]
+            ref = by_dtype[name][0][0]
             out[name] = torch.from_numpy(np.concatenate(parts)).to(
                 device=ref.device, dtype=ref.dtype)
         return out

@@ -1,0 +1,1032 @@
+// K2, K3, K4: blockwise ("flash") attention, forward and backward, written
+// by hand for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of horovod_tpu/ops/flash_attention.py:
+//   K2  _fwd_kernel (:120), launched by _mha_fwd (pl.pallas_call at :193)
+//   K3  _bwd_dq_kernel (:235), launched by _mha_bwd_dq (:361)
+//   K4  _bwd_dkv_kernel (:290), launched by _mha_bwd_dkv (:398)
+// and with them the ring-attention entry points mha_partial, mha_bwd_dq and
+// mha_bwd_dkv (:442-474), which call the same bodies at runtime offsets.
+//
+// What they compute, on [b, h, s, d] tensors (any strides with the head dim
+// contiguous), with q_pos = q_off + i and k_pos = kv_off + j:
+//   K2  s = (q.k) * scale, masked to NEG_INF where causal and q_pos < k_pos;
+//       online softmax over kv tiles: m, l and the o accumulator;
+//       o = acc / max(l, 1e-30) in q's type (normalize) or acc in float32
+//   K3  p = exp(s - lse) (masked to 0), dp = do.v, ds = p * (dp - delta) *
+//       scale; dq = sum_kv ds.k, in float32
+//   K4  dv = sum_q p^T.do, dk = sum_q ds^T.q, in float32
+// following the Pallas bodies' casts: p is rounded to v's (do's) type before
+// its product and ds to k's (q's) type, as p.astype(vb.dtype) (:161) and
+// ds.astype(kb.dtype) (:276, :337) do.  The finite NEG_INF keeps a row whose
+// every key is masked free of NaN: exp(NEG_INF - NEG_INF) = 1 is zeroed by
+// the second mask select, exactly as in the TPU kernel.
+//
+// Design.  On the TPU the kv loop was the innermost, sequential grid
+// dimension with the accumulators in VMEM scratch (:9-13).  Here blocks run
+// in parallel and in no order, so each thread block owns its outputs and
+// loops itself:
+//   K2, K3  one block per (b, h, 64-row q tile), looping over 64-row kv
+//           tiles and stopping at the last tile a causal q tile can see;
+//   K4      one block per (b, h, 64-row kv tile), looping over q tiles from
+//           the first that can see it: each block owns its dk and dv rows,
+//           so no atomics are needed.
+// The ragged tail of either sequence is masked here (the Pallas launcher
+// shrank its blocks to a divisor, _fit_block :95); rows past the end are
+// loaded as zeros and never stored.  Head dims 16, 32, 64 and 128 are
+// template instances.  Two instances per kernel, chosen by the input type:
+//   bfloat16 (the training path)  the four products of each tile run on the
+//           tensor cores as mma.sync m16n8k16 bf16 tiles with float32
+//           accumulation.  4 warps a block, each owning 16 rows of the
+//           block's tile; tiles are staged in shared memory as bf16 (rows
+//           padded by 16 bytes so a warp's fragment loads hit 32 banks)
+//           and read by ldmatrix.trans where a tile is the B operand of a
+//           product over its rows (p.v, ds.k, ...).  A score tile's float32
+//           accumulators are rounded to bf16 and reused in registers as the
+//           A operand of the next product (p.v, ds.k, p^T.do, ds^T.q): that
+//           rounding is the Pallas body's astype.
+//   float32 (parity and tests)  scalar float32 FMAs over float32 tiles in
+//           shared memory, 256 threads, thread (ty, tx) = (t / 16, t % 16)
+//           owning rows 4ty..4ty+3 and columns 4tx..4tx+3 of each 64x64
+//           score tile; the tensor cores would round float32 to TF32.
+//
+// Bound.  At GPT-2 small's shapes (b 4, h 12, s 1024, d 64, causal, bf16)
+// and counting the causal half only: K2 does 4*b*h*d*s^2/2 = 6.4 GFLOP and
+// moves q, k, v and o (4 x 6.3 MB); K3 does 6*b*h*d*s^2/2 = 9.7 GFLOP and
+// moves q, k, v, do (bf16), lse, delta and dq (f32), about 38 MB; K4 does
+// 8*b*h*d*s^2/2 = 12.9 GFLOP and moves about 50 MB.  Against the H100 SXM
+// data sheet (989 TFLOP/s dense bf16, 3.35 TB/s) each is bound by its bytes
+// at 7.5-15 us.  These kernels stay above that bound: mma.sync reaches a
+// fraction of the rate of wgmma, the tiles are loaded by the threads that
+// use them with no copy in flight during the products (no cp.async or TMA
+// pipeline), and K and V (Q and dO in K4) are read again by every q (kv)
+// tile.  wgmma with TMA staging is the later work that the bound calls for.
+// The file is built with --fmad=false for K1; the scalar products here use
+// fmaf explicitly, so they stay fused.
+//
+// Each launch function returns cudaGetLastError() (0 on success); the
+// Python wrapper raises on anything else.  Nothing here allocates or
+// synchronizes; the caller passes its current stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kTile = 64;           // rows of a q tile and of a kv tile
+constexpr float kNegInf = -1e30f;   // NEG_INF of the Pallas kernels
+
+// float32 kernels
+constexpr int kThreads = 256;
+constexpr int kLd = kTile + 4;      // row stride of a transposed tile
+
+// bfloat16 kernels
+constexpr int kMmaThreads = 128;    // 4 warps x 16 rows of the tile
+constexpr int kPad = 8;             // bf16 elements of padding per row
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// One [b, h, s, d] operand: element (b, h, s, e) is at
+// ptr + b*sb + h*sh + s*ss + e.
+struct HvdBhsd {
+  void* ptr;
+  int64_t sb, sh, ss;
+};
+
+// Everything a launch needs; mirrored by kernels.py's _FlashArgs.  Operands
+// a kernel does not use are null.  m, l, lse and delta are contiguous
+// [b, h, sq] float32.
+struct HvdFlashArgs {
+  HvdBhsd q, k, v, o, dout, dq, dk, dv;
+  float* m;
+  float* l;
+  const float* lse;
+  const float* delta;
+  int64_t b, h, sq, sk, d;
+  int64_t q_off, kv_off;
+  float scale;
+  int32_t causal, normalize, dtype;  // dtype: 0 float32, 1 bfloat16
+};
+
+}  // extern "C"
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ T* at(const HvdBhsd& t, int64_t b, int64_t h,
+                                 int64_t s) {
+  return static_cast<T*>(t.ptr) + b * t.sb + h * t.sh + s * t.ss;
+}
+
+__host__ __device__ __forceinline__ int64_t tiles(int64_t n) {
+  return (n + kTile - 1) / kTile;
+}
+
+// kv tiles a q tile whose last position is q_last can see under the causal
+// mask: tile j is visible iff kv_off + j * kTile <= q_last
+__device__ __forceinline__ int64_t causal_kv_tiles(const HvdFlashArgs& a,
+                                                   int64_t q_last) {
+  const int64_t n = tiles(a.sk);
+  const int64_t span = q_last - a.kv_off;
+  if (span < 0) return 0;
+  const int64_t seen = span / kTile + 1;
+  return seen < n ? seen : n;
+}
+
+// kv tiles K2 and K3 visit for the q tile starting at q0
+__device__ __forceinline__ int64_t kv_tiles_for(const HvdFlashArgs& a,
+                                                int64_t q0) {
+  const int64_t q_end = q0 + kTile < a.sq ? q0 + kTile : a.sq;
+  return a.causal ? causal_kv_tiles(a, a.q_off + q_end - 1) : tiles(a.sk);
+}
+
+// first q tile that can see the kv tile starting at k0 under the causal
+// mask: q_off + i0 * kTile + kTile - 1 >= kv_off + k0
+__device__ __forceinline__ int64_t first_q_tile(const HvdFlashArgs& a,
+                                                int64_t k0) {
+  if (!a.causal) return 0;
+  const int64_t need = a.kv_off + k0 - a.q_off - (kTile - 1);
+  return need <= 0 ? 0 : (need + kTile - 1) / kTile;
+}
+
+__device__ __forceinline__ bool visible(const HvdFlashArgs& a, int64_t qi,
+                                        int64_t ki) {
+  return ki < a.sk && qi < a.sq &&
+         (!a.causal || a.q_off + qi >= a.kv_off + ki);
+}
+
+// ===========================================================================
+// float32: scalar FMA over float32 tiles
+// ===========================================================================
+
+// Rows [row0, row0 + kTile) of one (b, h) slice into shared memory, zero
+// past `rows`: transposed into trans[e * kLd + r] and/or as is into
+// plain[r * D + e] (either may be null).
+template <int D>
+__device__ void load_tile(const HvdBhsd& t, int64_t b, int64_t h,
+                          int64_t row0, int64_t rows, float* trans,
+                          float* plain) {
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D;
+    const int e = i % D;
+    float x = 0.f;
+    if (row0 + r < rows) x = at<const float>(t, b, h, row0 + r)[e];
+    if (trans != nullptr) trans[e * kLd + r] = x;
+    if (plain != nullptr) plain[r * D + e] = x;
+  }
+}
+
+// acc[i][j] = sum_e At[e][4ty + i] * Bt[e][4tx + j] over the D rows of two
+// transposed tiles: one 64x64 tile of A.B^T, 4x4 per thread.
+template <int D>
+__device__ __forceinline__ void tile_abt(const float* At, const float* Bt,
+                                         int ty, int tx, float acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int e = 0; e < D; ++e) {
+    const float4 a = *reinterpret_cast<const float4*>(At + e * kLd + 4 * ty);
+    const float4 b = *reinterpret_cast<const float4*>(Bt + e * kLd + 4 * tx);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// C consecutive floats of shared memory (16-byte loads when C allows)
+template <int C>
+__device__ __forceinline__ void load_cols(const float* p, float x[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + c);
+      x[c] = v.x;
+      x[c + 1] = v.y;
+      x[c + 2] = v.z;
+      x[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = p[c];
+  }
+}
+
+// out[i][c] = sum_k P[4ty + i][k] * X[k][tx*C + c], C = D / 16: rows of a
+// 64x64 tile (row stride kLd) times a 64xD tile (row stride D).
+template <int D>
+__device__ __forceinline__ void tile_pv(const float* P, const float* X,
+                                        int ty, int tx,
+                                        float out[4][D / 16]) {
+  constexpr int C = D / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[i][c] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(P + (4 * ty + i) * kLd + k);
+      p[i][0] = v.x;
+      p[i][1] = v.y;
+      p[i][2] = v.z;
+      p[i][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float x[C];
+      load_cols<C>(X + (k + kk) * D + tx * C, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < C; ++c) out[i][c] = fmaf(p[i][kk], x[c], out[i][c]);
+    }
+  }
+}
+
+// Writes a thread's 4x4 values into rows 4ty.. / columns 4tx.. of a tile
+// with row stride kLd.
+__device__ __forceinline__ void store_scores(float* S, int ty, int tx,
+                                             float v[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float4*>(S + (4 * ty + i) * kLd + 4 * tx) =
+        make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+  }
+}
+
+// A row's max / sum over the 16 lanes of a half-warp that share the row.
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// K2, float32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const HvdFlashArgs a) {
+  constexpr int C = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // [D][kLd]
+  float* Kt = Qt + D * kLd;                     // [D][kLd]
+  float* Vs = Kt + D * kLd;                     // [kTile][D]
+  float* Ps = Vs + kTile * D;                   // [kTile][kLd]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  // the last q tiles see the most kv tiles: start them first
+  const int64_t q0 = (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<D>(a.q, bi, hi, q0, a.sq, Qt, nullptr);
+
+  float acc[4][C], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+
+  const int64_t n_kv = kv_tiles_for(a, q0);
+  for (int64_t j = 0; j < n_kv; ++j) {
+    const int64_t k0 = j * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<D>(a.k, bi, hi, k0, a.sk, Kt, nullptr);
+    load_tile<D>(a.v, bi, hi, k0, a.sk, nullptr, Vs);
+    __syncthreads();
+
+    float s[4][4];
+    tile_abt<D>(Qt, Kt, ty, tx, s);
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t qi = q0 + 4 * ty + i;
+      bool ok[4];
+      float mt = kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        // rows past sq are never stored; only the key side is masked
+        const int64_t ki = k0 + 4 * tx + jj;
+        ok[jj] = ki < a.sk && (!a.causal || a.q_off + qi >= a.kv_off + ki);
+        s[i][jj] = ok[jj] ? s[i][jj] * a.scale : kNegInf;
+        mt = fmaxf(mt, s[i][jj]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mt));
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = expf(s[i][jj] - m_new);
+        s[i][jj] = ok[jj] ? p : 0.f;
+        ps += s[i][jj];
+      }
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] = l[i] * alpha[i] + half_warp_sum(ps);
+    }
+    store_scores(Ps, ty, tx, s);
+    __syncwarp();  // a row's writers are its readers
+    float pv[4][C];
+    tile_pv<D>(Ps, Vs, ty, tx, pv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] = acc[i][c] * alpha[i] + pv[i][c];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qi = q0 + 4 * ty + i;
+    if (qi >= a.sq) continue;
+    float* o = at<float>(a.o, bi, hi, qi) + tx * C;
+    const float den = a.normalize ? fmaxf(l[i], 1e-30f) : 1.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      o[c] = a.normalize ? acc[i][c] / den : acc[i][c];
+    if (tx == 0) {
+      a.m[bh * a.sq + qi] = m[i];
+      a.l[bh * a.sq + qi] = l[i];
+    }
+  }
+}
+
+// K3, float32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const HvdFlashArgs a) {
+  constexpr int C = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // [D][kLd]
+  float* dOt = Qt + D * kLd;                    // [D][kLd]
+  float* Kt = dOt + D * kLd;                    // [D][kLd]
+  float* Vt = Kt + D * kLd;                     // [D][kLd]
+  float* Ks = Vt + D * kLd;                     // [kTile][D]
+  float* DS = Ks + kTile * D;                   // [kTile][kLd]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t q0 = (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<D>(a.q, bi, hi, q0, a.sq, Qt, nullptr);
+  load_tile<D>(a.dout, bi, hi, q0, a.sq, dOt, nullptr);
+  float lse[4], delta[4], dq[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qi = q0 + 4 * ty + i;
+    lse[i] = qi < a.sq ? a.lse[bh * a.sq + qi] : 0.f;
+    delta[i] = qi < a.sq ? a.delta[bh * a.sq + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dq[i][c] = 0.f;
+  }
+
+  const int64_t n_kv = kv_tiles_for(a, q0);
+  for (int64_t j = 0; j < n_kv; ++j) {
+    const int64_t k0 = j * kTile;
+    __syncthreads();
+    load_tile<D>(a.k, bi, hi, k0, a.sk, Kt, Ks);
+    load_tile<D>(a.v, bi, hi, k0, a.sk, Vt, nullptr);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_abt<D>(Qt, Kt, ty, tx, s);
+    tile_abt<D>(dOt, Vt, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t qi = q0 + 4 * ty + i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int64_t ki = k0 + 4 * tx + jj;
+        const bool ok =
+            ki < a.sk && (!a.causal || a.q_off + qi >= a.kv_off + ki);
+        const float sv = ok ? s[i][jj] * a.scale : kNegInf;
+        float p = expf(sv - lse[i]);
+        p = ok ? p : 0.f;
+        s[i][jj] = p * (dp[i][jj] - delta[i]) * a.scale;  // ds
+      }
+    }
+    store_scores(DS, ty, tx, s);
+    __syncwarp();
+    float t[4][C];
+    tile_pv<D>(DS, Ks, ty, tx, t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) dq[i][c] += t[i][c];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qi = q0 + 4 * ty + i;
+    if (qi >= a.sq) continue;
+    float* out = at<float>(a.dq, bi, hi, qi) + tx * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = dq[i][c];
+  }
+}
+
+// K4, float32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const HvdFlashArgs a) {
+  constexpr int C = D / 16;
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);  // [D][kLd]
+  float* Vt = Kt + D * kLd;                     // [D][kLd]
+  float* Qt = Vt + D * kLd;                     // [D][kLd]
+  float* dOt = Qt + D * kLd;                    // [D][kLd]
+  float* Qs = dOt + D * kLd;                    // [kTile][D]
+  float* dOs = Qs + kTile * D;                  // [kTile][D]
+  float* PB = dOs + kTile * D;                  // [kTile][kLd]: p, then ds
+  float* lse_s = PB + kTile * kLd;              // [kTile]
+  float* delta_s = lse_s + kTile;               // [kTile]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  load_tile<D>(a.k, bi, hi, k0, a.sk, Kt, nullptr);
+  load_tile<D>(a.v, bi, hi, k0, a.sk, Vt, nullptr);
+  float dk[4][C], dv[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  const int64_t n_q = tiles(a.sq);
+  for (int64_t it = first_q_tile(a, k0); it < n_q; ++it) {
+    const int64_t q0 = it * kTile;
+    __syncthreads();
+    load_tile<D>(a.q, bi, hi, q0, a.sq, Qt, Qs);
+    load_tile<D>(a.dout, bi, hi, q0, a.sq, dOt, dOs);
+    if (threadIdx.x < kTile) {
+      const int64_t qi = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = qi < a.sq ? a.lse[bh * a.sq + qi] : 0.f;
+      delta_s[threadIdx.x] = qi < a.sq ? a.delta[bh * a.sq + qi] : 0.f;
+    }
+    __syncthreads();
+
+    // transposed scores: row = key 4ty + i, column = query 4tx + jj
+    float s[4][4], dp[4][4];
+    tile_abt<D>(Kt, Qt, ty, tx, s);
+    tile_abt<D>(Vt, dOt, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t ki = k0 + 4 * ty + i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int q = 4 * tx + jj;
+        const bool ok = visible(a, q0 + q, ki);
+        const float sv = ok ? s[i][jj] * a.scale : kNegInf;
+        float p = expf(sv - lse_s[q]);
+        p = ok ? p : 0.f;
+        s[i][jj] = p;
+        dp[i][jj] = p * (dp[i][jj] - delta_s[q]) * a.scale;  // ds
+      }
+    }
+    float t[4][C];
+    store_scores(PB, ty, tx, s);
+    __syncwarp();
+    tile_pv<D>(PB, dOs, ty, tx, t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) dv[i][c] += t[i][c];
+    __syncwarp();
+    store_scores(PB, ty, tx, dp);
+    __syncwarp();
+    tile_pv<D>(PB, Qs, ty, tx, t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) dk[i][c] += t[i][c];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t ki = k0 + 4 * ty + i;
+    if (ki >= a.sk) continue;
+    float* dko = at<float>(a.dk, bi, hi, ki) + tx * C;
+    float* dvo = at<float>(a.dv, bi, hi, ki) + tx * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dko[c] = dk[i][c];
+      dvo[c] = dv[i][c];
+    }
+  }
+}
+
+// ===========================================================================
+// bfloat16: mma.sync m16n8k16 on the tensor cores
+// ===========================================================================
+//
+// Fragments of one warp (lane = 4 * g + q): an A tile 16x16 (row major) is
+// four 32-bit registers holding (row g | g+8, columns 2q, 2q+1 | +8); a B
+// tile 16x8 (k x n) is two, holding (k = 2q, 2q+1 | +8, n = g); the float32
+// accumulator 16x8 is (row g | g+8, columns 2q, 2q+1).  A 16x64 score tile
+// is 8 accumulators s[n] over columns 8n..8n+7.
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a . b
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices of shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 and receives, of matrix i, the
+// elements (2q, g) and (2q + 1, g) in register i.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Rows [row0, row0 + kTile) of one (b, h) slice into shared memory as bf16,
+// dst[r * (D + kPad) + e], zero past `rows`.  16-byte loads where the
+// operand's address and strides allow them.
+template <int D>
+__device__ void load_tile_bf16(const HvdBhsd& t, int64_t b, int64_t h,
+                               int64_t row0, int64_t rows, bf16* dst) {
+  constexpr int LD = D + kPad, C = D / 8;
+  const bool vec = ((reinterpret_cast<uintptr_t>(t.ptr) |
+                     static_cast<uintptr_t>((t.sb | t.sh | t.ss) * 2)) &
+                    15) == 0;
+  const bf16* base = at<const bf16>(t, b, h, 0);
+  for (int i = threadIdx.x; i < kTile * C; i += kMmaThreads) {
+    const int r = i / C;
+    const int c = (i % C) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows) {
+      const bf16* src = base + (row0 + r) * t.ss + c;
+      if (vec) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) e[k] = src[k];
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+  }
+}
+
+// s = X[r0 .. r0+16) . Y^T over all kTile rows of Y: a warp's 16x64 score
+// tile from two row-major [kTile][D + kPad] tiles.
+template <int D>
+__device__ __forceinline__ void warp_abt(const bf16* X, const bf16* Y,
+                                         int r0, int lane, float s[8][4]) {
+  constexpr int LD = D + kPad;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; k += 16) {
+    const uint32_t a[4] = {ld32(X + (r0 + g) * LD + k + q),
+                           ld32(X + (r0 + g + 8) * LD + k + q),
+                           ld32(X + (r0 + g) * LD + k + q + 8),
+                           ld32(X + (r0 + g + 8) * LD + k + q + 8)};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const bf16* y = Y + (n * 8 + g) * LD + k + q;
+      mma_bf16(s[n], a, ld32(y), ld32(y + 8));
+    }
+  }
+}
+
+// out += bf16(p) . X for a warp's 16x64 tile p and the row-major
+// [kTile][D + kPad] tile X; p's rounding to bf16 is the Pallas body's
+// astype before the product.  The B fragments of X's rows 16k..16k+15 and
+// columns 8n..8n+15 come from one ldmatrix.x4.trans.
+template <int D>
+__device__ __forceinline__ void warp_pv(const float p[8][4], const bf16* X,
+                                        int lane, float out[D / 8][4]) {
+  constexpr int LD = D + kPad;
+  const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t a[4] = {pack_bf16(p[2 * k][0], p[2 * k][1]),
+                           pack_bf16(p[2 * k][2], p[2 * k][3]),
+                           pack_bf16(p[2 * k + 1][0], p[2 * k + 1][1]),
+                           pack_bf16(p[2 * k + 1][2], p[2 * k + 1][3])};
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, X + (k * 16 + (i & 1) * 8 + r) * LD +
+                           (n + (i >> 1)) * 8);
+      mma_bf16(out[n], a, b[0], b[1]);
+      mma_bf16(out[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Keys [k0, k0 + n) of a kv tile that query qi sees (the same mask as
+// the float32 kernels', computed once a row), n in [0, kTile].
+__device__ __forceinline__ int keys_seen(const HvdFlashArgs& a, int64_t qi,
+                                         int64_t k0) {
+  int64_t n = a.sk - k0;
+  if (a.causal) {
+    const int64_t c = a.q_off + qi - a.kv_off - k0 + 1;
+    n = c < n ? c : n;
+  }
+  return static_cast<int>(n < 0 ? 0 : (n > kTile ? kTile : n));
+}
+
+// Queries [q0 + lo, q0 + hi) of a q tile that key ki sees: visible().
+__device__ __forceinline__ void queries_seen(const HvdFlashArgs& a,
+                                             int64_t ki, int64_t q0,
+                                             int& lo, int& hi) {
+  const int64_t h = ki < a.sk ? a.sq - q0 : 0;
+  const int64_t l = a.causal ? a.kv_off + ki - a.q_off - q0 : 0;
+  hi = static_cast<int>(h < 0 ? 0 : (h > kTile ? kTile : h));
+  lo = static_cast<int>(l < 0 ? 0 : (l > kTile ? kTile : l));
+}
+
+// A row's max / sum over the 4 lanes that share it.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Row `row` of a [.., D] output, from a warp's accumulators over columns
+// 8n + 2q, 8n + 2q + 1 (half hf: accumulator entries 2hf, 2hf + 1).
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* row, const float acc[D / 8][4],
+                                          int hf, int q, float den) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if constexpr (sizeof(T) == 2) {
+      row[n * 8 + q] = __float2bfloat16_rn(acc[n][2 * hf] / den);
+      row[n * 8 + q + 1] = __float2bfloat16_rn(acc[n][2 * hf + 1] / den);
+    } else {
+      row[n * 8 + q] = acc[n][2 * hf];
+      row[n * 8 + q + 1] = acc[n][2 * hf + 1];
+    }
+  }
+}
+
+// K2, bfloat16
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const HvdFlashArgs a) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);  // [kTile][LD]
+  bf16* Ks = Qs + kTile * LD;                   // [kTile][LD]
+  bf16* Vs = Ks + kTile * LD;                   // [kTile][LD]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t q0 = (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kTile;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+
+  load_tile_bf16<D>(a.q, bi, hi, q0, a.sq, Qs);
+  float o[D / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+
+  const int64_t n_kv = kv_tiles_for(a, q0);
+  for (int64_t j = 0; j < n_kv; ++j) {
+    const int64_t k0 = j * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile_bf16<D>(a.k, bi, hi, k0, a.sk, Ks);
+    load_tile_bf16<D>(a.v, bi, hi, k0, a.sk, Vs);
+    __syncthreads();
+
+    float s[8][4];
+    warp_abt<D>(Qs, Ks, r0, lane, s);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      // rows past sq are never stored; only the key side is masked
+      const int seen = keys_seen(a, q0 + r0 + g + 8 * hf, k0);
+      float mt = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hf + e];
+          x = n * 8 + q + e < seen ? x * a.scale : kNegInf;
+          mt = fmaxf(mt, x);
+        }
+      const float m_new = fmaxf(m[hf], quad_max(mt));
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hf + e];
+          x = n * 8 + q + e < seen ? expf(x - m_new) : 0.f;
+          ps += x;
+        }
+      const float alpha = expf(m[hf] - m_new);
+      m[hf] = m_new;
+      l[hf] = l[hf] * alpha + quad_sum(ps);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * hf] *= alpha;
+        o[n][2 * hf + 1] *= alpha;
+      }
+    }
+    warp_pv<D>(s, Vs, lane, o);
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t qi = q0 + r0 + g + 8 * hf;
+    if (qi >= a.sq) continue;
+    if (a.normalize)
+      store_row<bf16, D>(at<bf16>(a.o, bi, hi, qi), o, hf, q,
+                         fmaxf(l[hf], 1e-30f));
+    else
+      store_row<float, D>(at<float>(a.o, bi, hi, qi), o, hf, q, 1.f);
+    if (q == 0) {
+      a.m[bh * a.sq + qi] = m[hf];
+      a.l[bh * a.sq + qi] = l[hf];
+    }
+  }
+}
+
+// K3, bfloat16
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma_kernel(const HvdFlashArgs a) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);  // [kTile][LD]
+  bf16* dOs = Qs + kTile * LD;                  // [kTile][LD]
+  bf16* Ks = dOs + kTile * LD;                  // [kTile][LD]
+  bf16* Vs = Ks + kTile * LD;                   // [kTile][LD]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t q0 = (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kTile;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+
+  load_tile_bf16<D>(a.q, bi, hi, q0, a.sq, Qs);
+  load_tile_bf16<D>(a.dout, bi, hi, q0, a.sq, dOs);
+  float lse[2], delta[2], dq[D / 8][4];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t qi = q0 + r0 + g + 8 * hf;
+    lse[hf] = qi < a.sq ? a.lse[bh * a.sq + qi] : 0.f;
+    delta[hf] = qi < a.sq ? a.delta[bh * a.sq + qi] : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  const int64_t n_kv = kv_tiles_for(a, q0);
+  for (int64_t j = 0; j < n_kv; ++j) {
+    const int64_t k0 = j * kTile;
+    __syncthreads();
+    load_tile_bf16<D>(a.k, bi, hi, k0, a.sk, Ks);
+    load_tile_bf16<D>(a.v, bi, hi, k0, a.sk, Vs);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    warp_abt<D>(Qs, Ks, r0, lane, s);
+    warp_abt<D>(dOs, Vs, r0, lane, dp);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int seen = keys_seen(a, q0 + r0 + g + 8 * hf, k0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = n * 8 + q + e < seen;
+          const int i = 2 * hf + e;
+          const float sv = ok ? s[n][i] * a.scale : kNegInf;
+          float p = expf(sv - lse[hf]);
+          p = ok ? p : 0.f;
+          s[n][i] = p * (dp[n][i] - delta[hf]) * a.scale;  // ds
+        }
+    }
+    warp_pv<D>(s, Ks, lane, dq);  // ds.astype(k.dtype) . k
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t qi = q0 + r0 + g + 8 * hf;
+    if (qi < a.sq)
+      store_row<float, D>(at<float>(a.dq, bi, hi, qi), dq, hf, q, 1.f);
+  }
+}
+
+// K4, bfloat16
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma_kernel(const HvdFlashArgs a) {
+  constexpr int LD = D + kPad;
+  extern __shared__ uint4 smem_u4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_u4);  // [kTile][LD]
+  bf16* Vs = Ks + kTile * LD;                   // [kTile][LD]
+  bf16* Qs = Vs + kTile * LD;                   // [kTile][LD]
+  bf16* dOs = Qs + kTile * LD;                  // [kTile][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + kTile * LD);  // [kTile]
+  float* delta_s = lse_s + kTile;                              // [kTile]
+
+  const int64_t bh = blockIdx.x;
+  const int64_t bi = bh / a.h, hi = bh % a.h;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kTile;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+
+  load_tile_bf16<D>(a.k, bi, hi, k0, a.sk, Ks);
+  load_tile_bf16<D>(a.v, bi, hi, k0, a.sk, Vs);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  const int64_t n_q = tiles(a.sq);
+  for (int64_t it = first_q_tile(a, k0); it < n_q; ++it) {
+    const int64_t q0 = it * kTile;
+    __syncthreads();
+    load_tile_bf16<D>(a.q, bi, hi, q0, a.sq, Qs);
+    load_tile_bf16<D>(a.dout, bi, hi, q0, a.sq, dOs);
+    if (threadIdx.x < kTile) {
+      const int64_t qi = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = qi < a.sq ? a.lse[bh * a.sq + qi] : 0.f;
+      delta_s[threadIdx.x] = qi < a.sq ? a.delta[bh * a.sq + qi] : 0.f;
+    }
+    __syncthreads();
+
+    // transposed scores: row = this warp's key, column = query
+    float s[8][4], dp[8][4];
+    warp_abt<D>(Ks, Qs, r0, lane, s);
+    warp_abt<D>(Vs, dOs, r0, lane, dp);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      int lo, hi;
+      queries_seen(a, k0 + r0 + g + 8 * hf, q0, lo, hi);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n * 8 + q + e;
+          const int i = 2 * hf + e;
+          const bool ok = lo <= c && c < hi;
+          const float sv = ok ? s[n][i] * a.scale : kNegInf;
+          float p = expf(sv - lse_s[c]);
+          p = ok ? p : 0.f;
+          s[n][i] = p;
+          dp[n][i] = p * (dp[n][i] - delta_s[c]) * a.scale;  // ds
+        }
+    }
+    warp_pv<D>(s, dOs, lane, dv);   // p.astype(do.dtype)^T . do
+    warp_pv<D>(dp, Qs, lane, dk);   // ds.astype(q.dtype)^T . q
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t ki = k0 + r0 + g + 8 * hf;
+    if (ki >= a.sk) continue;
+    store_row<float, D>(at<float>(a.dk, bi, hi, ki), dk, hf, q, 1.f);
+    store_row<float, D>(at<float>(a.dv, bi, hi, ki), dv, hf, q, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+enum class Kind { kFwd, kDq, kDkv };
+
+template <int D>
+constexpr size_t smem_f32(Kind kind) {
+  return sizeof(float) *
+         (kind == Kind::kFwd
+              ? 2 * D * kLd + kTile * D + kTile * kLd
+              : kind == Kind::kDq
+                    ? 4 * D * kLd + kTile * D + kTile * kLd
+                    : 4 * D * kLd + 2 * kTile * D + kTile * kLd + 2 * kTile);
+}
+
+template <int D>
+constexpr size_t smem_bf16(Kind kind) {
+  constexpr size_t tile = sizeof(bf16) * kTile * (D + kPad);
+  return kind == Kind::kFwd ? 3 * tile
+                            : 4 * tile + (kind == Kind::kDkv
+                                              ? sizeof(float) * 2 * kTile
+                                              : 0);
+}
+
+cudaError_t run(void (*kernel)(const HvdFlashArgs), int threads, size_t smem,
+                Kind kind, const HvdFlashArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t n_tiles = tiles(kind == Kind::kDkv ? a.sk : a.sq);
+  const int64_t bh = a.b * a.h;
+  if (bh > 0x7fffffff || n_tiles > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>(n_tiles));
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(Kind kind, const HvdFlashArgs& a, cudaStream_t stream) {
+  if (a.dtype == 0) {
+    void (*kernel)(const HvdFlashArgs) =
+        kind == Kind::kFwd  ? &flash_fwd_kernel<D>
+        : kind == Kind::kDq ? &flash_bwd_dq_kernel<D>
+                            : &flash_bwd_dkv_kernel<D>;
+    return run(kernel, kThreads, smem_f32<D>(kind), kind, a, stream);
+  }
+  if (a.dtype == 1) {
+    void (*kernel)(const HvdFlashArgs) =
+        kind == Kind::kFwd  ? &flash_fwd_mma_kernel<D>
+        : kind == Kind::kDq ? &flash_bwd_dq_mma_kernel<D>
+                            : &flash_bwd_dkv_mma_kernel<D>;
+    return run(kernel, kMmaThreads, smem_bf16<D>(kind), kind, a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int dispatch(Kind kind, const HvdFlashArgs* a, void* stream) {
+  if (a->b * a->h == 0 || (kind == Kind::kDkv ? a->sk : a->sq) == 0)
+    return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (a->d) {
+    case 16:
+      return launch<16>(kind, *a, st);
+    case 32:
+      return launch<32>(kind, *a, st);
+    case 64:
+      return launch<64>(kind, *a, st);
+    case 128:
+      return launch<128>(kind, *a, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int hvd_flash_fwd(const HvdFlashArgs* a, void* stream) {
+  return dispatch(Kind::kFwd, a, stream);
+}
+
+int hvd_flash_bwd_dq(const HvdFlashArgs* a, void* stream) {
+  return dispatch(Kind::kDq, a, stream);
+}
+
+int hvd_flash_bwd_dkv(const HvdFlashArgs* a, void* stream) {
+  return dispatch(Kind::kDkv, a, stream);
+}
+
+}  // extern "C"

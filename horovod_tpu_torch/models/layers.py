@@ -12,16 +12,28 @@ compute what flax computes.
   the *biased* batch variance, where ``nn.BatchNorm2d`` takes the
   unbiased one.  The statistics are this replica's own (not synced
   across ranks), as in the reference.
-* :class:`Dense` — ``nn.Dense``.
+* :class:`Dense` — ``nn.Dense``; with ``dtype`` set it computes in that
+  dtype, casting input, kernel and bias as flax's ``promote_dtype`` does.
+* :class:`DenseGeneral` — ``nn.DenseGeneral`` from trailing input axes
+  to an output shape (the attention projections).
+* :class:`Embed` — ``nn.Embed``: lookup, and :meth:`Embed.attend` for a
+  tied output head.
+* :class:`LayerNorm` — ``nn.LayerNorm`` with flax's defaults, which are
+  not torch's: epsilon 1e-6 and the fast variance ``E[x²] − E[x]²``
+  clamped at 0, statistics in (at least) float32, output in ``dtype``.
 
 Kernels are initialized like flax's ``lecun_normal`` (a normal truncated
-at two standard deviations, variance ``1/fan_in``), from an explicit
-``torch.Generator``.  Parameters keep torch's layouts (OIHW convs,
-``[out, in]`` linears); ``convert.py`` maps them to flax's.
+at two standard deviations, variance ``1/fan_in``), embeddings like its
+``variance_scaling(1, "fan_in", "normal", out_axis=0)`` (a plain normal
+of variance ``1/features``), from an explicit ``torch.Generator``.
+Parameters keep torch's layouts (OIHW convs, ``[out, in]`` linears, and
+``[prod(out), prod(in)]`` for :class:`DenseGeneral`); ``convert.py``
+maps them to flax's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -76,14 +88,96 @@ class Conv(nn.Conv2d):
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense``: lecun-normal kernel, zero bias."""
+    """flax ``nn.Dense``: lecun-normal kernel, zero bias.  ``dtype=None``
+    leaves the dtype to the caller (the ResNet and MLP run it under
+    autocast)."""
 
     def __init__(self, in_features: int, features: int, *,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(in_features, features)
+        self.dtype = dtype
         lecun_normal_(self.weight, generator)
         with torch.no_grad():
             self.bias.zero_()
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral``: contracts the trailing ``in_shape`` axes
+    into ``out_shape`` in ``dtype``.  The kernel is kept as a linear
+    ``weight [prod(out_shape), prod(in_shape)]`` and the bias as
+    ``[prod(out_shape)]``; flax's are ``in_shape + out_shape`` and
+    ``out_shape``."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 *, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(math.prod(self.out_shape),
+                                               math.prod(self.in_shape)))
+        self.bias = nn.Parameter(torch.zeros(math.prod(self.out_shape)))
+        lecun_normal_(self.weight, generator)
+
+    def forward(self, x):
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        y = F.linear(x.reshape(*lead, -1).to(self.dtype),
+                     self.weight.to(self.dtype), self.bias.to(self.dtype))
+        return y.reshape(*lead, *self.out_shape)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: ``weight [num_embeddings, features]`` (flax's
+    ``embedding``, same layout)."""
+
+    def __init__(self, num_embeddings: int, features: int, *,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        with torch.no_grad():
+            self.weight.normal_(0.0, (1.0 / features) ** 0.5,
+                                generator=generator)
+
+    def forward(self, ids):
+        # gather, then cast: the same values as flax's cast-then-take
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+    def attend(self, query):
+        """``query · embeddingᵀ`` with both promoted to ``dtype``, as
+        flax's ``promote_dtype`` does: a tied head in bf16."""
+        return torch.matmul(query.to(self.dtype),
+                            self.weight.to(self.dtype).t())
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()`` over the last dim, in flax's arithmetic:
+    ``mul = rsqrt(var + eps) · scale;  y = (x − mean) · mul + bias``."""
+
+    def __init__(self, features: int, *, epsilon: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xs.mean(-1, keepdim=True)
+        var = torch.clamp_min((xs * xs).mean(-1, keepdim=True)
+                              - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
 class BatchNorm(nn.Module):

@@ -1,5 +1,5 @@
 """Analytic FLOP accounting and the card's peak rates for MFU and
-roofline numbers.
+roofline numbers: the port of ``horovod_tpu/utils/flops.py``.
 
 Every consumer divides by :func:`peak_flops` / :func:`hbm_bytes_per_sec`,
 never by the raw constants, so the ``HVD_PEAK_FLOPS`` /
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import env as env_util
+from .tree import tree_flatten
 
 #: H100 SXM data sheet: dense bf16 tensor-core rate, FLOP/s
 H100_PEAK_FLOPS = 989e12
@@ -45,3 +46,33 @@ def image_model_mfu(img_per_sec_per_chip: float,
     """MFU of an image model from its measured per-card throughput."""
     peak = peak if peak is not None else peak_flops()
     return float(img_per_sec_per_chip) * float(flops_per_image) / peak
+
+
+def param_count(params) -> int:
+    """Elements in a dict (or nested dicts / lists) of tensors."""
+    return int(sum(t.numel() for t in tree_flatten(params)[0]))
+
+
+def transformer_train_flops_per_seq(n_params: int, num_layers: int,
+                                    hidden_dim: int, seq_len: int, *,
+                                    causal: bool = False) -> float:
+    """Training FLOPs of one sequence of a decoder or encoder (PaLM
+    appendix B): 6·N per token of parameter math, forward and backward,
+    plus the attention score and value products, 12·L·s·d per token,
+    halved for a causal model whose kernels skip fully-future blocks."""
+    attn_per_token = 12.0 * num_layers * seq_len * hidden_dim
+    if causal:
+        attn_per_token /= 2.0
+    return seq_len * (6.0 * n_params + attn_per_token)
+
+
+def transformer_mfu(seq_per_sec_per_chip: float, n_params: int,
+                    num_layers: int, hidden_dim: int, seq_len: int, *,
+                    causal: bool = False,
+                    peak_flops: Optional[float] = None) -> float:
+    """MFU of a Transformer from its measured per-card sequences/s."""
+    fps = transformer_train_flops_per_seq(
+        n_params, num_layers, hidden_dim, seq_len, causal=causal)
+    if peak_flops is None:
+        peak_flops = globals()["peak_flops"]()
+    return seq_per_sec_per_chip * fps / peak_flops

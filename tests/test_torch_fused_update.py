@@ -20,7 +20,7 @@ import torch
 from horovod_tpu.optim import fused_update as ref_fu
 from horovod_tpu_torch import kernels
 from horovod_tpu_torch.convert import (
-    fused_opt_state_from_flax, to_flax_layout, to_torch_layout,
+    Layout, fused_opt_state_from_flax, to_flax_layout, to_torch_layout,
 )
 from horovod_tpu_torch.optim import fused_update as fu
 
@@ -161,7 +161,9 @@ def test_converted_reference_state_continues_identically(rule):
             np.asarray(flat[k])))) for k in sorted(flat)}
 
     tp = torch_canonical(rp)
-    ts = fused_opt_state_from_flax(rs.count, rs.mu, rs.nu, tp)
+    # the Conv / Dense rule, as canonical_layouts gives it for these layers
+    layouts = {k: Layout.of_rank(t.shape) for k, t in tp.items()}
+    ts = fused_opt_state_from_flax(rs.count, rs.mu, rs.nu, tp, layouts)
     assert ts.count == 2
     rp, rs = ref_opt.fused_update(jax.tree_util.tree_map(jnp.asarray,
                                                          grads[2]), rs, rp)
@@ -171,7 +173,7 @@ def test_converted_reference_state_continues_identically(rule):
         np.testing.assert_allclose(to_flax_layout(tp[k].numpy()),
                                    to_flax_layout(want[k].numpy()),
                                    rtol=RTOL, atol=ATOL)
-    back = fused_opt_state_from_flax(rs.count, rs.mu, rs.nu, tp)
+    back = fused_opt_state_from_flax(rs.count, rs.mu, rs.nu, tp, layouts)
     for name in back.mu:
         np.testing.assert_allclose(ts.mu[name].numpy(),
                                    back.mu[name].numpy(), rtol=RTOL,

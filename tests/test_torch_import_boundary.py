@@ -39,13 +39,18 @@ import horovod_tpu_torch
 for m in pkgutil.walk_packages(horovod_tpu_torch.__path__, "horovod_tpu_torch."):
     importlib.import_module(m.name)
 import horovod_tpu_torch.examples.synthetic_benchmark
+import horovod_tpu_torch.examples.gpt_synthetic_benchmark
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "horovod_tpu_torch.training" in mods
+    for m in ("horovod_tpu_torch.training", "horovod_tpu_torch.models.gpt",
+              "horovod_tpu_torch.models.bert",
+              "horovod_tpu_torch.ops.flash_attention",
+              "horovod_tpu_torch.examples.gpt_synthetic_benchmark"):
+        assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 
@@ -90,6 +95,48 @@ def test_benchmark_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sb.run(sb.parse_args(["--model", "ResNet18"]))
     assert not core.is_initialized()
+
+
+def test_gpt_benchmark_without_cuda_raises(monkeypatch):
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    core.shutdown()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gb.run(gb.parse_args(["--model", "tiny"]))
+    assert not core.is_initialized()
+
+
+def test_library_attention_is_never_called_by_the_port():
+    """scaled_dot_product_attention (and cuDNN's or any fused attention)
+    is only timed beside K2 in chip_smoke.py; the package never calls
+    it."""
+    hits = [str(f.relative_to(REPO)) for f in sorted(PKG.rglob("*.py"))
+            if "scaled_dot_product_attention" in f.read_text()]
+    assert hits == []
+    assert "scaled_dot_product_attention" in (REPO / "chip_smoke.py"
+                                              ).read_text()
+
+
+def test_flash_wrapper_binds_every_kernel_entry_point():
+    """csrc/flash_attention.cu's C entry points and the argument block
+    kernels.py hands them: one name for one name, field for field."""
+    from horovod_tpu_torch import kernels
+
+    src = (PKG / "csrc" / "flash_attention.cu").read_text()
+    for fn in ("hvd_flash_fwd", "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"):
+        assert f"int {fn}(const HvdFlashArgs* a, void* stream)" in src
+        assert f"lib.{fn}" in (PKG / "kernels.py").read_text()
+    body = src[src.index("struct HvdFlashArgs {"):]
+    body = body[:body.index("};")]
+    declared = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            first, *rest = decl.split(",")
+            declared += [n.strip(" *") for n in [first.split()[-1], *rest]]
+    assert declared == [n for n, _ in kernels._FlashArgs._fields_]
 
 
 def test_kernel_wrapper_never_falls_back_for_cuda_tensors():

@@ -40,7 +40,8 @@ from horovod_tpu.models.resnet import ResNet50 as RefResNet50
 from horovod_tpu.optim import fused_update as ref_fu
 from horovod_tpu_torch import core, training
 from horovod_tpu_torch.convert import (
-    export_flax_variables, flatten_flax, load_flax_variables,
+    canonical_layouts, export_flax_variables, flatten_flax,
+    load_flax_variables,
 )
 from horovod_tpu_torch.models import MLP, ResNet18, ResNet50
 from horovod_tpu_torch.optim.fused_update import fused_sgd
@@ -116,7 +117,8 @@ def _port_run(model, x, y, *, fused, batch_stats):
         losses.append(loss.item())
     assert state.step == STEPS and state.opt_state.count == STEPS
     stats = {k: t.numpy() for k, t in state.model_state.items()}
-    return np.asarray(losses), export_flax_variables(state.params), stats
+    return np.asarray(losses), export_flax_variables(
+        state.params, canonical_layouts(model)), stats
 
 
 def _close(got, want, tol, err_msg=""):

@@ -105,7 +105,7 @@ def _task_train_mlp(workdir: Path):
 
     import horovod_tpu_torch as htt
     from horovod_tpu_torch.convert import (
-        export_flax_variables, load_flax_variables,
+        canonical_layouts, export_flax_variables, load_flax_variables,
     )
     from horovod_tpu_torch.models import MLP
 
@@ -131,7 +131,7 @@ def _task_train_mlp(workdir: Path):
         state, loss = step(state, x, y)
         losses.append(loss.item())
     out = {f"p:{k}": v for k, v in export_flax_variables(
-        state.params).items()}
+        state.params, canonical_layouts(model)).items()}
     out["losses"] = np.asarray(losses)
     htt.shutdown()
     return out
