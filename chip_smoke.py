@@ -47,14 +47,40 @@ Phases, each printing one JSON line:
    per fusion bucket per step; reports img/s and MFU.
 8. profile — 3 more ResNet-50 steps under torch.profiler: device time
    per step by kind of kernel and the device's idle share.
-9. rules   — the same trainer 3 steps each with fused SGD and fused Adam,
+9. elementwise_kernels — K6, K6' and K7 (the ResNet joins) against their
+   plain versions, bit for bit, in bf16 and float32 at ResNet-50's join
+   shapes, a ragged row count, C = 36, an operand off 16-byte alignment
+   and the expanded gradient of the final mean; then each kernel's time
+   at [128, 56, 56, 256] bf16 beside its plain version's, its bound and,
+   for K6', ``threshold_backward`` (timed only).
+10. conv_kernels — K8, K9 and K10 (the fused 3x3 conv's three epilogues)
+   against their plain versions at ResNet-50's four stride-1 3x3 shapes
+   in bf16 (row by row in norm, ``CONV_BF16_*``) and at small float32,
+   rectangular, odd-size, C = 24, 3-channel and misaligned cases; K9's
+   sums relative (``CONV_SUM_RTOL``).  Then each kernel's time at the four
+   shapes beside its plain version's, its bound and ``F.conv2d``'s on
+   channels-last bf16 (the conv alone, timed only).
+11. variants_parity — narrow ResNet-18 and ResNet-50 with
+   ``norm_act``, ``residual_join`` and ``conv_bn`` set to "pallas",
+   trained 2 steps in float32 on the card (K6-K10, K1) and on the CPU
+   (plain), TF32 off; losses, parameters, statistics, then the eval
+   forward's logits (K8); launches counted against the models' modules.
+12. variants_main_path — the synthetic benchmark with the three options:
+   ResNet-50, 224x224, batch 128, bf16, fused momentum.  Checks a finite
+   loss, per step K6 20, K6' 36, K7 16, K9 13, K10 13, K8 0, K1 momentum
+   1, no flash launch and one gradient ``all_reduce`` per fusion bucket;
+   reports img/s, MFU and peak memory beside the default path's img/s;
+   then one eval forward of a batch: K8 13, K9 0, finite logits.
+13. variants_profile — 3 of those steps under torch.profiler, by kind
+   (``K6-K7`` and ``K8-K10`` for the port's kernels).
+14. rules   — the same trainer 3 steps each with fused SGD and fused Adam,
    so every K1 rule runs on a training path.
-10. gpt_main_path — ``examples.gpt_synthetic_benchmark.run`` at its
+15. gpt_main_path — ``examples.gpt_synthetic_benchmark.run`` at its
    defaults: GPT-2 small, batch 4, seq 1024, bf16, flash attention,
    fused Adam, world size 1 over NCCL.  Checks a finite loss, K2, K3 and
    K4 each launched 12 times a step, K1 adam once a step, one gradient
    ``all_reduce`` per fusion bucket per step; reports seq/s and MFU.
-11. gpt_profile — 3 GPT-2 small steps under torch.profiler, by kind
+16. gpt_profile — 3 GPT-2 small steps under torch.profiler, by kind
    (``flash`` for K2-K4, ``matmul`` for the projections).
 
 Every kernel count is set to 0 just before each main path and read just
@@ -64,6 +90,8 @@ non-zero before the last line.
 
 ``--flash-only`` runs the device, build and flash_kernels phases alone
 and prints no last line: the quick check of a change to K2-K4.
+``--variants-only`` runs the device and build phases and phases 9-13,
+then a kernels line of K6-K10, and prints no last line.
 """
 
 import copy
@@ -165,6 +193,59 @@ FLASH_KERNELS = {
     "K3": ("flash_bwd_dq", "horovod_tpu/ops/flash_attention.py:235"),
     "K4": ("flash_bwd_dkv", "horovod_tpu/ops/flash_attention.py:290"),
 }
+
+
+#: the three ResNet options whose kernels are K6-K10
+VARIANTS = {"norm_act": "pallas", "residual_join": "pallas",
+            "conv_bn": "pallas"}
+#: per kernel: (name, the Pallas body it replaces)
+EW_KERNELS = {
+    "K6": ("scale_bias_relu", "horovod_tpu/ops/elementwise.py:105"),
+    "K6'": ("relu_grad", "horovod_tpu/ops/elementwise.py:39"),
+    "K7": ("residual_relu", "horovod_tpu/ops/elementwise.py:35"),
+}
+CONV_KERNELS = {
+    "K8": ("conv3x3_bn_relu", "horovod_tpu/ops/conv_bn.py:52"),
+    "K9": ("conv3x3_stats", "horovod_tpu/ops/conv_bn.py:61"),
+    "K10": ("conv3x3_plain", "horovod_tpu/ops/conv_bn.py:79"),
+}
+#: the largest residual join of ResNet-50 at batch 128: the timing shape
+EW_SHAPE = (128, 56, 56, 256)
+#: ResNet-50's stride-1 3x3 convs at batch 128: (spatial size, channels,
+#: launches of each a step: the 3, 3, 5 and 2 stride-1 blocks of a stage)
+CONV_SHAPES = ((56, 64, 3), (28, 128, 3), (14, 256, 5), (7, 512, 2))
+#: launches a ResNet-50 train step with all three options makes: K6 in
+#: bn_init, each block's first norm and the 3 stride-2 3x3 norms; K6' in
+#: the backward of each K6 and K7; K7 in each of the 16 blocks; K9 and
+#: K10 in the 13 stride-1 blocks' fused 3x3 (K8 runs in eval only)
+VARIANT_STEP_LAUNCHES = {"scale_bias_relu": 20, "relu_grad": 36,
+                         "residual_relu": 16, "stats": 13, "plain": 13}
+
+#: K6, K6' and K7 against their plain versions: bit-equal.  The kernels
+#: round where the plain versions round (built with --fmad=false), so
+#: there is no summation order to differ in.
+#: K8-K10 against their plain versions (the nine-tap matmuls in float32):
+#: both sum the same float32 products in other orders.  float32 outputs
+#: elementwise, rtol CONV_F32_RTOL plus CONV_F32_ATOL of the largest
+#: output (the JAX tests' own 1e-4 against XLA's conv).  bf16 outputs row
+#: by row in norm (``row_rel_err`` over Cout): a summation-order
+#: difference of ~1e-6 flips the bf16 rounding of a few elements by one
+#: ulp (2^-8 relative to a typical row), so the largest row error is
+#: held to one ulp, 2^-7, and the mean row error to CONV_BF16_MEAN_LIMIT;
+#: Sound runs read at most 4.3e-3 (largest) and 6.5e-5 (mean); planted
+#: faults fail: the centre tap skipped reads 0.86 / 0.32, a truncating
+#: bf16 cast (no rounding) 6.9e-3 / 3.9e-3, caught by the mean.
+CONV_F32_RTOL, CONV_F32_ATOL = 1e-4, 1e-5
+CONV_BF16_ROW_LIMIT = 2 ** -7
+CONV_BF16_MEAN_LIMIT = 5e-4
+#: K9's sums against the plain version's: |sum - plain| over the column's
+#: sum of |y| and |sumsq - plain| over the plain sumsq.  The tensor cores'
+#: float32 accumulation truncates in its alignment step, so each acc sits
+#: a little toward zero and sumsq carries a one-sided bias that grows with
+#: K = 9 Cin: sound runs read up to 1.4e-6 (Cin 64) to 8.0e-6 (Cin 512)
+#: for sumsq, 2.4e-7 for sum; the limit is about 6x the worst.  A conv
+#: missing a tap is off by ~0.1 or more.
+CONV_SUM_RTOL = 5e-5
 
 
 def emit(obj) -> None:
@@ -505,6 +586,537 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     return results
 
 
+# ---------------------------------------------------------------------------
+# K6, K6', K7 and K8-K10: the ResNet kernel variants
+# ---------------------------------------------------------------------------
+def _bound(flops_mod, flops: float, nbytes: float, peak: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over ``peak``."""
+    bytes_ms = nbytes / flops_mod.hbm_bytes_per_sec() * 1e3
+    ops_ms = flops / peak * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _seeded(shape, dtype, seed, scale=1.0, offset=False):
+    """Seeded normal values on the card; ``offset``: contiguous one
+    element past an aligned address (the kernels' scalar paths)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, device="cuda", generator=gen) * scale).to(dtype)
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)
+    return buf[1:].view(shape).copy_(x)
+
+
+def phase_elementwise_kernels(kernels, ew, flops_mod):
+    """K6, K6' and K7 against their plain versions, bit for bit, on seeded
+    bf16 and float32 inputs: ResNet-50's join shapes, a ragged row count,
+    C = 36, an operand off 16-byte alignment, and the expanded (stride-0)
+    gradient that the last block's mean hands back.  Then each kernel's
+    time at [128, 56, 56, 256] bf16 beside its plain version's and its
+    bound."""
+    before = dict(kernels.elementwise_launches)
+    cases = []
+    shapes = [EW_SHAPE, (128, 112, 112, 64), (128, 7, 7, 2048),
+              (3, 5, 7, 64), (2, 5, 5, 36)]
+    seed = 500
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes + [("offset", (2, 5, 7, 64))]:
+            offset = shape[0] == "offset"
+            shape = shape[1] if offset else shape
+            seed += 1
+            x = _seeded(shape, dtype, seed, offset=offset)
+            y = _seeded(shape, dtype, seed + 1000)
+            g = _seeded(shape, dtype, seed + 2000)
+            c = shape[-1]
+            scale = _seeded((c,), torch.float32, seed + 3000).abs() + 0.5
+            bias = _seeded((c,), torch.float32, seed + 4000)
+            out = ew._residual_relu(x, y)
+            pairs = {
+                "K7": (out, ew.plain_residual_relu(x, y)),
+                "K6'": (ew._relu_grad(out, g), ew.plain_relu_grad(out, g)),
+                "K6": (ew._scale_bias_relu(x, scale, bias),
+                       ew.plain_scale_bias_relu(x, scale, bias)),
+            }
+            torch.cuda.synchronize()
+            for key, (got, want) in pairs.items():
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    fail(f"elementwise_kernels: {key} differs from its plain "
+                         f"version at {shape} {dtype} offset={offset}: max "
+                         f"abs {(got.float() - want.float()).abs().max()}")
+            cases.append({"shape": list(shape), "offset": offset,
+                          "dtype": str(dtype).rsplit(".", 1)[-1]})
+        # the expanded gradient of x.mean((1, 2)), through both Functions
+        b, h, w, c = 4, 7, 7, 64
+        x = _seeded((b, h, w, c), dtype, 90).requires_grad_()
+        y = _seeded((b, h, w, c), dtype, 91).requires_grad_()
+        scale = (_seeded((c,), torch.float32, 92).abs() + 0.5) \
+            .requires_grad_()
+        bias = _seeded((c,), torch.float32, 93).requires_grad_()
+        gm = _seeded((b, 1, 1, c), dtype, 94).expand(b, h, w, c)
+        out = ew.residual_relu(x, y)
+        out.backward(gm)
+        want = ew.plain_relu_grad(out.detach(), gm)
+        ok = torch.equal(x.grad, want) and torch.equal(y.grad, want)
+        out = ew.scale_bias_relu(x.detach(), scale, bias)
+        out.backward(gm)
+        gw = ew.plain_relu_grad(out.detach(), gm).float()
+        # dscale and dbias are torch sums over K6''s output
+        ok = ok and torch.allclose(scale.grad, (gw * x.detach().float()).sum(
+            dim=(0, 1, 2)), rtol=1e-5, atol=1e-5) and torch.allclose(
+                bias.grad, gw.sum(dim=(0, 1, 2)), rtol=1e-5, atol=1e-5)
+        if not ok:
+            fail(f"elementwise_kernels: the expanded gradient ({dtype}) "
+                 "differs from the plain versions")
+        cases.append({"shape": [b, h, w, c], "expanded_gradient": True,
+                      "dtype": str(dtype).rsplit(".", 1)[-1]})
+    launched = {k: kernels.elementwise_launches[k] - before[k]
+                for k in before}
+    if not all(launched.values()):
+        fail(f"elementwise_kernels: launches {launched}")
+
+    # timing at [128, 56, 56, 256] bf16, the largest join of ResNet-50
+    n = math.prod(EW_SHAPE)
+    x = _seeded(EW_SHAPE, torch.bfloat16, 1)
+    y = _seeded(EW_SHAPE, torch.bfloat16, 2)
+    g = _seeded(EW_SHAPE, torch.bfloat16, 3)
+    out = ew._residual_relu(x, y)
+    c = EW_SHAPE[-1]
+    scale = torch.rand(c, device="cuda") + 0.5
+    bias = torch.randn(c, device="cuda")
+    timed = {  # key: (kernel, plain, library or None, flops, bytes)
+        "K7": (lambda: ew._residual_relu(x, y),
+               lambda: ew.plain_residual_relu(x, y), None, 2 * n, 3 * 2 * n),
+        "K6'": (lambda: ew._relu_grad(out, g),
+                lambda: ew.plain_relu_grad(out, g),
+                lambda: torch.ops.aten.threshold_backward(g, out, 0.0),
+                n, 3 * 2 * n),
+        "K6": (lambda: ew._scale_bias_relu(x, scale, bias),
+               lambda: ew.plain_scale_bias_relu(x, scale, bias), None,
+               3 * n, 2 * 2 * n + 2 * 4 * c),
+    }
+    results = {}
+    for key, (kernel_fn, plain_fn, lib_fn, flops, nbytes) in timed.items():
+        name, replaces = EW_KERNELS[key]
+        bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                    flops_mod.H100_FP32_FLOPS)
+        results[key] = {
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/elementwise.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": 0.0,
+            "tolerance": "bit-equal (torch.equal)",
+            "shape": list(EW_SHAPE), "dtype": "bfloat16",
+            "flops": flops, "bytes": nbytes,
+            "ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+            "library_call": "torch.ops.aten.threshold_backward(g, out, 0)"
+            if lib_fn else None,
+        }
+    emit({"phase": "elementwise_kernels", "cases": cases,
+          "launches": launched,
+          "timing": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                     for k, v in results.items()}})
+    return results
+
+
+def _conv_case(cb, x, w, scale, bias):
+    """K8, K9 and K10 against their plain versions on the same inputs:
+    per output, the max abs error and, in bf16, the row error; K9's sums
+    relative to the column's sum of |acc| (sum) and sum of acc^2
+    (sumsq)."""
+    got = {"K8": cb.conv3x3_bn_relu(x, w, scale, bias),
+           "K9": cb.conv3x3_stats(x, w), "K10": cb.conv3x3_plain(x, w)}
+    want = {"K8": cb.plain_conv3x3_bn_relu(x, w, scale, bias),
+            "K9": cb.plain_conv3x3_stats(x, w),
+            "K10": cb.plain_conv3x3_plain(x, w)}
+    torch.cuda.synchronize()
+    errs, row_errs, sum_errs = {}, {}, {}
+    for key in got:
+        g = got[key][0] if key == "K9" else got[key]
+        p = want[key][0] if key == "K9" else want[key]
+        g, p = g.float(), p.float()
+        if not torch.isfinite(g).all():
+            fail(f"conv_kernels: non-finite {key} at {tuple(x.shape)}")
+        errs[key] = (g - p).abs().max().item()
+        if x.dtype == torch.bfloat16:
+            row_errs[key] = row_rel_err(g, p)
+            ok = row_errs[key][0] <= CONV_BF16_ROW_LIMIT and \
+                row_errs[key][1] <= CONV_BF16_MEAN_LIMIT
+        else:
+            ok = torch.allclose(g, p, rtol=CONV_F32_RTOL,
+                                atol=CONV_F32_ATOL * p.abs().max().item())
+        if not ok:
+            fail(f"conv_kernels: {key} disagrees with its plain version at "
+                 f"x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype}: max abs "
+                 f"{errs[key]}, row error (max, mean) {row_errs.get(key)}")
+    y_abs = want["K9"][0].float().abs().sum(dim=(0, 1, 2))
+    for i, (name, norm) in enumerate((("sum", y_abs),
+                                      ("sumsq", want["K9"][2]))):
+        rel = ((got["K9"][i + 1] - want["K9"][i + 1]).abs()
+               / norm.clamp_min(1e-30)).max().item()
+        sum_errs[name] = rel
+        if not rel <= CONV_SUM_RTOL:
+            fail(f"conv_kernels: K9 {name} off its plain version by {rel} "
+                 f"at x {tuple(x.shape)} {x.dtype}")
+    return errs, row_errs, sum_errs
+
+
+def phase_conv_kernels(kernels, cb, flops_mod):
+    """K8, K9 and K10 against their plain versions: ResNet-50's four
+    stride-1 3x3 shapes in bf16, then small float32, rectangular, odd-H/W,
+    C = 24, 3-channel and misaligned cases (the last two take the
+    element-by-element staging); then each kernel timed at the four
+    shapes beside its plain version, its bound and the library's conv
+    (``F.conv2d`` on channels-last bf16: the conv alone)."""
+    import torch.nn.functional as F
+
+    before = dict(kernels.conv_bn_launches)
+    # (x shape, cout, dtype, offset)
+    cases = [((128, s, s, c), c, torch.bfloat16, False)
+             for s, c, _ in CONV_SHAPES]
+    cases += [((2, 16, 16, 64), 64, torch.float32, False),
+              ((3, 8, 8, 8), 24, torch.float32, False),
+              ((3, 8, 8, 8), 24, torch.bfloat16, False),
+              ((2, 9, 7, 24), 24, torch.float32, False),
+              ((2, 9, 7, 24), 24, torch.bfloat16, False),
+              ((2, 6, 10, 24), 40, torch.bfloat16, False),
+              ((2, 5, 7, 3), 16, torch.bfloat16, False),
+              ((2, 5, 7, 16), 16, torch.bfloat16, True)]
+    rows, worst = [], {"K8": 0.0, "K9": 0.0, "K10": 0.0}
+    worst_row = {"K8": [0.0, 0.0], "K9": [0.0, 0.0], "K10": [0.0, 0.0]}
+    worst_sum = {"sum": 0.0, "sumsq": 0.0}
+    for i, (shape, cout, dtype, offset) in enumerate(cases):
+        cin = shape[3]
+        x = _seeded(shape, dtype, 700 + i, offset=offset)
+        w = _seeded((3, 3, cin, cout), dtype, 800 + i,
+                    scale=(9 * cin) ** -0.5, offset=offset)
+        scale = torch.rand(cout, device="cuda") + 0.5
+        bias = torch.randn(cout, device="cuda") * 0.1
+        errs, row_errs, sum_errs = _conv_case(cb, x, w, scale, bias)
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+        for k, (top, mean) in row_errs.items():
+            worst_row[k] = [max(worst_row[k][0], top),
+                            max(worst_row[k][1], mean)]
+        for k, v in sum_errs.items():
+            worst_sum[k] = max(worst_sum[k], v)
+        rows.append({"x": list(shape), "cout": cout, "offset": offset,
+                     "dtype": str(dtype).rsplit(".", 1)[-1],
+                     "max_abs_err": errs, "row_rel_err": row_errs,
+                     "k9_sum_rel_err": sum_errs})
+    launched = {k: kernels.conv_bn_launches[k] - before[k] for k in before}
+    if not all(launched.values()):
+        fail(f"conv_kernels: launches {launched}")
+
+    timing = {"K8": {}, "K9": {}, "K10": {}}
+    for s, c, _ in CONV_SHAPES:
+        x = _seeded((128, s, s, c), torch.bfloat16, 1)
+        w = _seeded((3, 3, c, c), torch.bfloat16, 2, scale=(9 * c) ** -0.5)
+        scale = torch.rand(c, device="cuda") + 0.5
+        bias = torch.randn(c, device="cuda") * 0.1
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: F.conv2d(xl, wl, padding=1))
+        m = 128 * s * s
+        flops = 2 * m * c * 9 * c
+        io = 2 * m * c * 2 + 9 * c * c * 2  # x and y bf16, w
+        fns = {"K8": (lambda: cb.conv3x3_bn_relu(x, w, scale, bias),
+                      lambda: cb.plain_conv3x3_bn_relu(x, w, scale, bias),
+                      io + 2 * 4 * c),
+               "K9": (lambda: cb.conv3x3_stats(x, w),
+                      lambda: cb.plain_conv3x3_stats(x, w), io + 2 * 4 * c),
+               "K10": (lambda: cb.conv3x3_plain(x, w),
+                       lambda: cb.plain_conv3x3_plain(x, w), io)}
+        for key, (kernel_fn, plain_fn, nbytes) in fns.items():
+            bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                        flops_mod.H100_PEAK_FLOPS)
+            timing[key][f"{s}x{s}x{c}"] = {
+                "ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "flops": flops, "bytes": nbytes}
+    results = {}
+    head = f"{CONV_SHAPES[0][0]}x{CONV_SHAPES[0][0]}x{CONV_SHAPES[0][1]}"
+    for key, (name, replaces) in CONV_KERNELS.items():
+        t = timing[key]
+        results[key] = {
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/conv_bn.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": worst[key],
+            "max_bf16_row_rel_err": worst_row[key],
+            **({"max_k9_sum_rel_err": worst_sum} if key == "K9" else {}),
+            "tolerance": {"bfloat16_row": CONV_BF16_ROW_LIMIT,
+                          "bfloat16_mean_row": CONV_BF16_MEAN_LIMIT,
+                          "float32": {"rtol": CONV_F32_RTOL,
+                                      "atol_of_max": CONV_F32_ATOL},
+                          **({"sums_rtol": CONV_SUM_RTOL}
+                             if key == "K9" else {})},
+            "shape": f"[128, 56, 56, 64] -> 64 bf16 ({head})",
+            **{f: t[head][f] for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            "library_call": "F.conv2d on channels-last bf16 (the conv "
+                            "alone, no epilogue)",
+            "by_shape": t,
+            "ms_per_resnet50_step": sum(t[f"{s}x{s}x{c}"]["ms"] * n
+                                        for s, c, n in CONV_SHAPES),
+        }
+    emit({"phase": "conv_kernels", "cases": rows, "launches": launched,
+          "timing": timing})
+    return results
+
+
+def _variant_counts(model) -> dict:
+    """Launches of K6, K6', K7, K9 and K10 one train step of ``model``
+    makes, and of K8 one eval forward makes, from its modules."""
+    from horovod_tpu_torch.models.resnet import (
+        BatchNormReLU, PallasConvBN3x3, _Block)
+
+    mods = list(model.modules())
+    bnr = sum(isinstance(m, BatchNormReLU) for m in mods)
+    fused = sum(isinstance(m, PallasConvBN3x3) for m in mods)
+    blocks = sum(isinstance(m, _Block) for m in mods)
+    return {"scale_bias_relu": bnr, "relu_grad": bnr + blocks,
+            "residual_relu": blocks, "stats": fused, "plain": fused,
+            "bn_relu": fused}
+
+
+def _counts(kernels) -> dict:
+    return {**kernels.elementwise_launches, **kernels.conv_bn_launches}
+
+
+def phase_variants_parity(htt, kernels):
+    """A narrow ResNet-18 and ResNet-50 with all three options, trained 2
+    steps in float32 from the same weights on the card (K6-K10, K1) and on
+    the CPU (their plain versions), TF32 off; then one eval forward (K8)
+    of each, the logits compared."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet18, ResNet50
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models = []
+    try:
+        for name, cls in (("ResNet18", ResNet18), ("ResNet50", ResNet50)):
+            base = cls(num_classes=10, num_filters=8, dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(1),
+                       **VARIANTS)
+            gen = torch.Generator().manual_seed(2)
+            x = torch.rand((8, 64, 64, 3), generator=gen)
+            y = torch.randint(0, 10, (8,), generator=gen)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                model = copy.deepcopy(base)
+                opt = htt.fused_sgd(0.01, momentum=0.9)
+                step = htt.make_train_step(
+                    apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+                    has_batch_stats=True, loss_fetch_steps=0)
+                state = htt.init_train_state(model, opt, has_batch_stats=True,
+                                             device=dev)
+                reset_counts(kernels)
+                losses = []
+                for _ in range(2):
+                    state, loss = step(state, x.to(dev), y.to(dev))
+                    losses.append(loss.item())
+                train_counts = _counts(kernels)
+                model.eval()
+                reset_counts(kernels)
+                with torch.no_grad():
+                    logits = model(x.to(dev)).cpu()
+                runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                                      {**state.params,
+                                       **state.model_state}.items()},
+                             logits, train_counts, _counts(kernels))
+            (l_gpu, t_gpu, z_gpu, n_train, n_eval), (l_cpu, t_cpu, z_cpu,
+                                                      n_cpu, _) = \
+                runs["cuda"], runs["cpu"]
+            want = _variant_counts(base)
+            want_train = {k: (0 if k == "bn_relu" else 2 * v)
+                          for k, v in want.items()}
+            want_eval = {k: (0 if k in ("stats", "plain", "relu_grad") else v)
+                         for k, v in want.items()}
+            if n_train != want_train or n_eval != want_eval or \
+                    any(n_cpu.values()):
+                fail(f"variants_parity: {name} launches train {n_train} "
+                     f"(want {want_train}), eval {n_eval} (want "
+                     f"{want_eval}), CPU {n_cpu}")
+            worst = max((t_gpu[k] - t_cpu[k]).abs().max().item()
+                        for k in t_cpu)
+            if not all(math.isfinite(v) for v in l_gpu) or any(
+                    abs(a - b) > PARITY_RTOL * abs(b) + PARITY_ATOL
+                    for a, b in zip(l_gpu, l_cpu)):
+                fail(f"variants_parity: {name} losses differ, card {l_gpu} "
+                     f"vs CPU {l_cpu}")
+            for k in t_cpu:
+                if not torch.allclose(t_gpu[k], t_cpu[k], rtol=PARITY_RTOL,
+                                      atol=PARITY_ATOL):
+                    fail(f"variants_parity: {name} {k} differs by "
+                         f"{(t_gpu[k] - t_cpu[k]).abs().max().item()}")
+            if not torch.allclose(z_gpu, z_cpu, rtol=PARITY_RTOL,
+                                  atol=PARITY_ATOL):
+                fail(f"variants_parity: {name} eval logits differ by "
+                     f"{(z_gpu - z_cpu).abs().max().item()}")
+            models.append({
+                "model": f"{name}(num_filters=8, all options) 64x64 b8",
+                "steps": 2, "loss_card": l_gpu, "loss_cpu": l_cpu,
+                "max_state_abs_err": worst,
+                "max_eval_logit_abs_err": (z_gpu - z_cpu).abs().max().item(),
+                "card_launches_train": n_train, "card_launches_eval": n_eval})
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit({"phase": "variants_parity", "options": VARIANTS, "models": models,
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL},
+          "tf32": False})
+
+
+def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
+    """``examples.synthetic_benchmark.run`` with all three options:
+    ResNet-50, 224x224, batch 128, bf16, fused momentum, world size 1 over
+    NCCL.  Checks a finite loss, the kernels' launches per step, one K1
+    launch per step and one gradient all_reduce per fusion bucket per
+    step; then one eval forward of a batch (K8).  Returns the launches."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.convert import canonical_params
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops.fusion import FusionPlan
+
+    argv = ["--model", "ResNet50", "--image-size", "224", "--batch-size",
+            "128", "--dtype", "bfloat16", "--fused-optimizer",
+            "--num-warmup-batches", "2", "--num-batches-per-iter", "5",
+            "--num-iters", "3", "--norm-act", "pallas", "--residual-join",
+            "pallas", "--conv-bn", "pallas"]
+    steps = 2 + 5 * 3
+    with torch.device("meta"):
+        meta = ResNet50(**VARIANTS)
+        buckets = FusionPlan(list(canonical_params(meta).values())
+                             ).num_buckets()
+        structural = _variant_counts(meta)
+    if {k: structural[k] for k in VARIANT_STEP_LAUNCHES} != \
+            VARIANT_STEP_LAUNCHES:
+        fail(f"variants_main_path: the model has {structural}, want "
+             f"{VARIANT_STEP_LAUNCHES} a step")
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counting_all_reduce(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    dist.all_reduce = counting_all_reduce
+    try:
+        t0 = time.perf_counter()
+        result = sb.run(sb.parse_args(argv))
+        wall = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = all_reduce
+    launches = {**_counts(kernels),
+                "K1_momentum": kernels.fused_update_launches["momentum"],
+                "K1_other": kernels.fused_update_launches["sgd"]
+                + kernels.fused_update_launches["adam"],
+                "flash": sum(kernels.flash_launches.values())}
+    peak = torch.cuda.max_memory_allocated()
+    want = {**{k: v * steps for k, v in VARIANT_STEP_LAUNCHES.items()},
+            "bn_relu": 0, "K1_momentum": steps, "K1_other": 0, "flash": 0}
+    if not math.isfinite(result["final_loss"]):
+        fail(f"variants_main_path: final loss {result['final_loss']}")
+    if launches != want:
+        fail(f"variants_main_path: launches {launches} over {steps} steps, "
+             f"want {want}")
+    grad_calls_per_step = calls[0] / steps - 1
+    if grad_calls_per_step != buckets:
+        fail(f"variants_main_path: {calls[0]} all_reduce calls over {steps} "
+             f"steps, want {buckets} buckets + 1 loss per step")
+
+    # the eval forward of one batch: K8 in every fused block
+    device = torch.device("cuda", torch.cuda.current_device())
+    model = ResNet50(generator=torch.Generator().manual_seed(0),
+                     **VARIANTS).to(device,
+                                    memory_format=torch.channels_last).eval()
+    x = torch.rand((128, 224, 224, 3), device=device,
+                   generator=torch.Generator(device=device).manual_seed(42))
+    reset_counts(kernels)
+    with torch.no_grad():
+        logits = model(x)
+    torch.cuda.synchronize()
+    eval_launches = _counts(kernels)
+    want_eval = {"scale_bias_relu": VARIANT_STEP_LAUNCHES["scale_bias_relu"],
+                 "relu_grad": 0,
+                 "residual_relu": VARIANT_STEP_LAUNCHES["residual_relu"],
+                 "bn_relu": structural["bn_relu"], "stats": 0, "plain": 0}
+    if eval_launches != want_eval or tuple(logits.shape) != (128, 1000) or \
+            not torch.isfinite(logits).all():
+        fail(f"variants_main_path: eval forward launches {eval_launches} "
+             f"(want {want_eval}), logits {tuple(logits.shape)} finite="
+             f"{bool(torch.isfinite(logits).all())}")
+    del model, logits
+    emit({"phase": "variants_main_path", "model": "ResNet50", "options":
+          VARIANTS, "image_size": 224, "batch_per_chip": 128,
+          "dtype": "bfloat16", "optimizer": "fused momentum (K1)",
+          "world_size": result["size"], "steps": steps,
+          "launches": launches, "launches_per_step": {
+              k: v / steps for k, v in launches.items()},
+          "eval_forward_launches": eval_launches,
+          "fusion_buckets": buckets,
+          "grad_allreduce_per_step": grad_calls_per_step,
+          "img_sec_per_chip": result["img_sec_per_chip"],
+          "img_sec_conf": result["conf"],
+          "default_path_img_sec_per_chip": default_img_sec,
+          "mfu": flops_mod.image_model_mfu(result["img_sec_per_chip"]),
+          "final_loss": result["final_loss"],
+          "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
+    return {**{k: launches[k] for k in VARIANT_STEP_LAUNCHES},
+            "bn_relu": eval_launches["bn_relu"]}
+
+
+def phase_variants_profile(htt):
+    """3 variants main-path steps (ResNet-50 with all three options,
+    224x224, batch 128, bf16, fused momentum) under torch.profiler:
+    device time per step by kind (``K6-K7``, ``K8-K10`` for the port's
+    kernels) and the device's idle share."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet50
+
+    device = htt.device()
+    gen = torch.Generator(device=device).manual_seed(42)
+    x = torch.rand((128, 224, 224, 3), generator=gen, device=device)
+    y = torch.randint(0, 1000, (128,), generator=gen, device=device)
+    model = ResNet50(generator=torch.Generator().manual_seed(0),
+                     **VARIANTS).to(device, memory_format=torch.channels_last)
+    opt = htt.fused_sgd(0.01, momentum=0.9)
+    step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                               optimizer=opt, has_batch_stats=True,
+                               loss_fetch_steps=0)
+    state = htt.init_train_state(model, opt, has_batch_stats=True)
+    steps = 3
+    wall_ms, spans, loss = _profile_steps(step, state, (x, y), steps)
+    ported = {}
+    for start, end, name in spans:
+        kind = _kernel_kind(name)
+        if kind in ("K6-K7", "K8-K10"):
+            n, ms = ported.get(name, (0, 0.0))
+            ported[name] = (n + 1, ms + (end - start) / 1e3)
+    emit({"phase": "variants_profile", "model": "ResNet50", "options":
+          VARIANTS, "steps": steps, "wall_ms_per_step": wall_ms,
+          **device_breakdown(spans, steps),
+          "ported_kernels": {n[:80]: {"launches_per_step": k / steps,
+                                      "ms_per_launch": ms / k}
+                             for n, (k, ms) in ported.items()},
+          "final_loss": loss})
+    del model, state, step
+
+
 def phase_parity(htt):
     """A narrow ResNet-18 trained 2 steps on the card and on the CPU from
     the same weights and batch."""
@@ -621,15 +1233,22 @@ def phase_main_path(kernels, flops_mod, card):
           "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "wall_s": wall, "card": card})
-    return launches["momentum"]
+    return launches["momentum"], result["img_sec_per_chip"]
 
 
 def _kernel_kind(name: str) -> str:
     """A device kernel's kind, from its name, for the step breakdown:
-    the port's kernels (K1; K2-K4 as ``flash``, the attention core), then
-    the library's convolutions apart from its matrix products (the QKV,
+    the port's kernels (K1; K2-K4 as ``flash``, the attention core;
+    K6-K7, the elementwise joins; K8-K10, the fused 3x3 conv, whose names
+    would otherwise read as the library's conv or BatchNorm), then the
+    library's convolutions apart from its matrix products (the QKV,
     output, MLP and head projections on the GPT path)."""
     low = name.lower()
+    if "hvd_conv" in low:  # hvd_conv3x3_*_kernel, hvd_conv_stats_reduce_*
+        return "K8-K10"
+    if any(k in low for k in ("hvd_residual_relu", "hvd_relu_grad",
+                              "hvd_scale_bias_relu")):
+        return "K6-K7"
     if any(k in low for k in ("momentum_kernel", "sgd_kernel",
                               "adam_kernel")):
         return "K1"
@@ -689,7 +1308,8 @@ def device_breakdown(spans, steps: int) -> dict:
 
 def reset_counts(kernels) -> None:
     """Every kernel's launch count to 0."""
-    for counts in (kernels.fused_update_launches, kernels.flash_launches):
+    for counts in (kernels.fused_update_launches, kernels.flash_launches,
+                   kernels.elementwise_launches, kernels.conv_bn_launches):
         for k in counts:
             counts[k] = 0
 
@@ -1026,17 +1646,48 @@ def phase_rules(htt, kernels):
     return launches
 
 
+#: the kernels line's entries of K6-K10, in order
+VARIANT_KEYS = ("K6", "K6'", "K7", "K8", "K9", "K10")
+#: the counter of each of them
+VARIANT_COUNTERS = {"K6": "scale_bias_relu", "K6'": "relu_grad",
+                    "K7": "residual_relu", "K8": "bn_relu", "K9": "stats",
+                    "K10": "plain"}
+
+
+def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
+                       default_img_sec) -> dict:
+    """The phases of K6-K10: each kernel against its plain version, the
+    card-vs-CPU parity of the variant models, their main path and
+    profile.  Returns the kernels' entries, launches from the main
+    path."""
+    results = phase_elementwise_kernels(kernels, ew, flops_mod)
+    results.update(phase_conv_kernels(kernels, cb, flops_mod))
+    phase_variants_parity(htt, kernels)
+    launches = phase_variants_main_path(kernels, flops_mod, card,
+                                        default_img_sec)
+    for key, counter in VARIANT_COUNTERS.items():
+        results[key]["launches"] = launches[counter]
+    phase_variants_profile(htt)
+    return results
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--flash-only", action="store_true",
                     help="run the device, build and flash_kernels phases")
-    flash_only = ap.parse_args().flash_only
+    ap.add_argument("--variants-only", action="store_true",
+                    help="run the device and build phases and those of "
+                         "K6-K10 (elementwise_kernels to variants_profile)")
+    cli = ap.parse_args()
+    flash_only, variants_only = cli.flash_only, cli.variants_only
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on an NVIDIA card")
     import horovod_tpu_torch as htt
     from horovod_tpu_torch import kernels
+    from horovod_tpu_torch.ops import conv_bn as cb
+    from horovod_tpu_torch.ops import elementwise as ew
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.optim import fused_update as fu
     from horovod_tpu_torch.utils import flops as flops_mod
@@ -1061,14 +1712,22 @@ def main() -> None:
         phase_flash_kernels(kernels, fa, flops_mod)
         htt.shutdown()
         return
+    if variants_only:
+        results = run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
+                                     None)
+        emit({"kernels": [results[k] for k in VARIANT_KEYS]})
+        htt.shutdown()
+        return
     results = phase_kernels(fu, flops_mod)
     results.update(phase_flash_kernels(kernels, fa, flops_mod))
     phase_parity(htt)
     phase_gpt_parity(htt, kernels)
     phase_gpt_bf16(kernels, fa)
-    results["momentum"]["launches"] = phase_main_path(kernels, flops_mod,
-                                                      card)
+    results["momentum"]["launches"], default_img_sec = phase_main_path(
+        kernels, flops_mod, card)
     phase_profile(htt)
+    results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
+                                      default_img_sec))
     for rule, n in phase_rules(htt, kernels).items():
         results[rule]["launches"] = n
     flash, results["adam"]["launches"] = phase_gpt_main_path(htt, kernels,
@@ -1080,7 +1739,7 @@ def main() -> None:
     htt.shutdown()
 
     emit({"kernels": [results[r] for r in ("momentum", "sgd", "adam", "K2",
-                                           "K3", "K4")],
+                                           "K3", "K4", *VARIANT_KEYS)],
           "card": card, "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,10 @@ the other, with one rule per layer type:
 port layer         torch → flax name   layout (flax → torch)
 =================  ==================  ===================================
 Conv, Dense        weight → kernel     HWIO → OIHW, ``[in, out]`` → ``[out, in]``
-BatchNorm          weight → scale      as is (and running_mean/var →
-                                       mean/var)
+BatchNorm,         weight → scale      as is (and running_mean/var →
+BatchNormReLU                          mean/var)
+PallasConvBN3x3    weight → kernel,    HWIO → OIHW; scale, bias as is (and
+                   scale, bias         running_mean/var → mean/var)
 LayerNorm          weight → scale      as is
 Embed              weight → embedding  as is (``[vocab, features]`` in both)
 DenseGeneral       weight → kernel     ``in_shape + out_shape`` →
@@ -47,13 +49,18 @@ import torch
 from torch import nn
 
 from .models.layers import BatchNorm, DenseGeneral, Embed, LayerNorm
+from .models.resnet import BatchNormReLU, PallasConvBN3x3
 from .optim.fused_update import FusedOptState, dtype_name
 from .utils.tree import tree_flatten_with_path
 
 _PARAM_NAMES = {"weight": "kernel", "bias": "bias"}
 _NORM_PARAM_NAMES = {"weight": "scale", "bias": "bias"}
 _EMBED_PARAM_NAMES = {"weight": "embedding"}
+_FUSED_CONV_PARAM_NAMES = {"weight": "kernel", "scale": "scale",
+                           "bias": "bias"}
 _BN_BUFFER_NAMES = {"running_mean": "mean", "running_var": "var"}
+#: the modules that keep BatchNorm statistics
+_STATS_MODULES = (BatchNorm, BatchNormReLU, PallasConvBN3x3)
 
 #: flax HWIO → torch OIHW
 _CONV_PERM = (3, 2, 0, 1)
@@ -106,12 +113,15 @@ def _dense_general_layouts(mod: DenseGeneral) -> Dict[str, Layout]:
 def _rules(mod: nn.Module, buffers: bool):
     """``(flax names, layout of a leaf)`` for a module's own leaves."""
     if buffers:
-        return (_BN_BUFFER_NAMES if isinstance(mod, BatchNorm) else {},
+        return (_BN_BUFFER_NAMES if isinstance(mod, _STATS_MODULES) else {},
                 lambda local, t: Layout.same(t.shape))
-    if isinstance(mod, (BatchNorm, LayerNorm)):
+    if isinstance(mod, (BatchNorm, BatchNormReLU, LayerNorm)):
         return _NORM_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
     if isinstance(mod, Embed):
         return _EMBED_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
+    if isinstance(mod, PallasConvBN3x3):
+        return _FUSED_CONV_PARAM_NAMES, lambda local, t: Layout.of_rank(
+            t.shape)
     if isinstance(mod, DenseGeneral):
         layouts = _dense_general_layouts(mod)
         return _PARAM_NAMES, lambda local, t: layouts[local]

@@ -57,6 +57,12 @@ def parse_args(argv=None):
     parser.add_argument("--loss-fetch-steps", type=int, default=None,
                         help="trailing loss-fetch cadence "
                              "(default: the HVD_LOSS_FETCH_STEPS knob)")
+    for option in ("norm-act", "residual-join", "conv-bn"):
+        parser.add_argument(f"--{option}", type=str, default="xla",
+                            choices=["xla", "pallas"],
+                            help=f"ResNet {option.replace('-', '_')}: "
+                                 "'pallas' runs the hand-written kernel "
+                                 "variant (same math)")
     parser.add_argument("--device", type=str, default=None,
                         help="'cpu' to run on the CPU; default: this "
                              "rank's CUDA device")
@@ -76,6 +82,8 @@ def run(args) -> dict:
 
     model = MODELS[args.model](
         num_classes=args.num_classes, dtype=_DTYPES[args.dtype],
+        norm_act=args.norm_act,
+        residual_join=args.residual_join, conv_bn=args.conv_bn,
         generator=torch.Generator().manual_seed(0),
     ).to(device, memory_format=torch.channels_last)
     opt = fused_sgd(0.01, momentum=0.9)

@@ -40,9 +40,20 @@ fused_update_launches: Dict[str, int] = {"sgd": 0, "momentum": 0,
 #: launches of K2 (fwd), K3 (bwd_dq) and K4 (bwd_dkv), counted likewise
 flash_launches: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
+#: launches of K6 (scale_bias_relu), K6' (relu_grad) and K7
+#: (residual_relu), counted likewise
+elementwise_launches: Dict[str, int] = {"scale_bias_relu": 0,
+                                        "relu_grad": 0, "residual_relu": 0}
+#: launches of K8 (bn_relu), K9 (stats) and K10 (plain), counted likewise
+conv_bn_launches: Dict[str, int] = {"bn_relu": 0, "stats": 0, "plain": 0}
+
 #: head dims with a template instance in csrc/flash_attention.cu
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
-_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the types K2-K4 and K6-K10 have instances for, as their C code numbers
+#: them
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: HvdConvArgs.epilogue of K10, K9 and K8
+_CONV_EPILOGUES = {"plain": 0, "stats": 1, "bn_relu": 2}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -63,6 +74,16 @@ class _FlashArgs(ctypes.Structure):
                 + [("scale", ctypes.c_float)]
                 + [(n, ctypes.c_int32) for n in ("causal", "normalize",
                                                  "dtype")])
+
+
+class _ConvArgs(ctypes.Structure):
+    """``HvdConvArgs`` of csrc/conv_bn.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "y", "scale",
+                                                "bias", "partial", "sum",
+                                                "sumsq")]
+                + [(n, ctypes.c_int64) for n in ("b", "h", "wd", "cin",
+                                                 "cout")]
+                + [(n, ctypes.c_int32) for n in ("epilogue", "dtype")])
 
 
 def sources() -> List[Path]:
@@ -145,20 +166,35 @@ def load() -> ctypes.CDLL:
     flash = (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
     for fn in flash:
         fn.argtypes = [ctypes.POINTER(_FlashArgs), ptr]
+    i32 = ctypes.c_int32
+    lib.hvd_residual_relu.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+    lib.hvd_relu_grad.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+    lib.hvd_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
+                                        ptr]
+    lib.hvd_conv3x3.argtypes = [ctypes.POINTER(_ConvArgs), ptr]
+    lib.hvd_conv3x3_tiles.argtypes = [i64, i32]
+    lib.hvd_conv3x3_tiles.restype = i64
     for fn in (lib.hvd_sgd_f32, lib.hvd_momentum_f32, lib.hvd_adam_f32,
-               *flash):
+               *flash, lib.hvd_residual_relu, lib.hvd_relu_grad,
+               lib.hvd_scale_bias_relu, lib.hvd_conv3x3):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def _check(tensors: List[torch.Tensor]) -> None:
+def _check_on_card(what: str, tensors: List[torch.Tensor]) -> None:
     first = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(
-                f"K1 takes CUDA tensors on one device, got {t.device} "
+                f"{what} take CUDA tensors on one device, got {t.device} "
                 f"beside {first.device}")
+
+
+def _check(tensors: List[torch.Tensor]) -> None:
+    first = tensors[0]
+    _check_on_card("K1", tensors)
+    for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(
                 f"K1 takes float32 buffers, got {t.dtype} (bf16 parameter "
@@ -169,6 +205,17 @@ def _check(tensors: List[torch.Tensor]) -> None:
             raise ValueError(
                 f"K1 buffers differ in length: {t.numel()} vs "
                 f"{first.numel()}")
+
+
+def _launch(fn_name: str, counts: Dict[str, int], key: str,
+            device: torch.device, *args) -> None:
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    counts[key] += 1
 
 
 def launch_fused_update(kind: str, p: torch.Tensor, g: torch.Tensor,
@@ -190,20 +237,12 @@ def launch_fused_update(kind: str, p: torch.Tensor, g: torch.Tensor,
     n = p.numel()
     if n == 0:
         return
-    lib = load()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        ptrs = [t.data_ptr() for t in bufs[kind]]
-        if kind == "sgd":
-            err = lib.hvd_sgd_f32(*ptrs, n, lr, stream)
-        elif kind == "momentum":
-            err = lib.hvd_momentum_f32(*ptrs, n, lr, momentum, stream)
-        else:
-            err = lib.hvd_adam_f32(*ptrs, n, lr, b1, b2, eps, one_minus_b1,
-                                   one_minus_b2, inv_bc1, inv_bc2, stream)
-    if err:
-        raise RuntimeError(f"K1 {kind} launch failed: CUDA error {err}")
-    fused_update_launches[kind] += 1
+    ptrs = [t.data_ptr() for t in bufs[kind]]
+    args = {"sgd": (n, lr), "momentum": (n, lr, momentum),
+            "adam": (n, lr, b1, b2, eps, one_minus_b1, one_minus_b2,
+                     inv_bc1, inv_bc2)}[kind]
+    _launch(f"hvd_{kind}_f32", fused_update_launches, kind, p.device,
+            *ptrs, *args)
 
 
 def _bhsd(t: Optional[torch.Tensor]) -> _Bhsd:
@@ -218,7 +257,7 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raises on anything K2-K4 do not take: device, dtype, shape, head
     dim, strides."""
     ops = [q, k, v] + ([do] if do is not None else [])
-    if q.dtype not in _FLASH_DTYPES or any(t.dtype != q.dtype for t in ops):
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
         raise TypeError("K2-K4 take float32 or bfloat16 q, k, v (and do) "
                         f"of one dtype, got {[t.dtype for t in ops]}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
@@ -242,11 +281,7 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("K3/K4 take lse and delta as contiguous "
                              f"float32 [b, h, sq, 1], got {t.dtype} "
                              f"{tuple(t.shape)}")
-    for t in ops + list(stats):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(
-                f"K2-K4 take CUDA tensors on one device, got {t.device} "
-                f"beside {q.device}")
+    _check_on_card("K2-K4", ops + list(stats))
 
 
 def _flash_args(q, k, v, *, causal: bool, scale: float, q_offset: int,
@@ -257,24 +292,13 @@ def _flash_args(q, k, v, *, causal: bool, scale: float, q_offset: int,
                    sk=k.shape[2], d=d, q_off=int(q_offset),
                    kv_off=int(kv_offset), scale=float(scale),
                    causal=int(bool(causal)), normalize=int(bool(normalize)),
-                   dtype=_FLASH_DTYPES[q.dtype])
+                   dtype=_DTYPES[q.dtype])
     for name, t in operands.items():
         if name in ("m", "l", "lse", "delta"):
             setattr(a, name, t.data_ptr())
         else:
             setattr(a, name, _bhsd(t))
     return a
-
-
-def _run_flash(fn_name: str, counter: str, args: _FlashArgs,
-               device: torch.device) -> None:
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(ctypes.byref(args), stream)
-    if err:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    flash_launches[counter] += 1
 
 
 def launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -291,7 +315,8 @@ def launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     args = _flash_args(q, k, v, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset,
                        normalize=normalize, o=o, m=m, l=l)
-    _run_flash("hvd_flash_fwd", "fwd", args, q.device)
+    _launch("hvd_flash_fwd", flash_launches, "fwd", q.device,
+            ctypes.byref(args))
     return o, m, l
 
 
@@ -304,7 +329,8 @@ def launch_flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
     args = _flash_args(q, k, v, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset, dout=do,
                        lse=lse, delta=delta, dq=dq)
-    _run_flash("hvd_flash_bwd_dq", "bwd_dq", args, q.device)
+    _launch("hvd_flash_bwd_dq", flash_launches, "bwd_dq", q.device,
+            ctypes.byref(args))
     return dq
 
 
@@ -318,5 +344,126 @@ def launch_flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
     args = _flash_args(q, k, v, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset, dout=do,
                        lse=lse, delta=delta, dk=dk, dv=dv)
-    _run_flash("hvd_flash_bwd_dkv", "bwd_dkv", args, q.device)
+    _launch("hvd_flash_bwd_dkv", flash_launches, "bwd_dkv", q.device,
+            ctypes.byref(args))
     return dk, dv
+
+
+def _check_elementwise(x: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raises on anything K6, K6' and K7 do not take: device, dtype,
+    shape, layout."""
+    ops = [x, *others]
+    _check_on_card("K6-K7", ops)
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in others):
+        raise TypeError("K6-K7 take float32 or bfloat16 operands of one "
+                        f"dtype, got {[t.dtype for t in ops]}")
+    if any(t.shape != x.shape for t in others):
+        raise ValueError(f"K6-K7 operands differ in shape: "
+                         f"{[tuple(t.shape) for t in ops]}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("K6-K7 take contiguous channels-last operands "
+                         f"(C innermost), got strides "
+                         f"{[t.stride() for t in ops]}")
+
+
+def launch_residual_relu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K7: ``relu(x + y)`` in x's dtype, laid out like x."""
+    _check_elementwise(x, y)
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch("hvd_residual_relu", elementwise_launches, "residual_relu",
+                x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                x.numel(), _DTYPES[x.dtype])
+    return out
+
+
+def launch_relu_grad(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K6': ``where(out > 0, g, 0)``, laid out like out."""
+    _check_elementwise(out, g)
+    dx = torch.empty_like(g)
+    if g.numel():
+        _launch("hvd_relu_grad", elementwise_launches, "relu_grad",
+                g.device, out.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                g.numel(), _DTYPES[g.dtype])
+    return dx
+
+
+def launch_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """K6: ``relu(x * scale + bias)`` over x's last dim (the channels),
+    float32 ``scale`` and ``bias`` of that length; x's dtype out."""
+    _check_elementwise(x)
+    _check_on_card("K6", [x, scale, bias])
+    c = x.shape[-1] if x.dim() else 0
+    for t in (scale, bias):
+        if t.dtype != torch.float32 or t.shape != (c,) or \
+                not t.is_contiguous():
+            raise ValueError(f"K6 takes contiguous float32 scale and bias "
+                             f"[{c}], got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch("hvd_scale_bias_relu", elementwise_launches,
+                "scale_bias_relu", x.device, x.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), x.numel() // c, c,
+                _DTYPES[x.dtype])
+    return out
+
+
+def _check_conv(x: torch.Tensor, w: torch.Tensor,
+                vectors: Tuple[torch.Tensor, ...] = ()) -> None:
+    """Raises on anything K8-K10 do not take: device, dtype, shape,
+    layout."""
+    _check_on_card("K8-K10", [x, w, *vectors])
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError("K8-K10 take float32 or bfloat16 x and w of one "
+                        f"dtype, got {x.dtype}, {w.dtype}")
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != \
+            (3, 3, x.shape[3]) or 0 in (*x.shape, w.shape[3]):
+        raise ValueError(f"K8-K10 take NHWC x [B, H, W, Cin] and w "
+                         f"[3, 3, Cin, Cout], got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("K8-K10 take contiguous NHWC x and HWIO w, got "
+                         f"strides {x.stride()}, {w.stride()}")
+    for t in vectors:
+        if t.dtype != torch.float32 or t.shape != (w.shape[3],) or \
+                not t.is_contiguous():
+            raise ValueError(f"K8 takes contiguous float32 scale and bias "
+                             f"[{w.shape[3]}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def launch_conv3x3(kind: str, x: torch.Tensor, w: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None):
+    """The 3x3 SAME stride-1 conv of NHWC ``x`` with HWIO ``w`` and one of
+    three epilogues: ``"plain"`` (K10) returns y; ``"stats"`` (K9)
+    returns ``(y, sum, sumsq)``, the sums float32 ``[Cout]`` over the
+    float32 accumulator; ``"bn_relu"`` (K8) returns ``relu(acc * scale +
+    bias)``.  y is NHWC in x's dtype."""
+    if kind not in _CONV_EPILOGUES:
+        raise ValueError(f"unknown conv epilogue {kind!r}")
+    vectors = (scale, bias) if kind == "bn_relu" else ()
+    if kind == "bn_relu" and (scale is None or bias is None):
+        raise ValueError("K8 needs scale and bias")
+    _check_conv(x, w, vectors)
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    args = _ConvArgs(x=x.data_ptr(), w=w.data_ptr(), y=y.data_ptr(), b=b,
+                     h=h, wd=wd, cin=cin, cout=cout,
+                     epilogue=_CONV_EPILOGUES[kind], dtype=_DTYPES[x.dtype])
+    if kind == "bn_relu":
+        args.scale, args.bias = scale.data_ptr(), bias.data_ptr()
+    sums = ()
+    if kind == "stats":
+        tiles = load().hvd_conv3x3_tiles(b * h * wd, args.dtype)
+        partial = torch.empty(2 * tiles * cout, dtype=torch.float32,
+                              device=x.device)
+        sums = (torch.empty(cout, dtype=torch.float32, device=x.device),
+                torch.empty(cout, dtype=torch.float32, device=x.device))
+        args.partial = partial.data_ptr()
+        args.sum, args.sumsq = sums[0].data_ptr(), sums[1].data_ptr()
+    _launch("hvd_conv3x3", conv_bn_launches, kind, x.device,
+            ctypes.byref(args))
+    return (y, *sums) if sums else y

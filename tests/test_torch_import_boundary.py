@@ -49,6 +49,8 @@ print(json.dumps(sorted(sys.modules)))
     for m in ("horovod_tpu_torch.training", "horovod_tpu_torch.models.gpt",
               "horovod_tpu_torch.models.bert",
               "horovod_tpu_torch.ops.flash_attention",
+              "horovod_tpu_torch.ops.elementwise",
+              "horovod_tpu_torch.ops.conv_bn",
               "horovod_tpu_torch.examples.gpt_synthetic_benchmark"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
@@ -137,6 +139,48 @@ def test_flash_wrapper_binds_every_kernel_entry_point():
             first, *rest = decl.split(",")
             declared += [n.strip(" *") for n in [first.split()[-1], *rest]]
     assert declared == [n for n, _ in kernels._FlashArgs._fields_]
+
+
+def _struct_fields(src: str, name: str):
+    """The member names of ``struct <name> { ... };`` in a C source."""
+    body = src[src.index(f"struct {name} {{"):]
+    body = body[:body.index("};")]
+    declared = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            first, *rest = decl.split(",")
+            declared += [n.strip(" *") for n in [first.split()[-1], *rest]]
+    return declared
+
+
+def test_resnet_variant_wrappers_bind_every_kernel_entry_point():
+    """csrc/elementwise.cu's and csrc/conv_bn.cu's C entry points are the
+    ones kernels.py binds, and HvdConvArgs is mirrored field for field by
+    kernels._ConvArgs."""
+    from horovod_tpu_torch import kernels
+
+    binding = (PKG / "kernels.py").read_text()
+    for src, fns in (("elementwise.cu", ("hvd_residual_relu",
+                                         "hvd_relu_grad",
+                                         "hvd_scale_bias_relu")),
+                     ("conv_bn.cu", ("hvd_conv3x3", "hvd_conv3x3_tiles"))):
+        text = (PKG / "csrc" / src).read_text()
+        for fn in fns:
+            assert f" {fn}(" in text and f"lib.{fn}" in binding
+    conv = (PKG / "csrc" / "conv_bn.cu").read_text()
+    assert "int hvd_conv3x3(const HvdConvArgs* args, void* stream)" in conv
+    assert _struct_fields(conv, "HvdConvArgs") == \
+        [n for n, _ in kernels._ConvArgs._fields_]
+
+
+def test_library_conv_twins_are_never_called_by_the_port():
+    """The cuDNN twins of K8 and K9 (ops/conv_bn.py torch_conv3x3_*) are
+    the tests' and chip_smoke.py's yardstick; no other module of the
+    package calls them."""
+    hits = [str(f.relative_to(REPO)) for f in sorted(PKG.rglob("*.py"))
+            if "torch_conv3x3_" in f.read_text()]
+    assert hits == ["horovod_tpu_torch/ops/conv_bn.py"]
 
 
 def test_kernel_wrapper_never_falls_back_for_cuda_tensors():

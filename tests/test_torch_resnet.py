@@ -25,8 +25,8 @@ from horovod_tpu.models.mlp import MLP as RefMLP
 from horovod_tpu.models.resnet import ResNet18 as RefResNet18
 from horovod_tpu.models.resnet import ResNet50 as RefResNet50
 from horovod_tpu_torch.convert import (
-    canonical_batch_stats, canonical_params, flatten_flax,
-    load_flax_variables,
+    canonical_batch_stats, canonical_layouts, canonical_params,
+    export_flax_variables, flatten_flax, load_flax_variables,
 )
 from horovod_tpu_torch.models import MLP, ResNet18, ResNet50
 from horovod_tpu_torch.models.layers import BatchNorm, Conv
@@ -237,10 +237,196 @@ def test_initialization_follows_flax():
                                     {"residual_join": "pallas"},
                                     {"conv_bn": "pallas"}])
 def test_later_slice_variants_raise(option):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ResNet18(num_classes=10, num_filters=8, **option)
+    """Every option of the reference is ported: its kernel value
+    constructs a model, and an unknown value raises."""
+    model = ResNet18(num_classes=10, num_filters=8, **option)
+    assert sum(t.numel() for t in canonical_params(model).values()) > 0
     with pytest.raises(ValueError, match="unknown"):
         ResNet18(num_classes=10, **{k: "bogus" for k in option})
+
+
+ALL_VARIANTS = {"norm_act": "pallas", "residual_join": "pallas",
+                "conv_bn": "pallas"}
+OPTIONS = {"norm_act": {"norm_act": "pallas"},
+           "residual_join": {"residual_join": "pallas"},
+           "conv_bn": {"conv_bn": "pallas"},
+           "space_to_depth": {"stem": "space_to_depth"},
+           "all": ALL_VARIANTS}
+
+
+@pytest.mark.parametrize("name,option", [("ResNet50", o) for o in OPTIONS]
+                         + [("ResNet18", "all")])
+def test_variant_names_and_shapes_match_reference(name, option):
+    """The options rename a block's modules as flax's per-class counters
+    do; the names, their order and every shape come from jax.eval_shape
+    of the reference's init, and the parameter count is the plain
+    model's."""
+    ref = MODELS[name][0](num_classes=1000, **OPTIONS[option])
+    shapes = jax.eval_shape(lambda: ref.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3))))
+    with torch.device("meta"):
+        model = MODELS[name][1](num_classes=1000, **OPTIONS[option])
+    for got, tree in ((canonical_params(model), shapes["params"]),
+                      (canonical_batch_stats(model), shapes["batch_stats"])):
+        want = {"/".join(k.key for k in p): tuple(v.shape) for p, v in
+                jax.tree_util.tree_flatten_with_path(tree)[0]}
+        assert list(got) == list(want)
+        layouts = canonical_layouts(model) if got is not None else None
+        for k, t in got.items():
+            flax_shape = layouts[k].flax_shape if k in layouts \
+                else tuple(t.shape)
+            assert flax_shape == want[k], k
+    n = sum(t.numel() for t in canonical_params(model).values())
+    assert n == {"ResNet50": 25_557_032, "ResNet18": 11_689_512}[name]
+
+
+def _drawn_variables(ref, x, seed):
+    """Seeded variables of the shapes ``ref.init`` makes (taken from
+    jax.eval_shape, so no forward runs): kernels of lecun-normal spread,
+    scales and variances in [0.5, 1.5), biases and means small."""
+    shapes = jax.eval_shape(lambda: ref.init(jax.random.PRNGKey(0), x))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        return (0.1 * rng.normal(size=shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_case(name):
+    """Seeded 4 images of 64x64 and drawn reference variables of the
+    all-options model: at 64x64, batch 4, no BatchNorm normalizes fewer
+    than 16 values."""
+    x = np.random.default_rng(11).uniform(size=(4, 64, 64, 3)).astype(
+        np.float32)
+    ref = MODELS[name][0](num_classes=10, num_filters=8, dtype=jnp.float32,
+                          **ALL_VARIANTS)
+    return x, _drawn_variables(ref, x, 5)
+
+
+#: (logits, statistics) tolerances of the all-options models in float32,
+#: relative to the largest entry: the Pallas bodies accumulate in float32
+#: even under jax.enable_x64, so this parity is float32 on both sides,
+#: where a train-mode BatchNorm over 16 values amplifies summation-order
+#: rounding.  Measured: ResNet-18 4.7e-6 / 2.7e-6, ResNet-50 8.5e-4 /
+#: 1.0e-4 in train mode (the plain ResNet-50 reads 3.2e-4 at this size),
+#: both below 5e-7 / exact in eval mode; the limits are 4-10x those.
+VARIANT_TOL = {("ResNet18", True): (5e-5, 5e-5),
+               ("ResNet50", True): (3e-3, 1e-3),
+               ("ResNet18", False): (1e-5, 1e-7),
+               ("ResNet50", False): (1e-5, 1e-7)}
+
+
+@pytest.mark.parametrize("name,train", [
+    ("ResNet18", True), ("ResNet18", False),
+    pytest.param("ResNet50", True, marks=pytest.mark.slow),
+    pytest.param("ResNet50", False, marks=pytest.mark.slow)])
+def test_variant_logits_and_batch_stats_match(name, train):
+    """The all-options models (K6, K7 and K8-K10's plain versions on the
+    CPU) compute the reference's function: logits and updated batch
+    statistics from the same converted weights, in float32."""
+    x, variables = _variant_case(name)
+    ref = MODELS[name][0](num_classes=10, num_filters=8, dtype=jnp.float32,
+                          **ALL_VARIANTS)
+    if train:
+        want, upd = jax.jit(lambda v, a: ref.apply(
+            v, a, train=True, mutable=["batch_stats"]))(variables, x)
+        want_stats = flatten_flax(upd["batch_stats"])
+    else:
+        want = jax.jit(lambda v, a: ref.apply(v, a, train=False))(
+            variables, x)
+        want_stats = flatten_flax(variables["batch_stats"])
+    model = MODELS[name][1](num_classes=10, num_filters=8,
+                            dtype=torch.float32, **ALL_VARIANTS)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    model.train(train)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    got_stats = {k: t.numpy() for k, t in canonical_batch_stats(model).items()}
+    tol, stats_tol = VARIANT_TOL[(name, train)]
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+    assert list(got_stats) == list(want_stats)
+    for k, a in got_stats.items():
+        w = np.asarray(want_stats[k])
+        np.testing.assert_allclose(a, w, rtol=stats_tol,
+                                   atol=stats_tol * np.abs(w).max(),
+                                   err_msg=k)
+
+
+def test_space_to_depth_stem_is_the_strided_conv():
+    """The stem's 4x4 stride-1 conv over the space-to-depth input is the
+    7x7 stride-2 conv padded 3 of the same kernel, in float64 to
+    rounding."""
+    from horovod_tpu_torch.models.resnet import SpaceToDepthConvInit
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 3, 16, 12))).contiguous(memory_format=torch.channels_last)
+    stem = SpaceToDepthConvInit(3, 8, generator=torch.Generator()
+                                .manual_seed(0)).double()
+    conv = Conv(3, 8, 7, 2, padding=((3, 3), (3, 3))).double()
+    with torch.no_grad():
+        conv.weight.copy_(stem.weight)
+        torch.testing.assert_close(stem(x), conv(x), rtol=1e-12,
+                                   atol=1e-12)
+    with pytest.raises(ValueError, match="even spatial dims"):
+        stem(x[:, :, :15])
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_space_to_depth_logits_match_reference(train):
+    """ResNet-18 with the space_to_depth stem from the reference's
+    variables, float64 on both sides (the stem is plain convolution, no
+    Pallas): logits to one float32 rounding, as the plain models."""
+    x = np.random.default_rng(11).uniform(size=(2, 32, 32, 3))
+    opt = {"stem": "space_to_depth"}
+    ref = RefResNet18(num_classes=10, num_filters=8, dtype=jnp.float32,
+                      **opt)
+    variables = _drawn_variables(ref, x.astype(np.float32), 5)
+    with jax.enable_x64(True):
+        ref = RefResNet18(num_classes=10, num_filters=8, dtype=np.float64,
+                          param_dtype=np.float64, **opt)
+        v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                   variables)
+        want = jax.jit(lambda v, a: ref.apply(
+            v, a, train=train, mutable=["batch_stats"])[0])(v, x)
+        want = np.asarray(want)
+    model = ResNet18(num_classes=10, num_filters=8, dtype=torch.float32,
+                     **opt)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    model.double().train(train)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_variant_variables_round_trip(option):
+    """load_flax_variables then export_flax_variables gives the
+    reference's arrays back, for every option's layout rules."""
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    ref = RefResNet18(num_classes=10, num_filters=8, **OPTIONS[option])
+    variables = _drawn_variables(ref, x, 9)
+    model = ResNet18(num_classes=10, num_filters=8, **OPTIONS[option])
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    got = export_flax_variables(canonical_params(model),
+                                canonical_layouts(model))
+    want = flatten_flax(variables["params"])
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    stats = flatten_flax(variables["batch_stats"])
+    for k, t in canonical_batch_stats(model).items():
+        np.testing.assert_array_equal(t.numpy(), stats[k], err_msg=k)
 
 
 def test_mlp_logits_match():

@@ -66,7 +66,8 @@ def port_cpu_world(monkeypatch):
     core.shutdown()
 
 
-def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats):
+def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats,
+                   steps=STEPS):
     """STEPS steps of the reference's make_train_step on ``ndev`` CPU
     devices; returns (losses, params, batch_stats) as flat numpy dicts."""
     hvd.shutdown()
@@ -91,7 +92,7 @@ def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats):
         state = jax.device_put(state, NamedSharding(hvd.core.mesh(), P()))
         xs, ys = ref_training.shard_batch(x), ref_training.shard_batch(y)
         losses = []
-        for _ in range(STEPS):
+        for _ in range(steps):
             state, loss = step(state, xs, ys)
             losses.append(float(jax.device_get(loss)))
         stats = flatten_flax(state.model_state["batch_stats"]) \
@@ -101,7 +102,7 @@ def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats):
         hvd.shutdown()
 
 
-def _port_run(model, x, y, *, fused, batch_stats):
+def _port_run(model, x, y, *, fused, batch_stats, steps=STEPS):
     opt = fused_sgd(0.1, momentum=0.9)
     step = training.make_train_step(
         apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
@@ -112,10 +113,10 @@ def _port_run(model, x, y, *, fused, batch_stats):
     xs = training.shard_batch(torch.from_numpy(x))
     ys = training.shard_batch(torch.from_numpy(y).long())
     losses = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         state, loss = step(state, xs, ys)
         losses.append(loss.item())
-    assert state.step == STEPS and state.opt_state.count == STEPS
+    assert state.step == steps and state.opt_state.count == steps
     stats = {k: t.numpy() for k, t in state.model_state.items()}
     return np.asarray(losses), export_flax_variables(
         state.params, canonical_layouts(model)), stats
@@ -127,14 +128,15 @@ def _close(got, want, tol, err_msg=""):
                                err_msg=err_msg)
 
 
-def _assert_trajectories_match(port, ref, params0, tol):
+def _assert_trajectories_match(port, ref, params0, tol, change_tol=None):
     """Losses, the parameters' change over the run (so the comparison
-    sees the gradients, not the initial weights) and the statistics."""
+    sees the gradients, not the initial weights, to ``change_tol``,
+    default ``tol``) and the statistics."""
     (pl, pp, ps), (rl, rp, rs) = port, ref
     _close(pl, rl, tol)
     assert list(pp) == list(rp) and list(ps) == list(rs)
     for k in rp:
-        _close(pp[k] - params0[k], rp[k] - params0[k], tol, k)
+        _close(pp[k] - params0[k], rp[k] - params0[k], change_tol or tol, k)
     for k in rs:
         _close(ps[k], rs[k], tol, k)
 
@@ -188,6 +190,45 @@ def test_resnet_trajectory_matches_reference_float64(port_cpu_world, name,
     got = _port_run(model.double(), x, y, fused=fused, batch_stats=True)
     _assert_trajectories_match(got, want, flatten_flax(variables["params"]),
                                1e-6)
+
+
+#: the reference's three kernel options, all on
+ALL_VARIANTS = {"norm_act": "pallas", "residual_join": "pallas",
+                "conv_bn": "pallas"}
+
+
+@pytest.mark.slow  # ~35 s: the reference's step through interpret-mode Pallas
+def test_variant_resnet18_trajectory_matches_reference(port_cpu_world):
+    """ResNet-18 with all three kernel options (K6, K7, K8-K10's plain
+    versions here) trained 2 steps against the reference's make_train_step
+    with the same options, from the same weights and batch.  In float32
+    on both sides: the Pallas bodies accumulate in float32 even under
+    jax.enable_x64, so the float64 pinning of the plain models does not
+    carry over.  At 64x64, batch 4, no BatchNorm normalizes fewer than
+    16 values.  Losses and statistics agree to 1e-4 of their largest
+    entry (read: 4.8e-6, 8.2e-6); each parameter's change over the run to
+    2e-2 of its largest entry (read: 6.7e-3, a BatchNorm bias whose
+    gradient is a sum with much cancellation, so float32 rounding of the
+    terms shows in it).  The port's CPU convolutions
+    run without oneDNN: its float32 convolution backward aborts the
+    process at this size in torch 2.13's CPU build (the plain model
+    too), which the float64 tests above never reach."""
+    rng = np.random.default_rng(31)
+    x = rng.uniform(size=(4, 64, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=(4,)).astype(np.int32)
+    ref = RefResNet18(num_classes=10, num_filters=8, dtype=jnp.float32,
+                      **ALL_VARIANTS)
+    variables = jax.tree_util.tree_map(
+        np.asarray, ref.init(jax.random.PRNGKey(0), x))
+    want = _reference_run(ref, variables, x, y, ndev=1, fused=True,
+                          batch_stats=True, steps=2)
+    model = ResNet18(num_classes=10, num_filters=8, dtype=torch.float32,
+                     **ALL_VARIANTS)
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    with torch.backends.mkldnn.flags(enabled=False):
+        got = _port_run(model, x, y, fused=True, batch_stats=True, steps=2)
+    _assert_trajectories_match(got, want, flatten_flax(variables["params"]),
+                               1e-4, change_tol=2e-2)
 
 
 def test_fused_and_per_leaf_steps_are_bit_identical(port_cpu_world):
@@ -305,3 +346,29 @@ def test_synthetic_benchmark_runs_on_cpu(monkeypatch):
                         "final_loss"}
     assert out["size"] == 1 and np.isfinite(out["final_loss"])
     assert out["img_sec_per_chip"] > 0
+
+
+def test_synthetic_benchmark_runs_the_kernel_variants_on_cpu(monkeypatch):
+    """``--norm-act/--residual-join/--conv-bn pallas`` through the
+    benchmark's ``run``; on the CPU every join takes its kernel's plain
+    version, so no kernel launches."""
+    from horovod_tpu_torch import kernels
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    before = {**kernels.elementwise_launches, **kernels.conv_bn_launches}
+    core.shutdown()
+    try:
+        out = sb.run(sb.parse_args([
+            "--model", "ResNet18", "--image-size", "32", "--batch-size", "2",
+            "--num-classes", "10", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "1", "--num-iters", "1",
+            "--fused-optimizer", "--device", "cpu", "--norm-act", "pallas",
+            "--residual-join", "pallas", "--conv-bn", "pallas"]))
+    finally:
+        core.shutdown()
+    assert np.isfinite(out["final_loss"]) and out["img_sec_per_chip"] > 0
+    assert {**kernels.elementwise_launches,
+            **kernels.conv_bn_launches} == before
+
