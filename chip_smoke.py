@@ -16,7 +16,13 @@ Phases, each printing one JSON line:
    median of 25) at the size of its main path (GPT-2 small's for adam,
    ResNet-50's for the others) beside the plain version's,
    ``torch.optim``'s fused step on the same buffers (timed only, the port
-   never calls it) and the bound from the bytes it must move.
+   never calls it) and the bound from the bytes it must move.  The same
+   for bf16 groups: each rule bit for bit against its plain version over
+   3 steps (main-path and ragged lengths, and one element off 16-byte
+   alignment), then timed beside ``torch.optim``'s fused step on bf16
+   parameters.  K1 counts its launches by rule and group type, so each
+   rule's entry in the kernels line gives its main path's float32
+   launches and its ``bf16`` block that path's bf16 launches.
 4. flash_kernels — K2, K3 and K4 (flash attention forward, dq, dk/dv)
    against their plain versions on the same seeded inputs: GPT-2 small's
    shape (b 4, h 12, s 1024, d 64) in bf16, causal, in the model's
@@ -55,11 +61,14 @@ Phases, each printing one JSON line:
    for K6', ``threshold_backward`` (timed only).
 10. conv_kernels — K8, K9 and K10 (the fused 3x3 conv's three epilogues)
    against their plain versions at ResNet-50's four stride-1 3x3 shapes
-   in bf16 (row by row in norm, ``CONV_BF16_*``) and at small float32,
+   in bf16 (row by row in norm, ``CONV_BF16_*``) on the TMA + wgmma
+   mainloop and on mma.sync, and in float32, then at small float32,
    rectangular, odd-size, C = 24, 3-channel and misaligned cases; K9's
-   sums relative (``CONV_SUM_RTOL``).  Then each kernel's time at the four
-   shapes beside its plain version's, its bound and ``F.conv2d``'s on
-   channels-last bf16 (the conv alone, timed only).
+   sums relative (``CONV_SUM_RTOL``); each case's launches must name the
+   mainloop ``kernels.conv3x3_plan`` gives it.  Then each kernel's time
+   at the four shapes on both bf16 mainloops beside its plain version's,
+   its bound and ``F.conv2d``'s on channels-last bf16 (the conv alone,
+   timed only).
 11. variants_parity — narrow ResNet-18 and ResNet-50 with
    ``norm_act``, ``residual_join`` and ``conv_bn`` set to "pallas",
    trained 2 steps in float32 on the card (K6-K10, K1) and on the CPU
@@ -68,9 +77,10 @@ Phases, each printing one JSON line:
 12. variants_main_path — the synthetic benchmark with the three options:
    ResNet-50, 224x224, batch 128, bf16, fused momentum.  Checks a finite
    loss, per step K6 20, K6' 36, K7 16, K9 13, K10 13, K8 0, K1 momentum
-   1, no flash launch and one gradient ``all_reduce`` per fusion bucket;
-   reports img/s, MFU and peak memory beside the default path's img/s;
-   then one eval forward of a batch: K8 13, K9 0, finite logits.
+   1, no flash launch and one gradient ``all_reduce`` per fusion bucket,
+   every K9 and K10 launch on the TMA + wgmma mainloop; reports img/s,
+   MFU and peak memory beside the default path's img/s; then one eval
+   forward of a batch: K8 13 (all on TMA + wgmma), K9 0, finite logits.
 13. variants_profile — 3 of those steps under torch.profiler, by kind
    (``K6-K7`` and ``K8-K10`` for the port's kernels).
 14. rules   — the same trainer 3 steps each with fused SGD and fused Adam,
@@ -325,24 +335,19 @@ def phase_kernels(fu, flops_mod):
                     fail(f"K1 {rule} disagrees with its plain version at "
                          f"n={n} ({k}): max abs {d.max().item()}")
 
+        # bf16(0.999) is 1.0, which zeroes 1 - b2 and keeps nu at 0: the
+        # bf16 check of adam takes b2 = 0.99, whose moments move
+        bf16_opt = fu.fused_adam(1e-3, b2=0.99) if rule == "adam" else opt
+        bf16_bad, bf16_abs = _k1_bf16_mismatches(fu, rule, bf16_opt, n_main)
+        if bf16_bad:
+            fail(f"K1 {rule} on bf16 groups is not bit-equal to its plain "
+                 f"version: {bf16_bad}")
+
         n = n_main
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        p = torch.randn(n, device="cuda", generator=gen)
-        g = torch.randn(n, device="cuda", generator=gen)
-        mu, nu = torch.zeros_like(p), torch.zeros_like(p)
-        s = opt._scalars(1)
-        plain_fn = {"sgd": lambda: fu.plain_sgd_(p, g, **s),
-                    "momentum": lambda: fu.plain_momentum_(p, g, mu, **s),
-                    "adam": lambda: fu.plain_adam_(p, g, mu, nu, **s)}[rule]
-        kernel_ms = cuda_ms(lambda: fu.flat_update_(rule, p, g, mu, nu, **s))
-        plain_ms = cuda_ms(plain_fn)
-        w = torch.nn.Parameter(p.clone())
-        w.grad = g.clone()
-        lib = torch.optim.Adam([w], lr=1e-3, fused=True) if rule == "adam" \
-            else torch.optim.SGD([w], lr=0.01, momentum=opt.momentum,
-                                 fused=True)
-        library_ms = cuda_ms(lib.step)
         replaces, bytes_per, flops_per = RULES[rule]
+        timed = {dtype: _k1_times(fu, rule, opt, n, dtype)
+                 for dtype in (torch.float32, torch.bfloat16)}
+        kernel_ms, plain_ms, library_ms = timed[torch.float32]
         bytes_ms = bytes_per * n / flops_mod.hbm_bytes_per_sec() * 1e3
         ops_ms = flops_per * n / flops_mod.H100_FP32_FLOPS * 1e3
         results[rule] = {
@@ -363,12 +368,74 @@ def phase_kernels(fu, flops_mod):
             "library_call": ("torch.optim.Adam(fused=True).step"
                              if rule == "adam" else
                              "torch.optim.SGD(fused=True).step"),
+            # the same rule on a bf16 group of the same length: bit-equal
+            # to its plain version (checked above), half the bytes;
+            # launches are the rule's main path's on bf16 groups
+            "bf16": {"ms": timed[torch.bfloat16][0],
+                     "plain_ms": timed[torch.bfloat16][1],
+                     "library_ms": timed[torch.bfloat16][2],
+                     "bound_ms": bytes_ms / 2, "bound_by": "bytes",
+                     "max_abs_err": bf16_abs,
+                     "tolerance": "bit-equal (torch.equal)",
+                     "launches": None},
         }
     emit({"phase": "kernels", "rules": {
-        r: {k: v[k] for k in ("max_abs_err", "max_rel_err", "ms",
-                              "plain_ms", "library_ms", "bound_ms")}
+        r: {**{k: v[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                 "plain_ms", "library_ms", "bound_ms")},
+            "bf16": v["bf16"]}
         for r, v in results.items()}})
     return results
+
+
+def _k1_bf16_mismatches(fu, rule, opt, n_main) -> list:
+    """K1's ``rule`` on bf16 groups against its plain version over 3
+    steps, at the rule's main-path length, a ragged length and one
+    element off 16-byte alignment (the scalar loop): the buffers that
+    differ in any bit, and the largest absolute difference."""
+    bad, max_abs = [], 0.0
+    for n, off in sorted({(n_main, 0), (RAGGED, 0), (4099, 1)}):
+        gen = torch.Generator(device="cuda").manual_seed(n + off)
+        buf = torch.randn(n + off, device="cuda", generator=gen).bfloat16()
+        ours = {"p": buf[off:], "mu": torch.zeros_like(buf[off:]),
+                "nu": torch.zeros_like(buf[off:])}
+        plain = {k: v.clone() for k, v in ours.items()}
+        for step in range(1, 4):
+            g = torch.randn(n, device="cuda", generator=gen).bfloat16()
+            s = opt._scalars(step, torch.bfloat16)
+            fu.flat_update_(rule, ours["p"], g, ours["mu"], ours["nu"], **s)
+            args = {"sgd": (plain["p"], g),
+                    "momentum": (plain["p"], g, plain["mu"]),
+                    "adam": (plain["p"], g, plain["mu"], plain["nu"])}[rule]
+            getattr(fu, f"plain_{rule}_")(*args, **s)
+        torch.cuda.synchronize()
+        bad += [(n, off, k) for k in ours
+                if not torch.equal(ours[k], plain[k])]
+        max_abs = max([max_abs] + [
+            (ours[k].float() - plain[k].float()).abs().max().item()
+            for k in ours])
+    return bad, max_abs
+
+
+def _k1_times(fu, rule, opt, n, dtype):
+    """(kernel, plain, library) ms of ``rule`` over one group of ``n``
+    parameters of ``dtype``; the library is torch.optim's fused step on
+    a parameter of that dtype (timed only, the port never calls it)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    s = opt._scalars(1, dtype)
+    plain_fn = {"sgd": lambda: fu.plain_sgd_(p, g, **s),
+                "momentum": lambda: fu.plain_momentum_(p, g, mu, **s),
+                "adam": lambda: fu.plain_adam_(p, g, mu, nu, **s)}[rule]
+    kernel_ms = cuda_ms(lambda: fu.flat_update_(rule, p, g, mu, nu, **s))
+    plain_ms = cuda_ms(plain_fn)
+    w = torch.nn.Parameter(p.clone())
+    w.grad = g.clone()
+    lib = torch.optim.Adam([w], lr=1e-3, fused=True) if rule == "adam" \
+        else torch.optim.SGD([w], lr=0.01, momentum=opt.momentum,
+                             fused=True)
+    return kernel_ms, plain_ms, cuda_ms(lib.step)
 
 
 def _flash_inputs(b, h, sq, sk, d, dtype, seed, layout="bhsd"):
@@ -722,13 +789,24 @@ def phase_elementwise_kernels(kernels, ew, flops_mod):
     return results
 
 
-def _conv_case(cb, x, w, scale, bias):
+def _conv_case(cb, x, w, scale, bias, mainloop=None):
     """K8, K9 and K10 against their plain versions on the same inputs:
     per output, the max abs error and, in bf16, the row error; K9's sums
     relative to the column's sum of |acc| (sum) and sum of acc^2
-    (sumsq)."""
-    got = {"K8": cb.conv3x3_bn_relu(x, w, scale, bias),
-           "K9": cb.conv3x3_stats(x, w), "K10": cb.conv3x3_plain(x, w)}
+    (sumsq).  ``mainloop="mma_sync"`` runs bf16 on that mainloop instead
+    of the plan's."""
+    if mainloop is None:
+        got = {"K8": cb.conv3x3_bn_relu(x, w, scale, bias),
+               "K9": cb.conv3x3_stats(x, w), "K10": cb.conv3x3_plain(x, w)}
+    else:
+        from horovod_tpu_torch import kernels
+
+        got = {"K8": kernels.launch_conv3x3("bn_relu", x, w, scale, bias,
+                                            mainloop=mainloop),
+               "K9": kernels.launch_conv3x3("stats", x, w,
+                                            mainloop=mainloop),
+               "K10": kernels.launch_conv3x3("plain", x, w,
+                                             mainloop=mainloop)}
     want = {"K8": cb.plain_conv3x3_bn_relu(x, w, scale, bias),
             "K9": cb.plain_conv3x3_stats(x, w),
             "K10": cb.plain_conv3x3_plain(x, w)}
@@ -766,36 +844,49 @@ def _conv_case(cb, x, w, scale, bias):
 
 def phase_conv_kernels(kernels, cb, flops_mod):
     """K8, K9 and K10 against their plain versions: ResNet-50's four
-    stride-1 3x3 shapes in bf16, then small float32, rectangular, odd-H/W,
-    C = 24, 3-channel and misaligned cases (the last two take the
-    element-by-element staging); then each kernel timed at the four
-    shapes beside its plain version, its bound and the library's conv
-    (``F.conv2d`` on channels-last bf16: the conv alone)."""
+    stride-1 3x3 shapes in bf16 on the mainloop the plan names (TMA +
+    wgmma, checked by its counts) and on mma.sync, and in float32; then
+    small float32, rectangular, odd-H/W, C = 24, 3-channel and misaligned
+    cases (the last two take mma.sync).  Then each kernel timed at the
+    four shapes on both bf16 mainloops, beside its plain version, its
+    bound and the library's conv (``F.conv2d`` on channels-last bf16: the
+    conv alone)."""
     import torch.nn.functional as F
 
     before = dict(kernels.conv_bn_launches)
-    # (x shape, cout, dtype, offset)
-    cases = [((128, s, s, c), c, torch.bfloat16, False)
-             for s, c, _ in CONV_SHAPES]
-    cases += [((2, 16, 16, 64), 64, torch.float32, False),
-              ((3, 8, 8, 8), 24, torch.float32, False),
-              ((3, 8, 8, 8), 24, torch.bfloat16, False),
-              ((2, 9, 7, 24), 24, torch.float32, False),
-              ((2, 9, 7, 24), 24, torch.bfloat16, False),
-              ((2, 6, 10, 24), 40, torch.bfloat16, False),
-              ((2, 5, 7, 3), 16, torch.bfloat16, False),
-              ((2, 5, 7, 16), 16, torch.bfloat16, True)]
+    # (x shape, cout, dtype, offset, mainloop forced, mainloop expected)
+    resnet = [((128, s, s, c), c) for s, c, _ in CONV_SHAPES]
+    cases = [(shape, c, torch.bfloat16, False, None, "wgmma")
+             for shape, c in resnet]
+    cases += [(shape, c, torch.bfloat16, False, "mma_sync", "mma_sync")
+              for shape, c in resnet]
+    cases += [(shape, c, torch.float32, False, None, "f32")
+              for shape, c in resnet]
+    cases += [((2, 16, 16, 64), 64, torch.float32, False, None, "f32"),
+              ((3, 8, 8, 8), 24, torch.float32, False, None, "f32"),
+              ((3, 8, 8, 8), 24, torch.bfloat16, False, None, "wgmma"),
+              ((2, 9, 7, 24), 24, torch.float32, False, None, "f32"),
+              ((2, 9, 7, 24), 24, torch.bfloat16, False, None, "wgmma"),
+              ((2, 6, 10, 24), 40, torch.bfloat16, False, None, "wgmma"),
+              ((2, 5, 7, 3), 16, torch.bfloat16, False, None, "mma_sync"),
+              ((2, 5, 7, 16), 16, torch.bfloat16, True, None, "mma_sync")]
     rows, worst = [], {"K8": 0.0, "K9": 0.0, "K10": 0.0}
     worst_row = {"K8": [0.0, 0.0], "K9": [0.0, 0.0], "K10": [0.0, 0.0]}
     worst_sum = {"sum": 0.0, "sumsq": 0.0}
-    for i, (shape, cout, dtype, offset) in enumerate(cases):
+    for i, (shape, cout, dtype, offset, forced, loop) in enumerate(cases):
         cin = shape[3]
         x = _seeded(shape, dtype, 700 + i, offset=offset)
         w = _seeded((3, 3, cin, cout), dtype, 800 + i,
                     scale=(9 * cin) ** -0.5, offset=offset)
         scale = torch.rand(cout, device="cuda") + 0.5
         bias = torch.randn(cout, device="cuda") * 0.1
-        errs, row_errs, sum_errs = _conv_case(cb, x, w, scale, bias)
+        counted = dict(kernels.conv_bn_launches)
+        errs, row_errs, sum_errs = _conv_case(cb, x, w, scale, bias, forced)
+        took = {k: v - counted[k] for k, v in
+                kernels.conv_bn_launches.items() if v != counted[k]}
+        if took != {f"{e}.{loop}": 1 for e in ("bn_relu", "stats", "plain")}:
+            fail(f"conv_kernels: x {shape} -> {cout} {dtype} ran {took}, "
+                 f"want the {loop} mainloop")
         for k, v in errs.items():
             worst[k] = max(worst[k], v)
         for k, (top, mean) in row_errs.items():
@@ -805,9 +896,12 @@ def phase_conv_kernels(kernels, cb, flops_mod):
             worst_sum[k] = max(worst_sum[k], v)
         rows.append({"x": list(shape), "cout": cout, "offset": offset,
                      "dtype": str(dtype).rsplit(".", 1)[-1],
+                     "mainloop": loop,
                      "max_abs_err": errs, "row_rel_err": row_errs,
                      "k9_sum_rel_err": sum_errs})
-    launched = {k: kernels.conv_bn_launches[k] - before[k] for k in before}
+        del x, w
+    by_loop = {k: v - before[k] for k, v in kernels.conv_bn_launches.items()}
+    launched = kernels.launch_totals(by_loop)
     if not all(launched.values()):
         fail(f"conv_kernels: launches {launched}")
 
@@ -824,20 +918,29 @@ def phase_conv_kernels(kernels, cb, flops_mod):
         m = 128 * s * s
         flops = 2 * m * c * 9 * c
         io = 2 * m * c * 2 + 9 * c * c * 2  # x and y bf16, w
-        fns = {"K8": (lambda: cb.conv3x3_bn_relu(x, w, scale, bias),
+        plan = kernels.conv3x3_plan(tuple(x.shape), c, x.dtype,
+                                    x.data_ptr(), w.data_ptr(),
+                                    *kernels.wgmma_card(x.device.index))
+        fns = {"K8": ("bn_relu", (scale, bias),
                       lambda: cb.plain_conv3x3_bn_relu(x, w, scale, bias),
                       io + 2 * 4 * c),
-               "K9": (lambda: cb.conv3x3_stats(x, w),
-                      lambda: cb.plain_conv3x3_stats(x, w), io + 2 * 4 * c),
-               "K10": (lambda: cb.conv3x3_plain(x, w),
-                       lambda: cb.plain_conv3x3_plain(x, w), io)}
-        for key, (kernel_fn, plain_fn, nbytes) in fns.items():
+               "K9": ("stats", (), lambda: cb.plain_conv3x3_stats(x, w),
+                      io + 2 * 4 * c),
+               "K10": ("plain", (), lambda: cb.plain_conv3x3_plain(x, w),
+                       io)}
+        for key, (kind, vecs, plain_fn, nbytes) in fns.items():
             bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
                                         flops_mod.H100_PEAK_FLOPS)
             timing[key][f"{s}x{s}x{c}"] = {
-                "ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+                "ms": cuda_ms(lambda: kernels.launch_conv3x3(
+                    kind, x, w, *vecs)),
+                "mma_sync_ms": cuda_ms(lambda: kernels.launch_conv3x3(
+                    kind, x, w, *vecs, mainloop="mma_sync")),
+                "plain_ms": cuda_ms(plain_fn),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "flops": flops, "bytes": nbytes}
+                "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+                "mainloop": plan.mainloop, "tile_n": plan.tile_n,
+                "blocks": plan.blocks}
     results = {}
     head = f"{CONV_SHAPES[0][0]}x{CONV_SHAPES[0][0]}x{CONV_SHAPES[0][1]}"
     for key, (name, replaces) in CONV_KERNELS.items():
@@ -857,15 +960,19 @@ def phase_conv_kernels(kernels, cb, flops_mod):
                              if key == "K9" else {})},
             "shape": f"[128, 56, 56, 64] -> 64 bf16 ({head})",
             **{f: t[head][f] for f in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
+                                       "bound_by", "library_ms",
+                                       "mma_sync_ms")},
             "library_call": "F.conv2d on channels-last bf16 (the conv "
                             "alone, no epilogue)",
             "by_shape": t,
             "ms_per_resnet50_step": sum(t[f"{s}x{s}x{c}"]["ms"] * n
                                         for s, c, n in CONV_SHAPES),
+            "mma_sync_ms_per_resnet50_step": sum(
+                t[f"{s}x{s}x{c}"]["mma_sync_ms"] * n
+                for s, c, n in CONV_SHAPES),
         }
     emit({"phase": "conv_kernels", "cases": rows, "launches": launched,
-          "timing": timing})
+          "launches_by_mainloop": by_loop, "timing": timing})
     return results
 
 
@@ -885,7 +992,20 @@ def _variant_counts(model) -> dict:
 
 
 def _counts(kernels) -> dict:
-    return {**kernels.elementwise_launches, **kernels.conv_bn_launches}
+    return {**kernels.elementwise_launches,
+            **kernels.launch_totals(kernels.conv_bn_launches)}
+
+
+def _loops(kernels) -> dict:
+    """The K8-K10 launches by mainloop that were made (``"stats.wgmma"``
+    ...)."""
+    return {k: v for k, v in kernels.conv_bn_launches.items() if v}
+
+
+def _k1(kernels, rule: str) -> dict:
+    """K1's launches of ``rule`` by parameter-group type."""
+    return {d: kernels.fused_update_launches[f"{rule}.{d}"]
+            for d in kernels.K1_DTYPES}
 
 
 def phase_variants_parity(htt, kernels):
@@ -1020,11 +1140,11 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
         wall = time.perf_counter() - t0
     finally:
         dist.all_reduce = all_reduce
-    launches = {**_counts(kernels),
-                "K1_momentum": kernels.fused_update_launches["momentum"],
-                "K1_other": kernels.fused_update_launches["sgd"]
-                + kernels.fused_update_launches["adam"],
+    k1 = kernels.launch_totals(kernels.fused_update_launches)
+    launches = {**_counts(kernels), "K1_momentum": k1["momentum"],
+                "K1_other": k1["sgd"] + k1["adam"],
                 "flash": sum(kernels.flash_launches.values())}
+    by_loop = _loops(kernels)
     peak = torch.cuda.max_memory_allocated()
     want = {**{k: v * steps for k, v in VARIANT_STEP_LAUNCHES.items()},
             "bn_relu": 0, "K1_momentum": steps, "K1_other": 0, "flash": 0}
@@ -1033,6 +1153,11 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
     if launches != want:
         fail(f"variants_main_path: launches {launches} over {steps} steps, "
              f"want {want}")
+    # every K9 and K10 launch of the step on the TMA + wgmma mainloop
+    want_loop = {"stats.wgmma": want["stats"], "plain.wgmma": want["plain"]}
+    if by_loop != want_loop:
+        fail(f"variants_main_path: K8-K10 mainloops {by_loop}, want "
+             f"{want_loop}")
     grad_calls_per_step = calls[0] / steps - 1
     if grad_calls_per_step != buckets:
         fail(f"variants_main_path: {calls[0]} all_reduce calls over {steps} "
@@ -1050,14 +1175,17 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
         logits = model(x)
     torch.cuda.synchronize()
     eval_launches = _counts(kernels)
+    eval_by_loop = _loops(kernels)
     want_eval = {"scale_bias_relu": VARIANT_STEP_LAUNCHES["scale_bias_relu"],
                  "relu_grad": 0,
                  "residual_relu": VARIANT_STEP_LAUNCHES["residual_relu"],
                  "bn_relu": structural["bn_relu"], "stats": 0, "plain": 0}
     if eval_launches != want_eval or tuple(logits.shape) != (128, 1000) or \
-            not torch.isfinite(logits).all():
+            not torch.isfinite(logits).all() or \
+            eval_by_loop != {"bn_relu.wgmma": want_eval["bn_relu"]}:
         fail(f"variants_main_path: eval forward launches {eval_launches} "
-             f"(want {want_eval}), logits {tuple(logits.shape)} finite="
+             f"(want {want_eval}) on {eval_by_loop}, logits "
+             f"{tuple(logits.shape)} finite="
              f"{bool(torch.isfinite(logits).all())}")
     del model, logits
     emit({"phase": "variants_main_path", "model": "ResNet50", "options":
@@ -1066,7 +1194,9 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
           "world_size": result["size"], "steps": steps,
           "launches": launches, "launches_per_step": {
               k: v / steps for k, v in launches.items()},
+          "conv_launches_by_mainloop": by_loop,
           "eval_forward_launches": eval_launches,
+          "eval_conv_launches_by_mainloop": eval_by_loop,
           "fusion_buckets": buckets,
           "grad_allreduce_per_step": grad_calls_per_step,
           "img_sec_per_chip": result["img_sec_per_chip"],
@@ -1076,7 +1206,7 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
           "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
     return {**{k: launches[k] for k in VARIANT_STEP_LAUNCHES},
-            "bn_relu": eval_launches["bn_relu"]}
+            "bn_relu": eval_launches["bn_relu"]}, {**by_loop, **eval_by_loop}
 
 
 def phase_variants_profile(htt):
@@ -1207,12 +1337,14 @@ def phase_main_path(kernels, flops_mod, card):
         wall = time.perf_counter() - t0
     finally:
         dist.all_reduce = all_reduce
-    launches = dict(kernels.fused_update_launches)
+    launches = kernels.launch_totals(kernels.fused_update_launches)
+    k1 = _k1(kernels, "momentum")
 
     if not math.isfinite(result["final_loss"]):
         fail(f"main path: final loss {result['final_loss']}")
     if launches["momentum"] != steps or launches["sgd"] or launches["adam"]:
-        fail(f"main path: K1 launches {launches}, want {steps} momentum")
+        fail(f"main path: K1 launches {kernels.fused_update_launches}, want "
+             f"{steps} momentum")
     if any(kernels.flash_launches.values()):
         fail(f"main path: ResNet-50 launched {kernels.flash_launches}")
     # one all_reduce per gradient bucket, plus one for the reported loss
@@ -1223,7 +1355,7 @@ def phase_main_path(kernels, flops_mod, card):
     emit({"phase": "main_path", "model": "ResNet50", "image_size": 224,
           "batch_per_chip": 128, "dtype": "bfloat16", "optimizer":
           "fused momentum (K1)", "world_size": result["size"],
-          "steps": steps, "k1_launches": launches["momentum"],
+          "steps": steps, "k1_launches": k1,
           "fusion_buckets": buckets,
           "grad_allreduce_per_step": grad_calls_per_step,
           "img_sec_per_chip": result["img_sec_per_chip"],
@@ -1233,7 +1365,7 @@ def phase_main_path(kernels, flops_mod, card):
           "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "wall_s": wall, "card": card})
-    return launches["momentum"], result["img_sec_per_chip"]
+    return k1, result["img_sec_per_chip"]
 
 
 def _kernel_kind(name: str) -> str:
@@ -1344,7 +1476,8 @@ def _gpt_parity_run(htt, kernels, seed, lr, steps):
         runs[dev] = (losses, {k: v.detach().cpu() for k, v in
                               state.params.items()},
                      dict(kernels.flash_launches),
-                     kernels.fused_update_launches["adam"])
+                     kernels.launch_totals(
+                         kernels.fused_update_launches)["adam"])
     (l_gpu, p_gpu, flash, adam), (l_cpu, p_cpu, _, _) = runs["cuda"], \
         runs["cpu"]
     if flash != {"fwd": 2 * steps, "bwd_dq": 2 * steps,
@@ -1505,7 +1638,8 @@ def phase_gpt_main_path(htt, kernels, card):
     finally:
         dist.all_reduce = all_reduce
     flash = dict(kernels.flash_launches)
-    k1 = dict(kernels.fused_update_launches)
+    k1 = kernels.launch_totals(kernels.fused_update_launches)
+    adam = _k1(kernels, "adam")
 
     if not math.isfinite(result["final_loss"]):
         fail(f"gpt_main_path: final loss {result['final_loss']}")
@@ -1523,14 +1657,15 @@ def phase_gpt_main_path(htt, kernels, card):
           "dtype": args.dtype, "attn": args.attn,
           "optimizer": "fused_adam(1e-4) (K1 adam)",
           "world_size": htt.size(), "steps": steps,
-          "k2_k4_launches": flash, "k1_launches": k1,
+          "k2_k4_launches": flash,
+          "k1_launches": dict(kernels.fused_update_launches),
           "fusion_buckets": buckets,
           "grad_allreduce_per_step": grad_calls_per_step,
           "seq_sec_per_chip": result["seq_sec_per_chip"],
           "mfu": result["mfu"], "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "wall_s": wall, "card": card})
-    return flash, k1["adam"]
+    return flash, adam
 
 
 def _profile_steps(step, state, args, steps: int = 3):
@@ -1613,7 +1748,7 @@ def phase_profile(htt):
 
 def phase_rules(htt, kernels):
     """Fused SGD and fused Adam, 3 trainer steps each at the main path's
-    shapes; returns each rule's K1 launches."""
+    shapes; returns each rule's K1 launches by parameter-group type."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import ResNet50
@@ -1635,8 +1770,8 @@ def phase_rules(htt, kernels):
         for _ in range(3):
             state, loss = step(state, x, y)
         final = loss.item()
-        launches[rule] = kernels.fused_update_launches[rule]
-        if not math.isfinite(final) or launches[rule] != 3 or \
+        launches[rule] = _k1(kernels, rule)
+        if not math.isfinite(final) or sum(launches[rule].values()) != 3 or \
                 sum(kernels.fused_update_launches.values()) != 3:
             fail(f"rules: {rule} loss {final}, launches "
                  f"{kernels.fused_update_launches}")
@@ -1646,6 +1781,8 @@ def phase_rules(htt, kernels):
     return launches
 
 
+#: the counters of K8-K10
+CONV_COUNTERS = ("bn_relu", "stats", "plain")
 #: the kernels line's entries of K6-K10, in order
 VARIANT_KEYS = ("K6", "K6'", "K7", "K8", "K9", "K10")
 #: the counter of each of them
@@ -1663,10 +1800,14 @@ def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
     results = phase_elementwise_kernels(kernels, ew, flops_mod)
     results.update(phase_conv_kernels(kernels, cb, flops_mod))
     phase_variants_parity(htt, kernels)
-    launches = phase_variants_main_path(kernels, flops_mod, card,
-                                        default_img_sec)
+    launches, by_loop = phase_variants_main_path(kernels, flops_mod, card,
+                                                 default_img_sec)
     for key, counter in VARIANT_COUNTERS.items():
         results[key]["launches"] = launches[counter]
+        if counter in CONV_COUNTERS:
+            results[key]["launches_by_mainloop"] = {
+                k.split(".")[1]: v for k, v in by_loop.items()
+                if k.startswith(counter + ".")}
     phase_variants_profile(htt)
     return results
 
@@ -1723,15 +1864,17 @@ def main() -> None:
     phase_parity(htt)
     phase_gpt_parity(htt, kernels)
     phase_gpt_bf16(kernels, fa)
-    results["momentum"]["launches"], default_img_sec = phase_main_path(
+    k1_launches = {}
+    k1_launches["momentum"], default_img_sec = phase_main_path(
         kernels, flops_mod, card)
     phase_profile(htt)
     results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                       default_img_sec))
-    for rule, n in phase_rules(htt, kernels).items():
-        results[rule]["launches"] = n
-    flash, results["adam"]["launches"] = phase_gpt_main_path(htt, kernels,
-                                                             card)
+    k1_launches.update(phase_rules(htt, kernels))
+    flash, k1_launches["adam"] = phase_gpt_main_path(htt, kernels, card)
+    for rule, by_dtype in k1_launches.items():
+        results[rule]["launches"] = by_dtype["float32"]
+        results[rule]["bf16"]["launches"] = by_dtype["bfloat16"]
     for key, counter in (("K2", "fwd"), ("K3", "bwd_dq"),
                          ("K4", "bwd_dkv")):
         results[key]["launches"] = flash[counter]

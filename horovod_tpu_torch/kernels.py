@@ -15,12 +15,13 @@ machine without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import fcntl
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,9 +35,13 @@ LIB_PATH = BUILD_DIR / "libhvd_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
-#: launches of K1 per update rule, counted where the kernel is launched
-fused_update_launches: Dict[str, int] = {"sgd": 0, "momentum": 0,
-                                         "adam": 0}
+#: the parameter-group types K1 takes, as its launch counts name them
+K1_DTYPES = ("float32", "bfloat16")
+#: launches of K1 per update rule and group type (``"momentum.float32"``,
+#: ...), counted where the kernel is launched; :func:`launch_totals` sums
+#: them per rule
+fused_update_launches: Dict[str, int] = {
+    f"{r}.{d}": 0 for r in ("sgd", "momentum", "adam") for d in K1_DTYPES}
 #: launches of K2 (fwd), K3 (bwd_dq) and K4 (bwd_dkv), counted likewise
 flash_launches: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
@@ -44,18 +49,37 @@ flash_launches: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: (residual_relu), counted likewise
 elementwise_launches: Dict[str, int] = {"scale_bias_relu": 0,
                                         "relu_grad": 0, "residual_relu": 0}
-#: launches of K8 (bn_relu), K9 (stats) and K10 (plain), counted likewise
-conv_bn_launches: Dict[str, int] = {"bn_relu": 0, "stats": 0, "plain": 0}
+#: the mainloops of K8-K10 (see :func:`conv3x3_plan`)
+CONV_MAINLOOPS = ("wgmma", "mma_sync", "f32")
+#: launches of K8 (bn_relu), K9 (stats) and K10 (plain) per mainloop
+#: (``"stats.wgmma"``, ...), counted likewise
+conv_bn_launches: Dict[str, int] = {
+    f"{k}.{m}": 0 for k in ("bn_relu", "stats", "plain")
+    for m in CONV_MAINLOOPS}
 
 #: head dims with a template instance in csrc/flash_attention.cu
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
-#: the types K2-K4 and K6-K10 have instances for, as their C code numbers
+#: the types K1-K4 and K6-K10 have instances for, as their C code numbers
 #: them
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: HvdConvArgs.epilogue of K10, K9 and K8
 _CONV_EPILOGUES = {"plain": 0, "stats": 1, "bn_relu": 2}
+#: HvdConvArgs.mainloop of the two bfloat16 mainloops
+_CONV_BF16_MAINLOOPS = {"mma_sync": 0, "wgmma": 1}
+#: tiles for each block the card holds at once from which a TMA + wgmma
+#: launch is persistent (see conv3x3_plan)
+WGMMA_PERSIST_WAVES = 4
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+def launch_totals(counts: Dict[str, int]) -> Dict[str, int]:
+    """A launch counter keyed ``"kernel.variant"`` summed per kernel."""
+    totals: Dict[str, int] = {}
+    for key, n in counts.items():
+        kernel = key.split(".")[0]
+        totals[kernel] = totals.get(kernel, 0) + n
+    return totals
 
 
 class _Bhsd(ctypes.Structure):
@@ -82,8 +106,10 @@ class _ConvArgs(ctypes.Structure):
                                                 "bias", "partial", "sum",
                                                 "sumsq")]
                 + [(n, ctypes.c_int64) for n in ("b", "h", "wd", "cin",
-                                                 "cout")]
-                + [(n, ctypes.c_int32) for n in ("epilogue", "dtype")])
+                                                 "cout", "tiles")]
+                + [(n, ctypes.c_int32) for n in ("epilogue", "dtype",
+                                                 "mainloop", "tile_n",
+                                                 "blocks")])
 
 
 def sources() -> List[Path]:
@@ -160,23 +186,25 @@ def load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(LIB_PATH))
     ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    lib.hvd_sgd_f32.argtypes = [ptr, ptr, i64, f32, ptr]
-    lib.hvd_momentum_f32.argtypes = [ptr, ptr, ptr, i64, f32, f32, ptr]
-    lib.hvd_adam_f32.argtypes = [ptr, ptr, ptr, ptr, i64] + [f32] * 8 + [ptr]
+    i32 = ctypes.c_int32
+    lib.hvd_sgd.argtypes = [ptr, ptr, i64, f32, i32, ptr]
+    lib.hvd_momentum.argtypes = [ptr, ptr, ptr, i64, f32, f32, i32, ptr]
+    lib.hvd_adam.argtypes = [ptr, ptr, ptr, ptr, i64] + [f32] * 8 + [i32,
+                                                                     ptr]
     flash = (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
     for fn in flash:
         fn.argtypes = [ctypes.POINTER(_FlashArgs), ptr]
-    i32 = ctypes.c_int32
     lib.hvd_residual_relu.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
     lib.hvd_relu_grad.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
     lib.hvd_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
                                         ptr]
     lib.hvd_conv3x3.argtypes = [ctypes.POINTER(_ConvArgs), ptr]
-    lib.hvd_conv3x3_tiles.argtypes = [i64, i32]
-    lib.hvd_conv3x3_tiles.restype = i64
-    for fn in (lib.hvd_sgd_f32, lib.hvd_momentum_f32, lib.hvd_adam_f32,
+    lib.hvd_conv3x3_wgmma_occupancy.argtypes = [i32,
+                                                ctypes.POINTER(i32)]
+    for fn in (lib.hvd_sgd, lib.hvd_momentum, lib.hvd_adam,
                *flash, lib.hvd_residual_relu, lib.hvd_relu_grad,
-               lib.hvd_scale_bias_relu, lib.hvd_conv3x3):
+               lib.hvd_scale_bias_relu, lib.hvd_conv3x3,
+               lib.hvd_conv3x3_wgmma_occupancy):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -195,10 +223,10 @@ def _check(tensors: List[torch.Tensor]) -> None:
     first = tensors[0]
     _check_on_card("K1", tensors)
     for t in tensors:
-        if t.dtype != torch.float32:
+        if t.dtype not in _DTYPES or t.dtype != first.dtype:
             raise TypeError(
-                f"K1 takes float32 buffers, got {t.dtype} (bf16 parameter "
-                "groups are still to be ported)")
+                "K1 takes float32 or bfloat16 buffers of one dtype, got "
+                f"{[t.dtype for t in tensors]}")
         if not t.is_contiguous():
             raise ValueError("K1 takes contiguous flat buffers")
         if t.numel() != first.numel():
@@ -225,9 +253,10 @@ def launch_fused_update(kind: str, p: torch.Tensor, g: torch.Tensor,
                         b2: float = 0.0, eps: float = 0.0,
                         one_minus_b1: float = 0.0, one_minus_b2: float = 0.0,
                         inv_bc1: float = 1.0, inv_bc2: float = 1.0) -> None:
-    """Launch K1's ``kind`` rule in place over flat float32 CUDA buffers
-    on the current stream.  Raises on anything the kernel does not take
-    and on a launch the CUDA runtime refuses."""
+    """Launch K1's ``kind`` rule in place over flat CUDA buffers of one
+    dtype group (float32 or bfloat16) on the current stream.  Raises on
+    anything the kernel does not take and on a launch the CUDA runtime
+    refuses."""
     bufs = {"sgd": [p, g], "momentum": [p, g, mu], "adam": [p, g, mu, nu]}
     if kind not in bufs:
         raise ValueError(f"unknown fused update rule {kind!r}")
@@ -241,8 +270,9 @@ def launch_fused_update(kind: str, p: torch.Tensor, g: torch.Tensor,
     args = {"sgd": (n, lr), "momentum": (n, lr, momentum),
             "adam": (n, lr, b1, b2, eps, one_minus_b1, one_minus_b2,
                      inv_bc1, inv_bc2)}[kind]
-    _launch(f"hvd_{kind}_f32", fused_update_launches, kind, p.device,
-            *ptrs, *args)
+    _launch(f"hvd_{kind}", fused_update_launches,
+            f"{kind}.{str(p.dtype).split('.')[-1]}", p.device, *ptrs, *args,
+            _DTYPES[p.dtype])
 
 
 def _bhsd(t: Optional[torch.Tensor]) -> _Bhsd:
@@ -433,14 +463,95 @@ def _check_conv(x: torch.Tensor, w: torch.Tensor,
                              f"{tuple(t.shape)}")
 
 
+class ConvPlan(NamedTuple):
+    """How K8-K10 run one launch: the mainloop (``"wgmma"``,
+    ``"mma_sync"`` or ``"f32"``), its output tile, the row tiles of the
+    launch, which size K9's scratch (``[2, row_tiles, Cout]``), and the
+    blocks of a ``wgmma`` launch (0 for the other mainloops, whose grid
+    is one block a tile)."""
+
+    mainloop: str
+    tile_m: int
+    tile_n: int
+    row_tiles: int
+    blocks: int
+
+
+def conv3x3_plan(x_shape: Tuple[int, ...], cout: int, dtype: torch.dtype,
+                 x_ptr: int, w_ptr: int, sms: int,
+                 blocks_per_sm: int) -> ConvPlan:
+    """The dispatch rule and schedule of K8-K10 (csrc/conv_bn.cu's
+    header), for NHWC ``x_shape`` and HWIO weights with ``cout`` outputs
+    at addresses ``x_ptr`` and ``w_ptr``, on a card of ``sms`` SMs that
+    each hold ``blocks_per_sm`` blocks of the ``wgmma`` mainloop at once:
+
+    * bfloat16 whose Cin and Cout are multiples of 8 and whose x and w
+      start on 16-byte boundaries (what TMA can address): the TMA +
+      ``wgmma`` mainloop, 128-pixel tiles, ``tile_n`` 128 when Cout > 64
+      and the 128-wide grid still gives two tiles for every SM, else 64;
+      as many blocks as the card holds at once, each walking its tiles,
+      when there are :data:`WGMMA_PERSIST_WAVES` tiles for each, else one
+      block a tile;
+    * any other bfloat16 operands: the ``mma.sync`` mainloop, 128 x 64;
+    * float32: the scalar kernel, 64 x 64.
+    """
+    b, h, wd, cin = x_shape
+    m = b * h * wd
+    if dtype == torch.float32:
+        return ConvPlan("f32", 64, 64, -(-m // 64), 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K8-K10 take float32 or bfloat16, got {dtype}")
+    row_tiles = -(-m // 128)
+    if cin % 8 or cout % 8 or x_ptr % 16 or w_ptr % 16:
+        return ConvPlan("mma_sync", 128, 64, row_tiles, 0)
+    wide = cout > 64 and row_tiles * -(-cout // 128) >= 2 * sms
+    tile_n = 128 if wide else 64
+    tiles = row_tiles * -(-cout // tile_n)
+    slots = sms * blocks_per_sm
+    blocks = slots if tiles >= WGMMA_PERSIST_WAVES * slots else tiles
+    return ConvPlan("wgmma", 128, tile_n, row_tiles, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_card(index: int) -> Tuple[int, int]:
+    """(SMs, blocks of the ``wgmma`` mainloop one SM holds at once) of CUDA
+    card ``index``, for :func:`conv3x3_plan`; asked once per card.  The
+    blocks are the fewer of the two tile widths'."""
+    lib = load()
+    per_sm = []
+    with torch.cuda.device(index):
+        for tile_n in (64, 128):
+            n = ctypes.c_int32(0)
+            err = lib.hvd_conv3x3_wgmma_occupancy(tile_n, ctypes.byref(n))
+            if err:
+                raise RuntimeError(f"hvd_conv3x3_wgmma_occupancy failed: "
+                                   f"CUDA error {err}")
+            per_sm.append(n.value)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, min(per_sm)
+
+
+def conv3x3_stats_scratch(plan: ConvPlan, cout: int,
+                          device: torch.device) -> torch.Tensor:
+    """K9's scratch: the column sums of acc and of acc^2 of every row
+    tile, ``[2, plan.row_tiles, cout]`` float32, added in order by the
+    kernel's second pass."""
+    return torch.empty((2, plan.row_tiles, cout), dtype=torch.float32,
+                       device=device)
+
+
 def launch_conv3x3(kind: str, x: torch.Tensor, w: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
-                   bias: Optional[torch.Tensor] = None):
+                   bias: Optional[torch.Tensor] = None, *,
+                   mainloop: Optional[str] = None):
     """The 3x3 SAME stride-1 conv of NHWC ``x`` with HWIO ``w`` and one of
     three epilogues: ``"plain"`` (K10) returns y; ``"stats"`` (K9)
     returns ``(y, sum, sumsq)``, the sums float32 ``[Cout]`` over the
     float32 accumulator; ``"bn_relu"`` (K8) returns ``relu(acc * scale +
-    bias)``.  y is NHWC in x's dtype."""
+    bias)``.  y is NHWC in x's dtype.  The mainloop is
+    :func:`conv3x3_plan`'s; ``mainloop="mma_sync"`` asks for that one on
+    bfloat16 operands instead (``chip_smoke.py`` times the two side by
+    side)."""
     if kind not in _CONV_EPILOGUES:
         raise ValueError(f"unknown conv epilogue {kind!r}")
     vectors = (scale, bias) if kind == "bn_relu" else ()
@@ -449,21 +560,29 @@ def launch_conv3x3(kind: str, x: torch.Tensor, w: torch.Tensor,
     _check_conv(x, w, vectors)
     b, h, wd, cin = x.shape
     cout = w.shape[3]
+    if mainloop is not None and (mainloop != "mma_sync" or
+                                 x.dtype != torch.bfloat16):
+        raise ValueError(f"K8-K10 take mainloop='mma_sync' on bfloat16 "
+                         f"alone, got {mainloop!r} on {x.dtype}")
+    plan = conv3x3_plan(tuple(x.shape), cout, x.dtype, x.data_ptr(),
+                        w.data_ptr(), *wgmma_card(x.device.index))
+    if mainloop is not None:
+        plan = plan._replace(mainloop=mainloop, tile_n=64, blocks=0)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     args = _ConvArgs(x=x.data_ptr(), w=w.data_ptr(), y=y.data_ptr(), b=b,
-                     h=h, wd=wd, cin=cin, cout=cout,
-                     epilogue=_CONV_EPILOGUES[kind], dtype=_DTYPES[x.dtype])
+                     h=h, wd=wd, cin=cin, cout=cout, tiles=plan.row_tiles,
+                     epilogue=_CONV_EPILOGUES[kind], dtype=_DTYPES[x.dtype],
+                     mainloop=_CONV_BF16_MAINLOOPS.get(plan.mainloop, 0),
+                     tile_n=plan.tile_n, blocks=plan.blocks)
     if kind == "bn_relu":
         args.scale, args.bias = scale.data_ptr(), bias.data_ptr()
     sums = ()
     if kind == "stats":
-        tiles = load().hvd_conv3x3_tiles(b * h * wd, args.dtype)
-        partial = torch.empty(2 * tiles * cout, dtype=torch.float32,
-                              device=x.device)
+        partial = conv3x3_stats_scratch(plan, cout, x.device)
         sums = (torch.empty(cout, dtype=torch.float32, device=x.device),
                 torch.empty(cout, dtype=torch.float32, device=x.device))
         args.partial = partial.data_ptr()
         args.sum, args.sumsq = sums[0].data_ptr(), sums[1].data_ptr()
-    _launch("hvd_conv3x3", conv_bn_launches, kind, x.device,
-            ctypes.byref(args))
+    _launch("hvd_conv3x3", conv_bn_launches, f"{kind}.{plan.mainloop}",
+            x.device, ctypes.byref(args))
     return (y, *sums) if sums else y

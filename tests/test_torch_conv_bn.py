@@ -241,12 +241,131 @@ def test_kernel_checks_refuse_what_k8_k10_do_not_take(monkeypatch, x, w,
         kernels._check_conv(xt, wt)
 
 
+#: an H100 SXM: its SMs, and the blocks of the wgmma mainloop one SM holds
+#: (hvd_conv3x3_wgmma_occupancy on the card: 2 at either tile width)
+H100 = (132, 2)
+
+#: ResNet-50's stride-1 3x3 convs at batch 128: (x shape, Cout) and the
+#: plan each takes on an H100 (mainloop, tile_n, row tiles of 128 pixels,
+#: blocks: persistent at 56x56 only)
+RESNET50_PLANS = {
+    "56x56": (((128, 56, 56, 64), 64), ("wgmma", 64, 3136, 264)),
+    "28x28": (((128, 28, 28, 128), 128), ("wgmma", 128, 784, 784)),
+    "14x14": (((128, 14, 14, 256), 256), ("wgmma", 128, 196, 392)),
+    "7x7": (((128, 7, 7, 512), 512), ("wgmma", 64, 49, 392)),
+}
+
+
+@pytest.mark.parametrize("shape", list(RESNET50_PLANS))
+def test_resnet50_shapes_take_the_tma_wgmma_mainloop(shape):
+    """Every ResNet-50 3x3 takes TMA + wgmma; tile_n 128 only where the
+    128-wide grid keeps two tiles for each of the H100's 132 SMs; one
+    block a tile unless there are four tiles for every block the card
+    holds at once."""
+    (x_shape, cout), (mainloop, tile_n, tiles, blocks) = \
+        RESNET50_PLANS[shape]
+    plan = kernels.conv3x3_plan(x_shape, cout, torch.bfloat16, 0, 4096,
+                                *H100)
+    assert plan == kernels.ConvPlan(mainloop, 128, tile_n, tiles, blocks)
+    assert tiles * -(-cout // tile_n) >= 2 * H100[0] or tile_n == 64
+    all_tiles = tiles * -(-cout // tile_n)
+    slots = H100[0] * H100[1]
+    assert blocks == (slots if all_tiles >= kernels.WGMMA_PERSIST_WAVES
+                      * slots else all_tiles)
+
+
+@pytest.mark.parametrize("card,want", [
+    ((132, 2), (64, 264)), ((132, 1), (64, 132)), ((66, 2), (64, 132)),
+    ((16, 2), (128, 32))], ids=["h100", "one_a_sm", "half_the_sms",
+                                "sixteen_sms"])
+def test_wgmma_schedule_follows_the_card(card, want):
+    """tile_n and the block count come from the card the plan is given:
+    at 56x56 (3136 tiles of 64 columns) every card here is persistent
+    with as many blocks as it holds at once; a Cout of 128 takes the
+    wider tile once two 128-wide tiles an SM remain."""
+    tile_n, blocks = want
+    cout = 64 if tile_n == 64 else 128
+    plan = kernels.conv3x3_plan((128, 56, 56, cout), cout, torch.bfloat16,
+                                0, 0, *card)
+    assert (plan.tile_n, plan.blocks) == (tile_n, blocks)
+
+
+@pytest.mark.parametrize("x_shape,cout,dtype,offset,want", [
+    ((2, 5, 7, 3), 16, torch.bfloat16, 0, ("mma_sync", 64)),  # Cin 3
+    ((2, 9, 7, 24), 24, torch.bfloat16, 0, ("wgmma", 64)),    # Cin 24
+    ((2, 6, 10, 24), 40, torch.bfloat16, 0, ("wgmma", 64)),   # Cout 40
+    ((2, 5, 7, 16), 12, torch.bfloat16, 0, ("mma_sync", 64)),  # Cout 12
+    ((2, 16, 16, 64), 64, torch.float32, 0, ("f32", 64)),
+], ids=["cin3", "cin24", "cout40", "cout12", "float32"])
+def test_conv_dispatch_rule(x_shape, cout, dtype, offset, want):
+    """Channel counts TMA cannot address (not a multiple of 8) take
+    mma.sync; float32 the scalar kernel."""
+    plan = kernels.conv3x3_plan(x_shape, cout, dtype, 4096 + offset, 8192,
+                                *H100)
+    assert (plan.mainloop, plan.tile_n) == want
+    assert plan.tile_m == (64 if dtype == torch.float32 else 128)
+    m = x_shape[0] * x_shape[1] * x_shape[2]
+    assert plan.row_tiles == -(-m // plan.tile_m)
+
+
+def test_dispatch_rule_reads_a_misaligned_view():
+    """A one-element view of a CPU buffer is 2 bytes off: mma.sync."""
+    buf = torch.zeros(2 * 5 * 7 * 16 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(2, 5, 7, 16)
+    w = torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 and buf.data_ptr() % 16 == 0
+    for t, want in ((x, "mma_sync"), (buf[:-1].view(2, 5, 7, 16), "wgmma")):
+        plan = kernels.conv3x3_plan(tuple(t.shape), 16, t.dtype,
+                                    t.data_ptr(), w.data_ptr(), *H100)
+        assert plan.mainloop == want
+
+
+@pytest.mark.parametrize("shape", list(RESNET50_PLANS))
+def test_k9_scratch_follows_the_m_tile(shape):
+    (x_shape, cout), (_, _, tiles, _) = RESNET50_PLANS[shape]
+    plan = kernels.conv3x3_plan(x_shape, cout, torch.bfloat16, 0, 0, *H100)
+    scratch = kernels.conv3x3_stats_scratch(plan, cout, torch.device("meta"))
+    assert tuple(scratch.shape) == (2, tiles, cout)
+    assert scratch.dtype == torch.float32
+
+
+def test_launch_hands_the_plan_to_the_kernel(monkeypatch):
+    """launch_conv3x3 passes the plan's mainloop, tile_n, row tiles and
+    blocks in HvdConvArgs, from the card its tensors are on, and counts
+    the launch under its kind and mainloop (meta tensors stand in for
+    card tensors; nothing is launched)."""
+    seen = []
+    monkeypatch.setattr(kernels, "_check_on_card", lambda *a: None)
+    monkeypatch.setattr(kernels, "wgmma_card", lambda index: H100)
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda fn, counts, key, dev, args:
+                        seen.append((counts is kernels.conv_bn_launches,
+                                     key, args._obj)))
+    x = torch.empty(128, 7, 7, 512, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(3, 3, 512, 512, dtype=torch.bfloat16, device="meta")
+    kernels.launch_conv3x3("stats", x, w)
+    kernels.launch_conv3x3("plain", x, w, mainloop="mma_sync")
+    (ca, ka, a), (cb_, kb, b) = seen
+    assert ca and cb_ and (ka, kb) == ("stats.wgmma", "plain.mma_sync")
+    assert (a.mainloop, a.tile_n, a.tiles, a.blocks, a.epilogue) == \
+        (1, 64, 49, 392, 1)
+    assert (b.mainloop, b.tile_n, b.tiles, b.blocks, b.epilogue) == \
+        (0, 64, 49, 0, 0)
+    with pytest.raises(ValueError, match="mma_sync"):
+        kernels.launch_conv3x3("plain", x.float(), w.float(),
+                               mainloop="mma_sync")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 14, 14, 64, 64), (2, 9, 7, 24, 40)])
+@pytest.mark.parametrize("shape", [
+    (2, 14, 14, 64, 64), (2, 9, 7, 24, 40), (2, 56, 56, 64, 64),
+    (2, 28, 28, 128, 128), (2, 14, 14, 256, 256), (2, 7, 7, 512, 512)])
 def test_kernels_match_plain_versions_on_card(shape, dtype):
     """K8, K9 and K10 on the card against their plain versions, at the
-    tolerances of chip_smoke.py's conv_kernels phase."""
+    tolerances of chip_smoke.py's conv_kernels phase, at a small case,
+    a ragged one and ResNet-50's four channel counts at batch 2; bf16 on
+    the mainloop the plan names (TMA + wgmma for all of these)."""
     if not torch.cuda.is_available():
         pytest.skip("K8-K10 are CUDA C++ and run only on an NVIDIA card "
                     "(python3 chip_smoke.py runs them there)")
@@ -262,5 +381,7 @@ def test_kernels_match_plain_versions_on_card(shape, dtype):
     c = torch.randn(cout, device="cuda", generator=gen)
     before = dict(kernels.conv_bn_launches)
     chip_smoke._conv_case(cb, x, k, s, c)   # fails the test on a mismatch
-    assert {n: kernels.conv_bn_launches[n] - before[n] for n in before} == \
-        {"bn_relu": 1, "stats": 1, "plain": 1}
+    loop = "wgmma" if dt == torch.bfloat16 else "f32"
+    assert {n: v - before[n] for n, v in kernels.conv_bn_launches.items()
+            if v != before[n]} == \
+        {f"{e}.{loop}": 1 for e in ("bn_relu", "stats", "plain")}

@@ -164,7 +164,8 @@ def test_resnet_variant_wrappers_bind_every_kernel_entry_point():
     for src, fns in (("elementwise.cu", ("hvd_residual_relu",
                                          "hvd_relu_grad",
                                          "hvd_scale_bias_relu")),
-                     ("conv_bn.cu", ("hvd_conv3x3", "hvd_conv3x3_tiles"))):
+                     ("conv_bn.cu", ("hvd_conv3x3",
+                                     "hvd_conv3x3_wgmma_occupancy"))):
         text = (PKG / "csrc" / src).read_text()
         for fn in fns:
             assert f" {fn}(" in text and f"lib.{fn}" in binding
