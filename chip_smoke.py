@@ -24,17 +24,21 @@ Phases, each printing one JSON line:
    rule's entry in the kernels line gives its main path's float32
    launches and its ``bf16`` block that path's bf16 launches.
 4. flash_kernels — K2, K3 and K4 (flash attention forward, dq, dk/dv)
-   against their plain versions on the same seeded inputs: GPT-2 small's
-   shape (b 4, h 12, s 1024, d 64) in bf16, causal, in the model's
-   [b, s, h, d] layout; in float32 and in bf16, ragged lengths 136 and
-   192, causal and not, head dims 16, 32 and 128, unnormalized at
-   nonzero offsets including a kv shard wholly in the future (l exactly
-   0, o finite), and operands off 16-byte alignment; float32 outputs
-   elementwise, bf16 ones row by row in norm (``FLASH_BF16_ROW_LIMIT``,
-   ``FLASH_BF16_MEAN_LIMIT``).  Then each kernel's
-   time at GPT-2 small's shape and layout beside its plain version's,
-   its bound, and ``F.scaled_dot_product_attention``'s forward (for K2)
-   and backward (for K3 and K4 together), timed only.
+   against their plain versions on the same seeded inputs, each launch
+   on the mainloop ``kernels.flash_plan`` names (checked by its counts:
+   TMA + wgmma for bf16 K2 and K4 at head dim 64, mma.sync for other
+   bf16 operands and K3, the scalar kernels for float32) and the plain
+   forward at the plan's kv tile: GPT-2 small's shape (b 4, h 12,
+   s 1024, d 64) in bf16, causal, in the model's [b, s, h, d] layout; in
+   float32 and in bf16, ragged lengths 136 and 192, causal and not, head
+   dims 16, 32 and 128, unnormalized at nonzero offsets including a kv
+   shard wholly in the future (l exactly 0, o finite), and operands off
+   16-byte alignment; float32 outputs elementwise, bf16 ones row by row
+   in norm (``FLASH_BF16_ROW_LIMIT``, ``FLASH_BF16_MEAN_LIMIT``).  Then
+   each kernel's time at GPT-2 small's shape and layout (K2 and K4 on
+   both bf16 mainloops) beside its plain version's, its bound, and
+   ``F.scaled_dot_product_attention``'s forward (for K2) and backward
+   (for K3 and K4 together), timed only.
 5. parity  — a narrow ResNet-18 at 64×64 trained 2 steps in float32 from
    the same seeded weights on the card (K1) and on the CPU (plain), with
    TF32 off for convolutions and matmuls; losses, parameters and
@@ -89,7 +93,8 @@ Phases, each printing one JSON line:
    defaults: GPT-2 small, batch 4, seq 1024, bf16, flash attention,
    fused Adam, world size 1 over NCCL.  Checks a finite loss, K2, K3 and
    K4 each launched 12 times a step, K1 adam once a step, one gradient
-   ``all_reduce`` per fusion bucket per step; reports seq/s and MFU.
+   ``all_reduce`` per fusion bucket per step, K2 and K4 on TMA + wgmma
+   and K3 on mma.sync; reports seq/s and MFU.
 16. gpt_profile — 3 GPT-2 small steps under torch.profiler, by kind
    (``flash`` for K2-K4, ``matmul`` for the projections).
 
@@ -107,6 +112,7 @@ then a kernels line of K6-K10, and prints no last line.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -196,6 +202,12 @@ GPT_PARITY_SEEDS = (3, 13, 23)
 #: one-ulp differences of o carried through the bf16 layers)
 GPT_BF16_LOSS_RTOL = 1e-4
 GPT_BF16_GRAD_RTOL = 2 ** -5
+
+#: the counter keys of K2, K3 and K4 on a GPT's path: float32 takes the
+#: scalar kernels; bf16 at head dim 64 (GPT-2's) K2 and K4 on TMA + wgmma,
+#: K3 on mma.sync
+GPT_F32_FLASH = ("fwd.f32", "bwd_dq.f32", "bwd_dkv.f32")
+GPT_BF16_FLASH = ("fwd.wgmma", "bwd_dq.mma_sync", "bwd_dkv.wgmma")
 
 #: per kernel: (name, the Pallas body it replaces)
 FLASH_KERNELS = {
@@ -473,26 +485,48 @@ def row_rel_err(got, want) -> Tuple[float, float]:
     return err.max().item(), err.mean().item()
 
 
-def _flash_case(fa, q, k, v, do, *, causal, q_off, kv_off, normalize):
-    """K2 (and, for normalize=True, K3 and K4) against their plain
-    versions on the same inputs: per output, the max abs error and, in
-    bf16, the row error held to FLASH_BF16_ROW_LIMIT."""
+def _on_card(what: str, fn):
+    """fn() synchronized with the card: a kernel that faults fails the
+    phase, naming the kernel and the case, instead of surfacing at a
+    later call."""
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        fail(f"{what} failed on the card: {err}")
+    return out
+
+
+def _flash_case(kernels, fa, q, k, v, do, *, causal, q_off, kv_off,
+                normalize):
+    """K2, K3 and K4 against their plain versions on the same inputs, the
+    plain forward at the kv tile of K2's plan; K3 and K4 take lse and
+    delta from the plain normalized forward.  Per output, the max abs
+    error and, in bf16, the row error held to FLASH_BF16_ROW_LIMIT."""
     kw = dict(causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
               q_offset=q_off, kv_offset=kv_off)
-    got = fa._mha_fwd(q, k, v, normalize=normalize, **kw)
-    want = fa.plain_mha_fwd(q, k, v, normalize=normalize, **kw)
+    kv_tile = kernels.flash_plan_for("fwd", q, k, v).kv_tile
+    case = (f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+            f"causal={causal} offsets=({q_off},{kv_off})")
+    got = _on_card(f"flash_kernels: K2 at {case}",
+                   lambda: fa._mha_fwd(q, k, v, normalize=normalize, **kw))
+    want = fa.plain_mha_fwd(q, k, v, normalize=normalize, kv_tile=kv_tile,
+                            **kw)
     pairs = dict(zip(("o", "m", "l"), zip(got, want)))
-    if normalize:
-        o, m, l = want
-        lse = m + torch.log(l.clamp_min(1e-30))
-        delta = (do.float() * o.float()).sum(-1, keepdim=True).contiguous()
-        pairs["dq"] = (fa._mha_bwd_dq(q, k, v, do, lse, delta, **kw),
-                       fa.plain_mha_bwd_dq(q, k, v, do, lse, delta, **kw))
-        for name, g, w in zip(("dk", "dv"),
-                              fa._mha_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                              fa.plain_mha_bwd_dkv(q, k, v, do, lse, delta,
-                                                   **kw)):
-            pairs[name] = (g, w)
+    o, m, l = want if normalize else fa.plain_mha_fwd(
+        q, k, v, kv_tile=kv_tile, **kw)
+    lse = m + torch.log(l.clamp_min(1e-30))
+    delta = (do.float() * o.float()).sum(-1, keepdim=True).contiguous()
+    pairs["dq"] = (_on_card(f"flash_kernels: K3 at {case}",
+                            lambda: fa._mha_bwd_dq(q, k, v, do, lse, delta,
+                                                   **kw)),
+                   fa.plain_mha_bwd_dq(q, k, v, do, lse, delta, **kw))
+    dkv = _on_card(f"flash_kernels: K4 at {case}",
+                   lambda: fa._mha_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    for name, g, w in zip(("dk", "dv"), dkv,
+                          fa.plain_mha_bwd_dkv(q, k, v, do, lse, delta,
+                                               **kw)):
+        pairs[name] = (g, w)
     torch.cuda.synchronize()
     errs, row_errs = {}, {}
     for name, (g, w) in pairs.items():
@@ -509,23 +543,33 @@ def _flash_case(fa, q, k, v, do, *, causal, q_off, kv_off, normalize):
             ok = torch.allclose(g, w, rtol=rtol, atol=atol)
         if not ok:
             fail(f"flash_kernels: {name} disagrees with its plain version "
-                 f"at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
-                 f"causal={causal} offsets=({q_off},{kv_off}): max abs "
+                 f"at {case}: max abs "
                  f"{errs[name]}, row error (max, mean) {row_errs.get(name)} "
                  f"(limits {FLASH_BF16_ROW_LIMIT.get(name)}, "
                  f"{FLASH_BF16_MEAN_LIMIT})")
     return errs, row_errs, got
 
 
+def _flash_loops(dtype, d, layout) -> dict:
+    """The mainloop each of K2, K3 and K4 must run on for a case: the
+    rule of kernels.flash_plan, written out here so that a wrong plan
+    fails the phase."""
+    if dtype == torch.float32:
+        return {"fwd": "f32", "bwd_dq": "f32", "bwd_dkv": "f32"}
+    wg = "wgmma" if d == 64 and layout != "offset" else "mma_sync"
+    return {"fwd": wg, "bwd_dq": "mma_sync", "bwd_dkv": wg}
+
+
 def phase_flash_kernels(kernels, fa, flops_mod):
     """K2, K3 and K4 against their plain versions on the card: (a) the main
-    path's shape in bf16, (b) float32 at ragged lengths and every head
-    dim, (c) unnormalized at nonzero offsets, with a kv shard wholly in
-    the future of every row; then each kernel timed at shape (a)."""
+    path's shape in bf16, (b) float32 and bf16 at ragged lengths and every
+    head dim, (c) unnormalized at nonzero offsets, with a kv shard wholly
+    in the future of every row, (d) operands off 16-byte alignment; each
+    launch on the mainloop _flash_loops names.  Then each kernel timed at
+    shape (a), K2 and K4 on both bf16 mainloops."""
     import torch.nn.functional as F
 
     b, h, s, d = GPT_ATTN_SHAPE
-    before = dict(kernels.flash_launches)
     # (tag, (b, h, sq, sk, d), dtype, causal, q_off, kv_off, normalize,
     # layout); bfloat16 runs the tensor-core kernels, float32 the scalar
     cases = [("a", (b, h, s, s, d), torch.bfloat16, True, 0, 0, True,
@@ -549,13 +593,21 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     worst_row = {name: 0.0 for name in FLASH_BF16_ROW_LIMIT}
     worst_mean = dict(worst_row)
     rows = []
+    before = dict(kernels.flash_launches)
     for i, (tag, (bb, hh, sq, sk, dd), dtype, causal, q_off, kv_off,
             normalize, layout) in enumerate(cases):
         q, k, v, do = _flash_inputs(bb, hh, sq, sk, dd, dtype, 100 + i,
                                     layout)
-        errs, row_errs, got = _flash_case(fa, q, k, v, do, causal=causal,
-                                          q_off=q_off, kv_off=kv_off,
-                                          normalize=normalize)
+        counted = dict(kernels.flash_launches)
+        errs, row_errs, got = _flash_case(kernels, fa, q, k, v, do,
+                                          causal=causal, q_off=q_off,
+                                          kv_off=kv_off, normalize=normalize)
+        took = {key: n - counted[key] for key, n in
+                kernels.flash_launches.items() if n != counted[key]}
+        loops = _flash_loops(dtype, dd, layout)
+        if took != {f"{kind}.{loop}": 1 for kind, loop in loops.items()}:
+            fail(f"flash_kernels: case {tag} {(bb, hh, sq, sk, dd)} {dtype} "
+                 f"{layout} ran {took}, want {loops}")
         if causal and q_off + sq - 1 < kv_off:
             # every key is in the future of every row: l must be exactly
             # 0 and o finite (tests/test_flash_attention.py:88-99)
@@ -572,24 +624,33 @@ def phase_flash_kernels(kernels, fa, flops_mod):
                      "dtype": str(dtype).rsplit(".", 1)[-1],
                      "layout": layout, "causal": causal,
                      "offsets": [q_off, kv_off], "normalize": normalize,
+                     "mainloops": loops,
                      "max_abs_err": errs, "row_rel_err": row_errs})
-    if dict(kernels.flash_launches) == before:
-        fail("flash_kernels: the kernels were never launched")
+    by_loop = {key: n - before[key]
+               for key, n in kernels.flash_launches.items()}
 
     # timing at the main path's shape and layout
     q, k, v, do = _flash_inputs(b, h, s, s, d, torch.bfloat16, 7, "bshd")
     kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
               kv_offset=0)
-    o, m, l = fa.plain_mha_fwd(q, k, v, **kw)
+    plans = {key: kernels.flash_plan_for(kind, q, k, v, do)
+             for key, kind in (("K2", "fwd"), ("K3", "bwd_dq"),
+                               ("K4", "bwd_dkv"))}
+    kv_tile = plans["K2"].kv_tile
+    o, m, l = fa.plain_mha_fwd(q, k, v, kv_tile=kv_tile, **kw)
     lse = m + torch.log(l.clamp_min(1e-30))
     delta = (do.float() * o.float()).sum(-1, keepdim=True).contiguous()
     bwd = (q, k, v, do, lse, delta)
-    timed = {
+    timed = {  # key: (kernel, the mma.sync mainloop or None, plain)
         "K2": (lambda: fa._mha_fwd(q, k, v, **kw),
-               lambda: fa.plain_mha_fwd(q, k, v, **kw)),
-        "K3": (lambda: fa._mha_bwd_dq(*bwd, **kw),
+               lambda: kernels.launch_flash_fwd(q, k, v, **kw,
+                                                mainloop="mma_sync"),
+               lambda: fa.plain_mha_fwd(q, k, v, kv_tile=kv_tile, **kw)),
+        "K3": (lambda: fa._mha_bwd_dq(*bwd, **kw), None,
                lambda: fa.plain_mha_bwd_dq(*bwd, **kw)),
         "K4": (lambda: fa._mha_bwd_dkv(*bwd, **kw),
+               lambda: kernels.launch_flash_bwd_dkv(*bwd, **kw,
+                                                    mainloop="mma_sync"),
                lambda: fa.plain_mha_bwd_dkv(*bwd, **kw)),
     }
     # the library's fused attention, timed beside the kernels only
@@ -611,7 +672,7 @@ def phase_flash_kernels(kernels, fa, flops_mod):
                    + 2 * elems * 4)}
     outputs = {"K2": ("o", "m", "l"), "K3": ("dq",), "K4": ("dk", "dv")}
     results = {}
-    for key, (kernel_fn, plain_fn) in timed.items():
+    for key, (kernel_fn, old_fn, plain_fn) in timed.items():
         flops, nbytes = work[key]
         bytes_ms = nbytes / flops_mod.hbm_bytes_per_sec() * 1e3
         ops_ms = flops / flops_mod.H100_PEAK_FLOPS * 1e3
@@ -620,6 +681,8 @@ def phase_flash_kernels(kernels, fa, flops_mod):
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": None,
+            "mainloop": plans[key].mainloop,
+            "tiles_q_kv": [plans[key].q_tile, plans[key].kv_tile],
             "max_abs_err": per_kernel[key],
             "max_bf16_row_rel_err": {n: worst_row[n] for n in outputs[key]},
             "max_bf16_mean_row_rel_err": {n: worst_mean[n]
@@ -633,7 +696,10 @@ def phase_flash_kernels(kernels, fa, flops_mod):
                 "bfloat16_row_floor": FLASH_ROW_FLOOR},
             "shape_bhsd": [b, h, s, d], "dtype": "bfloat16",
             "causal": True, "flops": flops, "bytes": nbytes,
-            "ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+            "ms": cuda_ms(kernel_fn),
+            **({"old_ms": cuda_ms(old_fn), "old_mainloop": "mma_sync"}
+               if old_fn else {}),
+            "plain_ms": cuda_ms(plain_fn),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library["K2"] if key == "K2"
@@ -645,10 +711,13 @@ def phase_flash_kernels(kernels, fa, flops_mod):
                 " dq, dk and dv together (K3+K4's work)"),
         }
     emit({"phase": "flash_kernels", "cases": rows,
+          "launches_by_mainloop": by_loop,
           "max_bf16_row_rel_err": worst_row,
           "max_bf16_mean_row_rel_err": worst_mean,
-          "timing": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
+          "timing": {k: {f: v[f] for f in ("mainloop", "ms", "old_ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")
+                         if f in v}
                      for k, v in results.items()}})
     return results
 
@@ -1438,6 +1507,12 @@ def device_breakdown(spans, steps: int) -> dict:
                                         for n, v in top]}
 
 
+def flash_counts(kernels, keys, n: int) -> dict:
+    """kernels.flash_launches as it must read when each of ``keys``
+    (``"fwd.wgmma"``, ...) was launched ``n`` times and nothing else."""
+    return {key: n if key in keys else 0 for key in kernels.flash_launches}
+
+
 def reset_counts(kernels) -> None:
     """Every kernel's launch count to 0."""
     for counts in (kernels.fused_update_launches, kernels.flash_launches,
@@ -1480,8 +1555,8 @@ def _gpt_parity_run(htt, kernels, seed, lr, steps):
                          kernels.fused_update_launches)["adam"])
     (l_gpu, p_gpu, flash, adam), (l_cpu, p_cpu, _, _) = runs["cuda"], \
         runs["cpu"]
-    if flash != {"fwd": 2 * steps, "bwd_dq": 2 * steps,
-                 "bwd_dkv": 2 * steps} or adam != steps:
+    if flash != flash_counts(kernels, GPT_F32_FLASH, 2 * steps) or \
+            adam != steps:
         fail(f"gpt_parity: card launches K2-K4 {flash}, K1 adam {adam}")
     if not all(math.isfinite(v) for v in l_gpu) or any(
             abs(a - b) > GPT_LOSS_RTOL * abs(b) for a, b in zip(l_gpu, l_cpu)):
@@ -1503,7 +1578,8 @@ def _gpt_parity_run(htt, kernels, seed, lr, steps):
             "key_bias_grad_max": max(grads[k] for k in keyb),
             "other_grad_max": max(v for k, v in grads.items()
                                   if k not in keyb),
-            "card_launches": {**flash, "adam": adam}}
+            "card_launches": {**{k: v for k, v in flash.items() if v},
+                              "adam": adam}}
 
 
 def phase_gpt_parity(htt, kernels):
@@ -1551,8 +1627,12 @@ def phase_gpt_bf16(kernels, fa):
     from horovod_tpu_torch.convert import canonical_params
     from horovod_tpu_torch.models import gpt_tiny, next_token_loss
 
-    plain_fn = (lambda q, k, v, mask:
-                fa.plain_flash_attention(q, k, v, causal=True))
+    def plain_fn(q, k, v, mask):
+        # the plain forward's online softmax at the kv tile of K2's plan
+        tile = kernels.flash_plan_for(
+            "fwd", *(t.transpose(1, 2) for t in (q, k, v))).kv_tile
+        return fa.plain_flash_attention(q, k, v, causal=True, kv_tile=tile)
+
     cfg = dict(vocab_size=1024, hidden_dim=128, num_layers=2, num_heads=2,
                mlp_dim=256, max_len=512, dtype=torch.bfloat16)
     seeds = []
@@ -1571,7 +1651,8 @@ def phase_gpt_bf16(kernels, fa):
                                        canonical_params(model).items()},
                          dict(kernels.flash_launches))
         (l_k, g_k, n_k), (l_p, g_p, n_p) = out["kernels"], out["plain"]
-        if n_k != {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2} or any(n_p.values()):
+        if n_k != flash_counts(kernels, GPT_BF16_FLASH, 2) or \
+                any(n_p.values()):
             fail(f"gpt_bf16: launches {n_k} through the kernels, {n_p} "
                  "through the plain versions")
         rel = {k: ((g_k[k].float() - g_p[k].float()).norm()
@@ -1643,9 +1724,9 @@ def phase_gpt_main_path(htt, kernels, card):
 
     if not math.isfinite(result["final_loss"]):
         fail(f"gpt_main_path: final loss {result['final_loss']}")
-    if flash != {k: layers * steps for k in flash}:
+    if flash != flash_counts(kernels, GPT_BF16_FLASH, layers * steps):
         fail(f"gpt_main_path: K2-K4 launches {flash}, want "
-             f"{layers * steps} each")
+             f"{layers * steps} each of {GPT_BF16_FLASH}")
     if k1 != {"sgd": 0, "momentum": 0, "adam": steps}:
         fail(f"gpt_main_path: K1 launches {k1}, want {steps} adam")
     grad_calls_per_step = calls[0] / steps - 1
@@ -1657,7 +1738,7 @@ def phase_gpt_main_path(htt, kernels, card):
           "dtype": args.dtype, "attn": args.attn,
           "optimizer": "fused_adam(1e-4) (K1 adam)",
           "world_size": htt.size(), "steps": steps,
-          "k2_k4_launches": flash,
+          "k2_k4_launches": {k: v for k, v in flash.items() if v},
           "k1_launches": dict(kernels.fused_update_launches),
           "fusion_buckets": buckets,
           "grad_allreduce_per_step": grad_calls_per_step,
@@ -1709,12 +1790,16 @@ def phase_gpt_profile(htt):
     flash = {}
     for start, end, name in spans:
         if _kernel_kind(name) == "flash":
+            found = re.search(r"flash_\w+", name)
+            name = found.group(0) if found else name[:60]
             n, ms = flash.get(name, (0, 0.0))
             flash[name] = (n + 1, ms + (end - start) / 1e3)
     emit({"phase": "gpt_profile", "model": "gpt2_small", "steps": steps,
           "wall_ms_per_step": wall_ms, **device_breakdown(spans, steps),
-          "flash_ms_per_launch": {n[:60]: ms / k
+          "flash_ms_per_launch": {n: ms / k
                                   for n, (k, ms) in flash.items()},
+          "flash_launches_per_step": {n: k / steps
+                                      for n, (k, _) in flash.items()},
           "final_loss": loss})
 
 
@@ -1875,9 +1960,13 @@ def main() -> None:
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]
         results[rule]["bf16"]["launches"] = by_dtype["bfloat16"]
+    flash_totals = kernels.launch_totals(flash)
     for key, counter in (("K2", "fwd"), ("K3", "bwd_dq"),
                          ("K4", "bwd_dkv")):
-        results[key]["launches"] = flash[counter]
+        results[key]["launches"] = flash_totals[counter]
+        results[key]["launches_by_mainloop"] = {
+            k.split(".")[1]: v for k, v in flash.items()
+            if k.startswith(counter + ".")}
     phase_gpt_profile(htt)
     htt.shutdown()
 

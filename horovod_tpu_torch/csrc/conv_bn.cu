@@ -95,7 +95,8 @@
 //       swizzles by the absolute shared-memory address.
 //     The TMA maps are encoded on the host for every launch (x and w move
 //     between calls) through cuTensorMapEncodeIm2col / Tiled, reached with
-//     cudaGetDriverEntryPoint, so the library needs no -lcuda; they are
+//     cudaGetDriverEntryPoint (hopper.cuh, which also holds the mbarrier,
+//     TMA and wgmma wrappers), so the library needs no -lcuda; they are
 //     passed as __grid_constant__ kernel parameters.  The kernel's shared-
 //     memory limit is raised once per device, not per launch.
 //   mma.sync (bfloat16 operands that TMA cannot take: cin or cout not a
@@ -140,12 +141,13 @@
 // wrapper raises on anything else.  Nothing here allocates or
 // synchronizes; the caller passes its current stream.
 
-#include <cuda.h>  // CUtensorMap and its enums; no -lcuda (see below)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, tensor-map encoders
 
 extern "C" {
 
@@ -618,176 +620,6 @@ struct TmaCfg {
                                kRedFloats * 4 + 2 * kStages * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// About 10 s of the SM clock: a barrier that has not completed by then
-// never will (a copy that delivers fewer bytes than it announced).
-constexpr long long kHangCycles = 1LL << 34;
-
-// Spins until the phase of parity `parity` of the barrier has completed;
-// traps (the launch fails and the wrapper raises) rather than hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = clock64();
-    else if (clock64() - start > kHangCycles)
-      __trap();
-  }
-}
-
-// 128 pixels x 64 channels of x, from pixel (n, h, w) of the im2col
-// traversal at the tap's offsets (dx, dy), into dst; counted on bar.
-__device__ __forceinline__ void tma_load_im2col(void* dst,
-                                                const CUtensorMap* map,
-                                                uint64_t* bar, int c, int w,
-                                                int h, int n, uint16_t dx,
-                                                uint16_t dy) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
-      "r"(w), "r"(h), "r"(n), "h"(dx), "h"(dy)
-      : "memory");
-}
-
-// One box of the 3-D tiled map at (c0, c1, c2) into dst; counted on bar.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor of wgmma with the 128-byte swizzle:
-// start address, leading and stride byte offsets, all >> 4.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// at most N committed wgmma groups of this warpgroup still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the accumulators behind the asm statements before it: the
-// compiler may not read them earlier (a wait has no register operands).
-template <int N>
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[32] += A (64x16, K-major) . B (16x64, MN-major), both read from
-// shared memory through their descriptors
-__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64] += A (64x16, K-major) . B (16x128, MN-major), both read from
-// shared memory through their descriptors
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // One level of reduce_scatter8: a lane keeps the upper or the lower half
 // of v[0 .. 2 HALF), sends the other half to the lane `mask` away and
 // adds what it gets into v[0 .. HALF).
@@ -813,15 +645,6 @@ __device__ __forceinline__ void reduce_scatter8(float (&v)[V], int g) {
   scatter_level<V / 2>(v, (g >> 2) & 1, 16);
   scatter_level<V / 4>(v, (g >> 1) & 1, 8);
   scatter_level<V / 8>(v, g & 1, 4);
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
-                                           uint64_t db) {
-  if constexpr (BN == 64)
-    wgmma_m64n64k16(d, da, db);
-  else
-    wgmma_m64n128k16(d, da, db);
 }
 
 // A persistent block: it takes the 128 x BN output tiles blockIdx.x,
@@ -858,7 +681,7 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
       mbar_init(&full[s], 1);   // the producer's arrive + the bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -927,9 +750,9 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
         // step is 32 bytes along the row.  B: MN-major, a k16 step is 16
         // rows of 128 bytes; 8-row groups 1 KB apart, the second
         // 64-column box 8 KB on.
-        wgmma_tile<BN>(acc, gmma_desc(a_addr + kk * 32, 16, 1024),
-                       gmma_desc(b_addr + kk * 16 * kSwizzleRow, kBBoxBytes,
-                                 1024));
+        wgmma_ss<BN, 1>(acc, gmma_desc(a_addr + kk * 32, 16, 1024),
+                        gmma_desc(b_addr + kk * 16 * kSwizzleRow, kBBoxBytes,
+                                  1024));
       }
       wgmma_commit();
       // the group before this one has completed: its stage is free
@@ -1040,61 +863,23 @@ bool aligned16(const void* ptr) {
 // The M tile of a launch: 128 for both bfloat16 mainloops, 64 for float32.
 int64_t tile_m(int32_t dtype) { return dtype == 1 ? kBM : kFM; }
 
-// The driver's tensor-map encoders, reached through the runtime so that
-// the library links no libcuda; null where the driver has none.
-using EncodeIm2colFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
-    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-void* driver_entry(const char* name) {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      name, &fn, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t err =
-      cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
-#endif
-  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? fn
-                                                                     : nullptr;
-}
-
 // Lets hvd_conv3x3_wgmma_kernel<BN> take its dynamic shared memory (over
 // the 48 KB default) on the current device: set once per device, not per
 // launch.
 template <int BN>
 cudaError_t allow_wgmma_smem() {
-  static std::atomic<uint64_t> done{0};  // a bit per device below 64
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(hvd_conv3x3_wgmma_kernel<BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             TmaCfg<BN>::kSmem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
+  static std::atomic<uint64_t> done{0};
+  return allow_smem_once(done, hvd_conv3x3_wgmma_kernel<BN>,
+                         TmaCfg<BN>::kSmem);
 }
 
 // The TMA + wgmma mainloop of one launch: encodes x's im2col map and w's
 // tiled map, launches, returns the launch's error.
 template <int BN>
 cudaError_t launch_wgmma(const HvdConvArgs& a, cudaStream_t st) {
-  static const auto encode_im2col = reinterpret_cast<EncodeIm2colFn>(
-      driver_entry("cuTensorMapEncodeIm2col"));
-  static const auto encode_tiled = reinterpret_cast<EncodeTiledFn>(
-      driver_entry("cuTensorMapEncodeTiled"));
-  if (encode_im2col == nullptr || encode_tiled == nullptr)
-    return cudaErrorNotSupported;
+  const EncodeIm2colFn im2col = encode_im2col();
+  const EncodeTiledFn tiled = encode_tiled();
+  if (im2col == nullptr || tiled == nullptr) return cudaErrorNotSupported;
 
   const cuuint64_t e = sizeof(bf16);
   const cuuint64_t cin = a.cin, cout = a.cout;
@@ -1109,7 +894,7 @@ cudaError_t launch_wgmma(const HvdConvArgs& a, cudaStream_t st) {
   // extent 3 less the padding), so it visits each output position once
   const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  CUresult r = encode_im2col(
+  CUresult r = im2col(
       &tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(a.x),
       x_dims, x_strides, lower, upper, kTmaBK, kTmaBM, ones,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1118,11 +903,11 @@ cudaError_t launch_wgmma(const HvdConvArgs& a, cudaStream_t st) {
   const cuuint64_t w_dims[3] = {cout, cin, 9};
   const cuuint64_t w_strides[2] = {cout * e, cin * cout * e};
   const cuuint32_t w_box[3] = {64, kTmaBK, 1};
-  r = encode_tiled(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(a.w), w_dims, w_strides, w_box, ones,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  r = tiled(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(a.w), w_dims, w_strides, w_box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
 
   cudaError_t err = allow_wgmma_smem<BN>();

@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,8 +42,18 @@ K1_DTYPES = ("float32", "bfloat16")
 #: them per rule
 fused_update_launches: Dict[str, int] = {
     f"{r}.{d}": 0 for r in ("sgd", "momentum", "adam") for d in K1_DTYPES}
-#: launches of K2 (fwd), K3 (bwd_dq) and K4 (bwd_dkv), counted likewise
-flash_launches: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+#: the mainloops of K2-K4 (see :func:`flash_plan`)
+FLASH_MAINLOOPS = ("wgmma", "mma_sync", "f32")
+#: the flash kernels by launch kind: K2 (fwd), K3 (bwd_dq), K4 (bwd_dkv)
+FLASH_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
+#: the kinds with a TMA + wgmma mainloop (K3 has none yet)
+FLASH_WGMMA_KINDS = ("fwd", "bwd_dkv")
+#: launches of K2-K4 per kind and mainloop (``"fwd.wgmma"``,
+#: ``"bwd_dq.mma_sync"``, ...), counted likewise; :func:`launch_totals`
+#: sums them per kind
+flash_launches: Dict[str, int] = {
+    f"{k}.{m}": 0 for k in FLASH_KINDS for m in FLASH_MAINLOOPS
+    if m != "wgmma" or k in FLASH_WGMMA_KINDS}
 
 #: launches of K6 (scale_bias_relu), K6' (relu_grad) and K7
 #: (residual_relu), counted likewise
@@ -57,8 +67,13 @@ conv_bn_launches: Dict[str, int] = {
     f"{k}.{m}": 0 for k in ("bn_relu", "stats", "plain")
     for m in CONV_MAINLOOPS}
 
-#: head dims with a template instance in csrc/flash_attention.cu
+#: head dims with a template instance in csrc/flash_attention.cu (the
+#: mma.sync and float32 kernels)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the TMA + wgmma kernels: one 128-byte swizzled row
+FLASH_WGMMA_HEAD_DIMS = (64,)
+#: HvdFlashArgs.mainloop of the two bfloat16 mainloops
+_FLASH_BF16_MAINLOOPS = {"mma_sync": 0, "wgmma": 1}
 #: the types K1-K4 and K6-K10 have instances for, as their C code numbers
 #: them
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,7 +112,7 @@ class _FlashArgs(ctypes.Structure):
                                                  "q_off", "kv_off")]
                 + [("scale", ctypes.c_float)]
                 + [(n, ctypes.c_int32) for n in ("causal", "normalize",
-                                                 "dtype")])
+                                                 "dtype", "mainloop")])
 
 
 class _ConvArgs(ctypes.Structure):
@@ -314,15 +329,80 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_on_card("K2-K4", ops + list(stats))
 
 
-def _flash_args(q, k, v, *, causal: bool, scale: float, q_offset: int,
-                kv_offset: int, normalize: bool = True, **operands
-                ) -> _FlashArgs:
+class FlashPlan(NamedTuple):
+    """How K2-K4 run one launch: the mainloop (``"wgmma"``,
+    ``"mma_sync"`` or ``"f32"``) and its tiles, the rows of q and of k/v a
+    block takes at a time (K2's online softmax rounds p per kv tile, so
+    the plain forward is compared with it at ``kv_tile``)."""
+
+    mainloop: str
+    q_tile: int
+    kv_tile: int
+
+
+def flash_plan(kind: str, dtype: torch.dtype, head_dim: int,
+               lengths: Tuple[int, int],
+               operands: Sequence[Tuple[int, Tuple[int, int, int]]],
+               mainloop: Optional[str] = None) -> FlashPlan:
+    """The dispatch rule of K2-K4 (csrc/flash_attention.cu's header) for
+    one launch of ``kind`` (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) on
+    operands of ``dtype`` and ``head_dim``, ``lengths`` (sq, sk), and the
+    ``(data_ptr, (stride_b, stride_h, stride_s))`` of each operand the
+    kernel copies (q, k, v and, for the backward, do), strides in
+    elements:
+
+    * bfloat16, K2 or K4, head dim 64, both lengths nonzero, every operand
+      on a 16-byte boundary with every stride but the head dim's a
+      positive multiple of 16 bytes (what TMA can address): the TMA +
+      ``wgmma`` mainloop, K2 on 128-row q tiles and 128-key kv tiles, K4
+      on 128-key kv tiles and 64-row q tiles;
+    * any other bfloat16 operands, and all of K3: ``mma_sync``, 64 x 64;
+    * float32: the scalar kernels, 64 x 64.
+
+    ``mainloop="mma_sync"`` asks for that mainloop on bfloat16 operands
+    instead (``chip_smoke.py`` times the two side by side); nothing else
+    may be asked for."""
+    if kind not in FLASH_KINDS:
+        raise ValueError(f"unknown flash kernel {kind!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"K2-K4 take float32 or bfloat16, got {dtype}")
+    if mainloop is not None and (mainloop != "mma_sync" or
+                                 dtype != torch.bfloat16):
+        raise ValueError(f"K2-K4 take mainloop='mma_sync' on bfloat16 "
+                         f"alone, got {mainloop!r} on {dtype}")
+    if dtype == torch.float32:
+        return FlashPlan("f32", 64, 64)
+    tma = all(ptr % 16 == 0 and all(st > 0 and st * 2 % 16 == 0
+                                    for st in strides)
+              for ptr, strides in operands)
+    if mainloop is None and kind in FLASH_WGMMA_KINDS and \
+            head_dim in FLASH_WGMMA_HEAD_DIMS and min(lengths) > 0 and tma:
+        return FlashPlan("wgmma", 128, 128) if kind == "fwd" else \
+            FlashPlan("wgmma", 64, 128)
+    return FlashPlan("mma_sync", 64, 64)
+
+
+def flash_plan_for(kind: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, do: Optional[torch.Tensor] = None,
+                   mainloop: Optional[str] = None) -> FlashPlan:
+    """:func:`flash_plan` for [b, h, s, d] operands as the wrappers pass
+    them (``do`` for the backward)."""
+    ops = [q, k, v] + ([do] if do is not None else [])
+    return flash_plan(kind, q.dtype, q.shape[-1], (q.shape[2], k.shape[2]),
+                      [(t.data_ptr(), tuple(t.stride()[:3])) for t in ops],
+                      mainloop)
+
+
+def _flash_args(q, k, v, plan: FlashPlan, *, causal: bool, scale: float,
+                q_offset: int, kv_offset: int, normalize: bool = True,
+                **operands) -> _FlashArgs:
     b, h, sq, d = q.shape
     a = _FlashArgs(q=_bhsd(q), k=_bhsd(k), v=_bhsd(v), b=b, h=h, sq=sq,
                    sk=k.shape[2], d=d, q_off=int(q_offset),
                    kv_off=int(kv_offset), scale=float(scale),
                    causal=int(bool(causal)), normalize=int(bool(normalize)),
-                   dtype=_DTYPES[q.dtype])
+                   dtype=_DTYPES[q.dtype],
+                   mainloop=_FLASH_BF16_MAINLOOPS.get(plan.mainloop, 0))
     for name, t in operands.items():
         if name in ("m", "l", "lse", "delta"):
             setattr(a, name, t.data_ptr())
@@ -333,20 +413,24 @@ def _flash_args(q, k, v, *, causal: bool, scale: float, q_offset: int,
 
 def launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool, scale: float, q_offset: int = 0,
-                     kv_offset: int = 0, normalize: bool = True
+                     kv_offset: int = 0, normalize: bool = True,
+                     mainloop: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 on [b, h, s, d] CUDA tensors: ``(o, m, l)``, o in q's dtype
-    (``normalize``) or float32, m and l float32 ``[b, h, sq, 1]``."""
+    (``normalize``) or float32, m and l float32 ``[b, h, sq, 1]``.  The
+    mainloop is :func:`flash_plan`'s (``mainloop="mma_sync"``: that one
+    on bfloat16)."""
     _check_flash(q, k, v)
+    plan = flash_plan_for("fwd", q, k, v, mainloop=mainloop)
     b, h, sq, _ = q.shape
     o = torch.empty_like(q, dtype=q.dtype if normalize else torch.float32)
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    args = _flash_args(q, k, v, causal=causal, scale=scale,
+    args = _flash_args(q, k, v, plan, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset,
                        normalize=normalize, o=o, m=m, l=l)
-    _launch("hvd_flash_fwd", flash_launches, "fwd", q.device,
-            ctypes.byref(args))
+    _launch("hvd_flash_fwd", flash_launches, f"fwd.{plan.mainloop}",
+            q.device, ctypes.byref(args))
     return o, m, l
 
 
@@ -355,27 +439,31 @@ def launch_flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                         kv_offset: int = 0) -> torch.Tensor:
     """K3: dq in float32, laid out like q."""
     _check_flash(q, k, v, do, (lse, delta))
+    plan = flash_plan_for("bwd_dq", q, k, v, do)
     dq = torch.empty_like(q, dtype=torch.float32)
-    args = _flash_args(q, k, v, causal=causal, scale=scale,
+    args = _flash_args(q, k, v, plan, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset, dout=do,
                        lse=lse, delta=delta, dq=dq)
-    _launch("hvd_flash_bwd_dq", flash_launches, "bwd_dq", q.device,
-            ctypes.byref(args))
+    _launch("hvd_flash_bwd_dq", flash_launches, f"bwd_dq.{plan.mainloop}",
+            q.device, ctypes.byref(args))
     return dq
 
 
 def launch_flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
-                         scale: float, q_offset: int = 0, kv_offset: int = 0
+                         scale: float, q_offset: int = 0, kv_offset: int = 0,
+                         mainloop: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: ``(dk, dv)`` in float32, laid out like k and v."""
+    """K4: ``(dk, dv)`` in float32, laid out like k and v; the mainloop as
+    for :func:`launch_flash_fwd`."""
     _check_flash(q, k, v, do, (lse, delta))
+    plan = flash_plan_for("bwd_dkv", q, k, v, do, mainloop=mainloop)
     dk = torch.empty_like(k, dtype=torch.float32)
     dv = torch.empty_like(v, dtype=torch.float32)
-    args = _flash_args(q, k, v, causal=causal, scale=scale,
+    args = _flash_args(q, k, v, plan, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset, dout=do,
                        lse=lse, delta=delta, dk=dk, dv=dv)
-    _launch("hvd_flash_bwd_dkv", flash_launches, "bwd_dkv", q.device,
-            ctypes.byref(args))
+    _launch("hvd_flash_bwd_dkv", flash_launches, f"bwd_dkv.{plan.mainloop}",
+            q.device, ctypes.byref(args))
     return dk, dv
 
 

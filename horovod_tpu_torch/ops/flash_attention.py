@@ -8,13 +8,19 @@ Three kernels carry it, written by hand for Hopper in
 * K3, dq (``_bwd_dq_kernel``);
 * K4, dk and dv (``_bwd_dkv_kernel``).
 
+Each launch runs on the mainloop that ``kernels.flash_plan`` names: TMA
++ ``wgmma`` for K2 and K4 on bf16 operands of head dim 64 that TMA can
+address (GPT-2's path), ``mma.sync`` for other bf16 operands and for K3,
+scalar float32 kernels for float32.
+
 Beside each is its plain PyTorch version (:func:`plain_mha_fwd`,
 :func:`plain_mha_bwd_dq`, :func:`plain_mha_bwd_dkv`), which follows the
 Pallas body's arithmetic and casts: the finite ``NEG_INF`` mask applied
 before the max and again to ``p``; in the forward, the online softmax
-over kv tiles of :data:`KV_TILE` keys (the kernels' tile) with ``p``
-cast to v's dtype against the running max before ``p·v``, so a bf16
-``p`` is rounded where the kernel rounds it; ``ds = p·(dp − delta)·scale``
+over kv tiles (``kv_tile`` keys, :data:`KV_TILE` by default; the card's
+checks pass the plan's tile) with ``p`` cast to v's dtype against the
+running max before ``p·v``, so a bf16 ``p`` is rounded where the kernel
+rounds it; ``ds = p·(dp − delta)·scale``
 cast to k's (q's) dtype before its product; float32 sums.  CPU tensors
 take the plain version; any other tensor goes to the kernel, which
 raises on what it does not take.  Nothing falls back.
@@ -27,13 +33,14 @@ Public functions keep the reference's layouts and signatures:
 d]``; :func:`mha_partial`, :func:`mha_bwd_dq` and :func:`mha_bwd_dkv`
 (the ring-attention building blocks) take ``[b, h, s, d]`` and global
 offsets.  The reference's ``block_q`` / ``block_k`` / ``interpret``
-arguments are TPU tiling and have no counterpart: the kernels choose
-their own 64-row tiles and mask any ragged tail themselves.  Offsets are
-host integers here.
+arguments are TPU tiling and have no counterpart: the kernels' tiles are
+their plan's, and they mask any ragged tail themselves.  Offsets are host
+integers here.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -45,7 +52,9 @@ from .. import kernels
 # row, then zeroed by the second mask select, so no NaN appears.
 NEG_INF = -1e30
 
-#: keys per kv tile of the forward's online softmax: the kernels' tile
+#: keys per kv tile of the plain forward's online softmax by default: the
+#: mma.sync and float32 kernels' tile (the TMA + wgmma K2 takes 128,
+#: ``kernels.flash_plan``)
 KV_TILE = 64
 
 
@@ -76,19 +85,20 @@ def _probs(s, mask, row_max):
 
 
 def plain_mha_fwd(q, k, v, *, causal: bool, scale: float, q_offset: int = 0,
-                  kv_offset: int = 0, normalize: bool = True
+                  kv_offset: int = 0, normalize: bool = True,
+                  kv_tile: int = KV_TILE
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's plain version: ``(o, m, l)``; o in q's dtype (normalized) or
     float32, m and l float32 ``[b, h, sq, 1]``.  The online softmax runs
-    over kv tiles of :data:`KV_TILE` keys as the Pallas body's grid does:
+    over kv tiles of ``kv_tile`` keys as the Pallas body's grid does:
     ``m`` is the running max, and each tile's ``p`` is rounded to v's
     dtype against it before ``p·v``."""
     b, h, sq, _ = q.shape
     m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, v.shape[-1]), device=q.device)
-    for k0 in range(0, k.shape[2], KV_TILE):
-        kb, vb = k[:, :, k0:k0 + KV_TILE], v[:, :, k0:k0 + KV_TILE]
+    for k0 in range(0, k.shape[2], kv_tile):
+        kb, vb = k[:, :, k0:k0 + kv_tile], v[:, :, k0:k0 + kv_tile]
         s, mask = _scores(q, kb, causal=causal, scale=scale,
                           q_offset=q_offset, kv_offset=kv_offset + k0)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -237,10 +247,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 def plain_flash_attention(q, k, v, *, causal: bool = False,
                           scale: Optional[float] = None, q_offset: int = 0,
-                          kv_offset: int = 0):
+                          kv_offset: int = 0, kv_tile: int = KV_TILE):
     """:func:`flash_attention` through the plain versions of K2-K4 on any
-    device: the kernels' oracle, never called on the training path."""
-    return _flash(q, k, v, causal, scale, q_offset, kv_offset, _PLAIN)
+    device, the forward's online softmax over ``kv_tile`` keys a tile: the
+    kernels' oracle, never called on the training path."""
+    impl = (functools.partial(plain_mha_fwd, kv_tile=kv_tile), *_PLAIN[1:])
+    return _flash(q, k, v, causal, scale, q_offset, kv_offset, impl)
 
 
 def softmax_attention(q, k, v, *, causal: bool = False,

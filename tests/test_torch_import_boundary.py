@@ -5,6 +5,7 @@ chip_smoke.py — and its entry points refuse to fall back to the CPU."""
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -199,3 +200,46 @@ def test_kernel_wrapper_never_falls_back_for_cuda_tensors():
         flat_update_("momentum", p, p, torch.empty_like(p), lr=0.1,
                      momentum=0.9)
     assert kernels.fused_update_launches == before
+
+
+#: definitions that live in csrc/hopper.cuh alone
+HOPPER_HELPERS = ("void mbar_wait(", "void mbar_arrive_expect_tx(",
+                  "void tma_load_4d(", "void tma_load_im2col(",
+                  "uint64_t gmma_desc(", "void wgmma_fence(",
+                  "void wgmma_ss_m64n64k16(", "void wgmma_rs_m64n64k16(",
+                  "void* driver_entry(", "cudaError_t allow_smem_once(")
+
+
+def test_hopper_helpers_live_in_one_header():
+    """The mbarrier, TMA and wgmma wrappers, the tensor-map encoders and
+    the shared-memory limit are defined once, in csrc/hopper.cuh, which
+    both TMA + wgmma mainloops (K8-K10 in conv_bn.cu, K2 and K4 in
+    flash_attention.cu) include."""
+    csrc = PKG / "csrc"
+    header = (csrc / "hopper.cuh").read_text()
+    assert [d for d in HOPPER_HELPERS if d not in header] == []
+    for src in sorted(csrc.glob("*.cu")):
+        text = src.read_text()
+        assert [d for d in HOPPER_HELPERS if d in text] == [], src.name
+    for name in ("conv_bn.cu", "flash_attention.cu"):
+        assert '#include "hopper.cuh"' in (csrc / name).read_text()
+
+
+def test_library_is_rebuilt_when_a_header_changes(tmp_path, monkeypatch):
+    """kernels._stale watches the headers beside the sources: a newer
+    hopper.cuh makes the built library stale."""
+    from horovod_tpu_torch import kernels
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    lib = tmp_path / "libhvd_torch_kernels.so"
+    for path in (src / "flash_attention.cu", src / "hopper.cuh", lib):
+        path.write_text("")
+    monkeypatch.setattr(kernels, "CSRC", src)
+    monkeypatch.setattr(kernels, "LIB_PATH", lib)
+    os.utime(src / "flash_attention.cu", (1000, 1000))
+    os.utime(src / "hopper.cuh", (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not kernels._stale()
+    os.utime(src / "hopper.cuh", (3000, 3000))
+    assert kernels._stale()
