@@ -26,17 +26,17 @@ Phases, each printing one JSON line:
 4. flash_kernels — K2, K3 and K4 (flash attention forward, dq, dk/dv)
    against their plain versions on the same seeded inputs, each launch
    on the mainloop ``kernels.flash_plan`` names (checked by its counts:
-   TMA + wgmma for bf16 K2 and K4 at head dim 64, mma.sync for other
-   bf16 operands and K3, the scalar kernels for float32) and the plain
-   forward at the plan's kv tile: GPT-2 small's shape (b 4, h 12,
-   s 1024, d 64) in bf16, causal, in the model's [b, s, h, d] layout; in
-   float32 and in bf16, ragged lengths 136 and 192, causal and not, head
-   dims 16, 32 and 128, unnormalized at nonzero offsets including a kv
-   shard wholly in the future (l exactly 0, o finite), and operands off
+   TMA + wgmma for bf16 at head dim 64, mma.sync for other bf16
+   operands, the scalar kernels for float32) and the plain forward at
+   the plan's kv tile: GPT-2 small's shape (b 4, h 12, s 1024, d 64) in
+   bf16, causal, in the model's [b, s, h, d] layout; in float32 and in
+   bf16, ragged lengths 136 and 192, causal and not, head dims 16, 32
+   and 128, unnormalized at nonzero offsets including a kv shard wholly
+   in the future (l and dq exactly 0, o finite), and operands off
    16-byte alignment; float32 outputs elementwise, bf16 ones row by row
    in norm (``FLASH_BF16_ROW_LIMIT``, ``FLASH_BF16_MEAN_LIMIT``).  Then
-   each kernel's time at GPT-2 small's shape and layout (K2 and K4 on
-   both bf16 mainloops) beside its plain version's, its bound, and
+   each kernel's time at GPT-2 small's shape and layout on both bf16
+   mainloops beside its plain version's, its bound, and
    ``F.scaled_dot_product_attention``'s forward (for K2) and backward
    (for K3 and K4 together), timed only.
 5. parity  — a narrow ResNet-18 at 64×64 trained 2 steps in float32 from
@@ -62,7 +62,8 @@ Phases, each printing one JSON line:
    shapes, a ragged row count, C = 36, an operand off 16-byte alignment
    and the expanded gradient of the final mean; then each kernel's time
    at [128, 56, 56, 256] bf16 beside its plain version's, its bound and,
-   for K6', ``threshold_backward`` (timed only).
+   for K6', ``threshold_backward`` (timed only) and the one-pack
+   ``flat_binary`` loop it ran before (bit for bit there too).
 10. conv_kernels — K8, K9 and K10 (the fused 3x3 conv's three epilogues)
    against their plain versions at ResNet-50's four stride-1 3x3 shapes
    in bf16 (row by row in norm, ``CONV_BF16_*``) on the TMA + wgmma
@@ -93,8 +94,8 @@ Phases, each printing one JSON line:
    defaults: GPT-2 small, batch 4, seq 1024, bf16, flash attention,
    fused Adam, world size 1 over NCCL.  Checks a finite loss, K2, K3 and
    K4 each launched 12 times a step, K1 adam once a step, one gradient
-   ``all_reduce`` per fusion bucket per step, K2 and K4 on TMA + wgmma
-   and K3 on mma.sync; reports seq/s and MFU.
+   ``all_reduce`` per fusion bucket per step, K2, K3 and K4 on TMA +
+   wgmma; reports seq/s and MFU.
 16. gpt_profile — 3 GPT-2 small steps under torch.profiler, by kind
    (``flash`` for K2-K4, ``matmul`` for the projections).
 
@@ -204,10 +205,9 @@ GPT_BF16_LOSS_RTOL = 1e-4
 GPT_BF16_GRAD_RTOL = 2 ** -5
 
 #: the counter keys of K2, K3 and K4 on a GPT's path: float32 takes the
-#: scalar kernels; bf16 at head dim 64 (GPT-2's) K2 and K4 on TMA + wgmma,
-#: K3 on mma.sync
+#: scalar kernels; bf16 at head dim 64 (GPT-2's) all three TMA + wgmma
 GPT_F32_FLASH = ("fwd.f32", "bwd_dq.f32", "bwd_dkv.f32")
-GPT_BF16_FLASH = ("fwd.wgmma", "bwd_dq.mma_sync", "bwd_dkv.wgmma")
+GPT_BF16_FLASH = ("fwd.wgmma", "bwd_dq.wgmma", "bwd_dkv.wgmma")
 
 #: per kernel: (name, the Pallas body it replaces)
 FLASH_KERNELS = {
@@ -502,7 +502,8 @@ def _flash_case(kernels, fa, q, k, v, do, *, causal, q_off, kv_off,
     """K2, K3 and K4 against their plain versions on the same inputs, the
     plain forward at the kv tile of K2's plan; K3 and K4 take lse and
     delta from the plain normalized forward.  Per output, the max abs
-    error and, in bf16, the row error held to FLASH_BF16_ROW_LIMIT."""
+    error and, in bf16, the row error held to FLASH_BF16_ROW_LIMIT; and
+    the pairs (kernel's, plain version's) by output name."""
     kw = dict(causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
               q_offset=q_off, kv_offset=kv_off)
     kv_tile = kernels.flash_plan_for("fwd", q, k, v).kv_tile
@@ -547,7 +548,7 @@ def _flash_case(kernels, fa, q, k, v, do, *, causal, q_off, kv_off,
                  f"{errs[name]}, row error (max, mean) {row_errs.get(name)} "
                  f"(limits {FLASH_BF16_ROW_LIMIT.get(name)}, "
                  f"{FLASH_BF16_MEAN_LIMIT})")
-    return errs, row_errs, got
+    return errs, row_errs, pairs
 
 
 def _flash_loops(dtype, d, layout) -> dict:
@@ -557,7 +558,7 @@ def _flash_loops(dtype, d, layout) -> dict:
     if dtype == torch.float32:
         return {"fwd": "f32", "bwd_dq": "f32", "bwd_dkv": "f32"}
     wg = "wgmma" if d == 64 and layout != "offset" else "mma_sync"
-    return {"fwd": wg, "bwd_dq": "mma_sync", "bwd_dkv": wg}
+    return {"fwd": wg, "bwd_dq": wg, "bwd_dkv": wg}
 
 
 def phase_flash_kernels(kernels, fa, flops_mod):
@@ -566,7 +567,7 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     head dim, (c) unnormalized at nonzero offsets, with a kv shard wholly
     in the future of every row, (d) operands off 16-byte alignment; each
     launch on the mainloop _flash_loops names.  Then each kernel timed at
-    shape (a), K2 and K4 on both bf16 mainloops."""
+    shape (a) on both bf16 mainloops."""
     import torch.nn.functional as F
 
     b, h, s, d = GPT_ATTN_SHAPE
@@ -599,9 +600,10 @@ def phase_flash_kernels(kernels, fa, flops_mod):
         q, k, v, do = _flash_inputs(bb, hh, sq, sk, dd, dtype, 100 + i,
                                     layout)
         counted = dict(kernels.flash_launches)
-        errs, row_errs, got = _flash_case(kernels, fa, q, k, v, do,
-                                          causal=causal, q_off=q_off,
-                                          kv_off=kv_off, normalize=normalize)
+        errs, row_errs, pairs = _flash_case(kernels, fa, q, k, v, do,
+                                            causal=causal, q_off=q_off,
+                                            kv_off=kv_off,
+                                            normalize=normalize)
         took = {key: n - counted[key] for key, n in
                 kernels.flash_launches.items() if n != counted[key]}
         loops = _flash_loops(dtype, dd, layout)
@@ -609,10 +611,12 @@ def phase_flash_kernels(kernels, fa, flops_mod):
             fail(f"flash_kernels: case {tag} {(bb, hh, sq, sk, dd)} {dtype} "
                  f"{layout} ran {took}, want {loops}")
         if causal and q_off + sq - 1 < kv_off:
-            # every key is in the future of every row: l must be exactly
-            # 0 and o finite (tests/test_flash_attention.py:88-99)
-            if got[2].abs().max().item() != 0.0:
+            # every key is in the future of every row: l and dq must be
+            # exactly 0 and o finite (tests/test_flash_attention.py:88-99)
+            if pairs["l"][0].abs().max().item() != 0.0:
                 fail("flash_kernels: a fully masked shard gave l != 0")
+            if pairs["dq"][0].abs().max().item() != 0.0:
+                fail("flash_kernels: a fully masked shard gave dq != 0")
         for name, err in errs.items():
             key = {"o": "K2", "m": "K2", "l": "K2", "dq": "K3"}.get(name,
                                                                    "K4")
@@ -641,12 +645,14 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     lse = m + torch.log(l.clamp_min(1e-30))
     delta = (do.float() * o.float()).sum(-1, keepdim=True).contiguous()
     bwd = (q, k, v, do, lse, delta)
-    timed = {  # key: (kernel, the mma.sync mainloop or None, plain)
+    timed = {  # key: (kernel, the mma.sync mainloop, plain)
         "K2": (lambda: fa._mha_fwd(q, k, v, **kw),
                lambda: kernels.launch_flash_fwd(q, k, v, **kw,
                                                 mainloop="mma_sync"),
                lambda: fa.plain_mha_fwd(q, k, v, kv_tile=kv_tile, **kw)),
-        "K3": (lambda: fa._mha_bwd_dq(*bwd, **kw), None,
+        "K3": (lambda: fa._mha_bwd_dq(*bwd, **kw),
+               lambda: kernels.launch_flash_bwd_dq(*bwd, **kw,
+                                                   mainloop="mma_sync"),
                lambda: fa.plain_mha_bwd_dq(*bwd, **kw)),
         "K4": (lambda: fa._mha_bwd_dkv(*bwd, **kw),
                lambda: kernels.launch_flash_bwd_dkv(*bwd, **kw,
@@ -697,8 +703,7 @@ def phase_flash_kernels(kernels, fa, flops_mod):
             "shape_bhsd": [b, h, s, d], "dtype": "bfloat16",
             "causal": True, "flops": flops, "bytes": nbytes,
             "ms": cuda_ms(kernel_fn),
-            **({"old_ms": cuda_ms(old_fn), "old_mainloop": "mma_sync"}
-               if old_fn else {}),
+            "old_ms": cuda_ms(old_fn), "old_mainloop": "mma_sync",
             "plain_ms": cuda_ms(plain_fn),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -749,9 +754,10 @@ def phase_elementwise_kernels(kernels, ew, flops_mod):
     """K6, K6' and K7 against their plain versions, bit for bit, on seeded
     bf16 and float32 inputs: ResNet-50's join shapes, a ragged row count,
     C = 36, an operand off 16-byte alignment, and the expanded (stride-0)
-    gradient that the last block's mean hands back.  Then each kernel's
-    time at [128, 56, 56, 256] bf16 beside its plain version's and its
-    bound."""
+    gradient that the last block's mean hands back; K6' on its old
+    flat_binary loop too.  Then each kernel's time at [128, 56, 56, 256]
+    bf16 beside its plain version's and its bound, and K6''s on the old
+    loop."""
     before = dict(kernels.elementwise_launches)
     cases = []
     shapes = [EW_SHAPE, (128, 112, 112, 64), (128, 7, 7, 2048),
@@ -781,6 +787,10 @@ def phase_elementwise_kernels(kernels, ew, flops_mod):
                     fail(f"elementwise_kernels: {key} differs from its plain "
                          f"version at {shape} {dtype} offset={offset}: max "
                          f"abs {(got.float() - want.float()).abs().max()}")
+            if not torch.equal(kernels.launch_relu_grad(
+                    out, g, loop="flat_binary"), pairs["K6'"][1]):
+                fail(f"elementwise_kernels: K6' on flat_binary differs from "
+                     f"its plain version at {shape} {dtype} offset={offset}")
             cases.append({"shape": list(shape), "offset": offset,
                           "dtype": str(dtype).rsplit(".", 1)[-1]})
         # the expanded gradient of x.mean((1, 2)), through both Functions
@@ -850,11 +860,20 @@ def phase_elementwise_kernels(kernels, ew, flops_mod):
             "library_call": "torch.ops.aten.threshold_backward(g, out, 0)"
             if lib_fn else None,
         }
+    results["K6'"].update({
+        "loop": "2 packs of 16 B a thread loaded before use, a block for "
+        "each round, default cache policy",
+        "old_ms": cuda_ms(lambda: kernels.launch_relu_grad(
+            out, g, loop="flat_binary")),
+        "old_loop": "one pack a thread an iteration (flat_binary, K7's "
+        "loop)"})
     emit({"phase": "elementwise_kernels", "cases": cases,
           "launches": launched,
-          "timing": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
-                     for k, v in results.items()}})
+          "timing": {k: {f: v[f] for f in ("ms", "old_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms") if f in v}
+                     for k, v in results.items()},
+          "relu_grad_loop": results["K6'"]["loop"]})
     return results
 
 

@@ -40,6 +40,17 @@
 // divide into 16-byte packs takes the scalar loop, masked by the element
 // count.
 //
+// K6' has a loop of its own (K6 and K7 keep flat_binary's, one pack a
+// thread an iteration on a grid capped at kBlocksPerSM blocks an SM): each
+// thread loads two packs of out and two of g, kThreads packs apart so that
+// a warp's loads are contiguous, before it uses any, and the grid has a
+// block for each 2 x kThreads packs, with no cap.  Loads and stores keep
+// the default cache policy.  This was the fastest loop of a sweep over
+// more packs in flight, streaming cache hints, one resident wave of
+// blocks, and a ring of 1-D TMA bulk copies (scripts/relu_grad_sweep.py;
+// the times are in PERF.md, section 6).  flat_binary's K6' stays, to be
+// timed beside it.
+//
 // Each launch function returns cudaGetLastError() (0 on success); the
 // Python wrapper raises on anything else.  Nothing here allocates or
 // synchronizes; the caller passes its current stream.
@@ -121,12 +132,58 @@ __global__ void __launch_bounds__(kThreads)
   flat_binary<T>(x, y, out, n, n_vec, ResidualRelu<T>());
 }
 
-// K6'
+// K6' on flat_binary's loop (timed beside its own)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     hvd_relu_grad_kernel(const T* __restrict__ out, const T* __restrict__ g,
                          T* __restrict__ dx, int64_t n, int64_t n_vec) {
   flat_binary<T>(out, g, dx, n, n_vec, ReluGrad<T>());
+}
+
+// K6' on its own loop: block b takes packs [b kRound, (b + 1) kRound),
+// thread t the t-th and (t + kThreads)-th of them, both loaded before either is
+// used; then the scalar tail, one element a thread.  The launch gives a
+// block for each round of packs, or for each kThreads elements when there
+// are no packs, so that neither part needs a loop.
+constexpr int kPacks = 2;
+constexpr int64_t kRound = static_cast<int64_t>(kThreads) * kPacks;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    hvd_relu_grad_stream_kernel(const T* __restrict__ out,
+                                const T* __restrict__ g, T* __restrict__ dx,
+                                int64_t n, int64_t n_vec) {
+  constexpr int N = 16 / sizeof(T);
+  const ReluGrad<T> op{};
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * kRound + threadIdx.x;
+  const uint4* o4 = reinterpret_cast<const uint4*>(out);
+  const uint4* g4 = reinterpret_cast<const uint4*>(g);
+  uint4 vo[kPacks], vg[kPacks];
+#pragma unroll
+  for (int k = 0; k < kPacks; ++k) {
+    const int64_t i = base + k * kThreads;
+    if (i < n_vec) {
+      vo[k] = o4[i];
+      vg[k] = g4[i];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPacks; ++k) {
+    const int64_t i = base + k * kThreads;
+    if (i < n_vec) {
+      uint4 vd;
+      const T* eo = reinterpret_cast<const T*>(&vo[k]);
+      const T* eg = reinterpret_cast<const T*>(&vg[k]);
+      T* ed = reinterpret_cast<T*>(&vd);
+#pragma unroll
+      for (int e = 0; e < N; ++e) ed[e] = op(eo[e], eg[e]);
+      reinterpret_cast<uint4*>(dx)[i] = vd;
+    }
+  }
+  const int64_t i =
+      n_vec * N + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) dx[i] = op(out[i], g[i]);
 }
 
 template <typename T>
@@ -219,6 +276,27 @@ int flat(Flat kind, const void* a, const void* b, void* o, int64_t n,
   return cudaErrorInvalidValue;
 }
 
+// K6' on its own loop, or (flat_loop != 0) on flat_binary's
+template <typename T>
+cudaError_t launch_relu_grad(const void* out, const void* g, void* dx,
+                             int64_t n, int32_t flat_loop,
+                             cudaStream_t stream) {
+  if (flat_loop)
+    return launch_flat<T>(Flat::kReluGrad, out, g, dx, n, stream);
+  constexpr int N = 16 / sizeof(T);
+  const int64_t n_vec =
+      aligned16(out) && aligned16(g) && aligned16(dx) ? n / N : 0;
+  // n_vec > 0 leaves a tail of fewer than N elements, which block 0 takes
+  const int64_t blocks = n_vec > 0 ? (n_vec + kRound - 1) / kRound
+                                   : (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  hvd_relu_grad_stream_kernel<T><<<static_cast<int>(blocks), kThreads, 0,
+                                   stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(g),
+      static_cast<T*>(dx), n, n_vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_affine(const void* x, const float* scale,
                           const float* bias, void* out, int64_t rows,
@@ -246,9 +324,14 @@ int hvd_residual_relu(const void* x, const void* y, void* out, int64_t n,
   return flat(Flat::kResidualRelu, x, y, out, n, dtype, stream);
 }
 
+// flat_loop: 0 for K6''s own loop, 1 for flat_binary's (launch_relu_grad)
 int hvd_relu_grad(const void* out, const void* g, void* dx, int64_t n,
-                  int32_t dtype, void* stream) {
-  return flat(Flat::kReluGrad, out, g, dx, n, dtype, stream);
+                  int32_t dtype, int32_t flat_loop, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_relu_grad<float>(out, g, dx, n, flat_loop, st);
+  if (dtype == 1) return launch_relu_grad<bf16>(out, g, dx, n, flat_loop, st);
+  return cudaErrorInvalidValue;
 }
 
 int hvd_scale_bias_relu(const void* x, const float* scale, const float* bias,

@@ -39,12 +39,12 @@
 // and passes it in HvdFlashArgs.mainloop; hvd_flash_* refuse a plan the
 // operands do not meet (nothing falls back):
 //
-//   TMA + wgmma (K2 and K4, bfloat16, head dim 64, every operand that TMA
-//   reads 16-byte aligned with 16-byte strides: GPT-2's path)
+//   TMA + wgmma (K2, K3 and K4, bfloat16, head dim 64, every operand that
+//   TMA reads 16-byte aligned with 16-byte strides: GPT-2's path)
 //     Two consumer warpgroups of 64 rows each and one producer warp, 288
 //     threads, one block an SM.  ptxas holds a 288-thread block to 168
 //     registers a thread (9 warps, 3 on one of the SM's four register
-//     files): K2 takes 167 and K4 168, with no spills.  The producer's copies
+//     files): K2 takes 167, K3 132 and K4 168, with no spills.  The producer's copies
 //     land in shared memory with the 128-byte swizzle (a head-dim row of
 //     64 bf16 is 128 bytes), through 4-D tensor maps (d, s, h, b) over
 //     each operand's own strides: the model's [b, s, h, d] activations
@@ -82,7 +82,24 @@
 //       register A operand with dO and Q the MN-major B operand: the same
 //       shared-memory tile read K-major for S^T and MN-major for dK.  Live
 //       a thread: S^T, dP^T, dK and dV, 4 x 32 float32.
-//     Both exponentiate with __expf (softmax_step).  Tried and dropped:
+//     - K3: a block owns a 128-row q tile (the heaviest causal tiles
+//       start first), as in K2.  Q and dO arrive once; K and V arrive as
+//       a 3-stage ring of 64-key tiles, a full barrier each (S = Q.K^T
+//       starts before V has landed) and an empty barrier per stage.  A
+//       row's lse and delta do not change along the kv loop: each thread
+//       reads its two rows' once into registers.  S = Q.K^T and dP =
+//       dO.V^T are wgmma m64n64k16 from shared memory (both K-major);
+//       P = exp(S scale - lse) and dS = P (dP - delta) scale are masked by
+//       keys_seen in registers (only where a warp's rows do not all see
+//       the whole kv tile), and dQ += bf16(dS).K takes dS as the register
+//       A operand and K as the MN-major B operand: the K tile is read
+//       K-major for S and MN-major for dQ, as K4 reads Q.  Live a thread:
+//       S, dP and dQ, 3 x 32 float32 (128-key tiles would need 160
+//       float32 of accumulators alone, past the cap).  A q tile that sees
+//       no key (a kv shard wholly in its future) copies nothing and
+//       stores zeros.  At GPT-2's shape on the H100 it took K3 from 0.105
+//       ms (mma.sync) to 0.051.
+//     All three exponentiate with __expf (softmax_step).  Tried and dropped:
 //     issuing K2's next S = Q.K^T beside the running P.V and its softmax
 //     while P.V runs (FA3's intra-warpgroup overlap, 3 stages): it needs a
 //     second score tile live, spilled at the 168-register cap and ran at
@@ -90,8 +107,7 @@
 //     no faster.  Head dims other than 64 take mma.sync: d 16 and 32 rows
 //     are shorter than the 128-byte swizzle, and at d 128 K4's four
 //     accumulators alone would be 4 x 64 float32 a thread, past the cap.
-//     K3 (dq) has no TMA + wgmma mainloop yet.
-//   mma.sync (bfloat16 operands the rule sends elsewhere, and all of K3)
+//   mma.sync (bfloat16 operands the rule sends elsewhere)
 //     The first version of these kernels: one block per 64-row tile, 4
 //     warps each owning 16 rows; the four products of each tile run on the
 //     tensor cores as mma.sync m16n8k16 bf16 tiles with float32
@@ -1020,7 +1036,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ===========================================================================
-// bfloat16, head dim 64: TMA + wgmma (K2 and K4)
+// bfloat16, head dim 64: TMA + wgmma (K2, K3 and K4)
 // ===========================================================================
 //
 // Warps 0-7 are two consumer warpgroups, warp 8 the producer.  Warp w of
@@ -1050,6 +1066,12 @@ constexpr int kDkvQBytes = kDkvQ * kRowBytes;     // 8 KB
 constexpr int kDkvSmem = 1024 + 2 * kWgTileBytes +
                          kDkvStages * (2 * kDkvQBytes + 2 * kDkvQ * 4) +
                          8 * (1 + 2 * kDkvStages);
+// K3
+constexpr int kDqKv = kTile;             // keys of a kv tile (64)
+constexpr int kDqStages = 3;
+constexpr int kDqKvBytes = kDqKv * kRowBytes;     // 8 KB
+constexpr int kDqSmem = 1024 + 2 * kWgTileBytes +
+                        2 * kDqStages * kDqKvBytes + 8 * (1 + 3 * kDqStages);
 
 // wgmma descriptors of a tile of 128-byte rows in shared memory, with
 // 8-row groups 1 KB apart (the 128-byte swizzle's pattern).  K-major: the
@@ -1472,6 +1494,185 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// One q row's dS in K3, in place of its S (sc[4j + 2hf + e], key 8j + q2 +
+// e of the kv tile), from its dP, masked past the `seen` keys the row sees
+// (kMask).
+template <bool kMask>
+__device__ __forceinline__ void dq_grads(float* sc, const float* dp, int hf,
+                                         int q2, int seen, float lse,
+                                         float delta, float scale) {
+#pragma unroll
+  for (int j = 0; j < kDqKv / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 4 * j + 2 * hf + e;
+      const bool ok = !kMask || 8 * j + q2 + e < seen;
+      const float x = ok ? sc[i] * scale : kNegInf;
+      float p = __expf(x - lse);
+      p = ok ? p : 0.f;
+      sc[i] = p * (dp[i] - delta) * scale;  // ds
+    }
+}
+
+// K3, bfloat16, head dim 64
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                              const __grid_constant__ CUtensorMap tmap_k,
+                              const __grid_constant__ CUtensorMap tmap_v,
+                              const __grid_constant__ CUtensorMap tmap_do,
+                              const HvdFlashArgs a) {
+  constexpr int S = kDqStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);          // [128 rows][64]
+  uint8_t* sdo = sq + kWgTileBytes;           // [128 rows][64]
+  uint8_t* sk = sdo + kWgTileBytes;           // [S][64 keys][64]
+  uint8_t* sv = sk + S * kDqKvBytes;          // [S][64 keys][64]
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sv + S * kDqKvBytes);
+  uint64_t* k_full = qd_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* empty = v_full + S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t bh = blockIdx.x;
+  const int bi = static_cast<int>(bh / a.h), hi = static_cast<int>(bh % a.h);
+  // the last q tiles see the most kv tiles: start them first
+  const int64_t q0 =
+      (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kWgRows;
+  const int n_kv = static_cast<int>(kv_tiles_for(a, q0, kWgRows, kDqKv));
+
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);  // the producer's arrive + the bytes
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: one thread issues every copy; none when the tile sees no
+    // key
+    if (lane != 0 || n_kv == 0) return;
+    mbar_arrive_expect_tx(qd_full, 2 * kWgTileBytes);
+    tma_load_4d(sq, &tmap_q, qd_full, 0, static_cast<int>(q0), hi, bi);
+    tma_load_4d(sdo, &tmap_do, qd_full, 0, static_cast<int>(q0), hi, bi);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % S;
+      const uint32_t parity = (j / S) & 1;
+      mbar_wait(&empty[s], parity ^ 1);
+      mbar_arrive_expect_tx(&k_full[s], kDqKvBytes);
+      tma_load_4d(sk + s * kDqKvBytes, &tmap_k, &k_full[s], 0, j * kDqKv,
+                  hi, bi);
+      mbar_arrive_expect_tx(&v_full[s], kDqKvBytes);
+      tma_load_4d(sv + s * kDqKvBytes, &tmap_v, &v_full[s], 0, j * kDqKv,
+                  hi, bi);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread rows
+  // q0 + r0 and q0 + r0 + 8, whose lse and delta it keeps in registers
+  const int wg = warp >> 2;
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+  const int r0 = wg * 64 + (warp & 3) * 16 + g;
+  float lse[2], delta[2], dq[32];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t qi = q0 + r0 + 8 * hf;
+    lse[hf] = qi < a.sq ? a.lse[bh * a.sq + qi] : 0.f;
+    delta[hf] = qi < a.sq ? a.delta[bh * a.sq + qi] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  const uint32_t q_addr = smem_u32(sq + wg * 64 * kRowBytes);
+  const uint32_t do_addr = smem_u32(sdo + wg * 64 * kRowBytes);
+  if (n_kv > 0) mbar_wait(qd_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % S;
+    const uint32_t parity = (j / S) & 1;
+    const int64_t k0 = static_cast<int64_t>(j) * kDqKv;
+    const uint32_t k_addr = smem_u32(sk + s * kDqKvBytes);
+    const uint32_t v_addr = smem_u32(sv + s * kDqKvBytes);
+
+    // S = Q . K^T, then dP = dO . V^T once V has landed: 64 rows x 64 keys
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    mbar_wait(&k_full[s], parity);
+    __syncwarp();  // wgmma is .aligned: the warp converged
+    fence_operands<32>(sc);
+    fence_operands<32>(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgD / 16; ++kk)
+      wgmma_ss_m64n64k16<0>(sc, kmajor_desc(q_addr, kk),
+                            kmajor_desc(k_addr, kk));
+    wgmma_commit();
+    mbar_wait(&v_full[s], parity);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgD / 16; ++kk)
+      wgmma_ss_m64n64k16<0>(dp, kmajor_desc(do_addr, kk),
+                            kmajor_desc(v_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands<32>(sc);
+    fence_operands<32>(dp);
+
+    // dS of rows g (hf 0) and g + 8 (hf 1); rows past sq are never
+    // stored, only the key side is masked.  A warp whose rows all see the
+    // whole tile skips the mask.
+    int seen[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      seen[hf] = keys_seen(a, q0 + r0 + 8 * hf, k0, kDqKv);
+    if (__all_sync(0xffffffffu, seen[0] == kDqKv && seen[1] == kDqKv)) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        dq_grads<false>(sc, dp, hf, q2, kDqKv, lse[hf], delta[hf],
+                        a.scale);
+    } else {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        dq_grads<true>(sc, dp, hf, q2, seen[hf], lse[hf], delta[hf],
+                       a.scale);
+    }
+    uint32_t dsf[kDqKv / 4];
+    to_a_fragments<kDqKv>(sc, dsf);  // ds.astype(k.dtype)
+
+    // dQ += dS . K over the 64 keys, K the MN-major B operand
+    fence_operands<32>(dq);
+    fence_operands<kDqKv / 4>(dsf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqKv / 16; ++kk)
+      wgmma_rs_m64n64k16<1>(dq, &dsf[4 * kk], mnmajor_desc(k_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands<32>(dq);
+    fence_operands<kDqKv / 4>(dsf);
+    // every product of stage s has completed: K and V are free
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // a tile that saw no key stores its zeros too: dq is not initialised
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t qi = q0 + r0 + 8 * hf;
+    if (qi >= a.sq) continue;
+    float* row = at<float>(a.dq, bi, hi, qi);
+#pragma unroll
+    for (int n = 0; n < kWgD / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n + q2) =
+          make_float2(dq[4 * n + 2 * hf], dq[4 * n + 2 * hf + 1]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1579,14 +1780,17 @@ cudaError_t bhsd_map(CUtensorMap* map, const HvdBhsd& t, int64_t b, int64_t h,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// K2 or K4 on the TMA + wgmma mainloop: encodes the maps of the operands
-// it copies, launches, returns the launch's error.
+// K2, K3 or K4 on the TMA + wgmma mainloop: encodes the maps of the
+// operands it copies, launches, returns the launch's error.
 cudaError_t launch_wgmma(Kind kind, const HvdFlashArgs& a,
                          cudaStream_t stream) {
-  static std::atomic<uint64_t> smem_set[2] = {};
+  static std::atomic<uint64_t> smem_set[3] = {};
   CUtensorMap tq, tk, tv, tdo;
-  const int q_rows = kind == Kind::kFwd ? kWgRows : kDkvQ;
-  const int kv_rows = kind == Kind::kFwd ? kFwdKv : kWgRows;
+  // the rows of a q (and dO) tile and of a kv tile each kernel copies
+  const int q_rows = kind == Kind::kDkv ? kDkvQ : kWgRows;
+  const int kv_rows = kind == Kind::kFwd ? kFwdKv
+                      : kind == Kind::kDq ? kDqKv
+                                          : kWgRows;
   cudaError_t err;
   if ((err = bhsd_map(&tq, a.q, a.b, a.h, a.sq, q_rows)) != cudaSuccess ||
       (err = bhsd_map(&tk, a.k, a.b, a.h, a.sk, kv_rows)) != cudaSuccess ||
@@ -1601,8 +1805,15 @@ cudaError_t launch_wgmma(Kind kind, const HvdFlashArgs& a,
                                                                   tv, a);
     return cudaGetLastError();
   }
-  if ((err = bhsd_map(&tdo, a.dout, a.b, a.h, a.sq, kDkvQ)) != cudaSuccess)
+  if ((err = bhsd_map(&tdo, a.dout, a.b, a.h, a.sq, q_rows)) != cudaSuccess)
     return err;
+  if (kind == Kind::kDq) {
+    err = allow_smem_once(smem_set[2], flash_bwd_dq_wgmma_kernel, kDqSmem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wgmma_kernel<<<grid, kWgThreads, kDqSmem, stream>>>(
+        tq, tk, tv, tdo, a);
+    return cudaGetLastError();
+  }
   err = allow_smem_once(smem_set[1], flash_bwd_dkv_wgmma_kernel, kDkvSmem);
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_wgmma_kernel<<<grid, kWgThreads, kDkvSmem, stream>>>(
@@ -1615,11 +1826,11 @@ int dispatch(Kind kind, const HvdFlashArgs* a, void* stream) {
     return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->mainloop == kMainWgmma) {
-    // kernels.flash_plan's rule, checked: K2 or K4, bf16, d 64, both
-    // lengths nonzero, every operand the kernel copies addressable by TMA
-    if (kind == Kind::kDq || a->dtype != 1 || a->d != kWgD || a->sq <= 0 ||
-        a->sk <= 0 || !tma_ok(a->q) || !tma_ok(a->k) || !tma_ok(a->v) ||
-        (kind == Kind::kDkv && !tma_ok(a->dout)))
+    // kernels.flash_plan's rule, checked: bf16, d 64, both lengths
+    // nonzero, every operand the kernel copies addressable by TMA
+    if (a->dtype != 1 || a->d != kWgD || a->sq <= 0 || a->sk <= 0 ||
+        !tma_ok(a->q) || !tma_ok(a->k) || !tma_ok(a->v) ||
+        (kind != Kind::kFwd && !tma_ok(a->dout)))
       return cudaErrorInvalidValue;
     return launch_wgmma(kind, *a, st);
   }

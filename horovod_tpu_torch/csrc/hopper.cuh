@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma mainloops of
-// conv_bn.cu (K8-K10) and flash_attention.cu (K2, K4): mbarriers, TMA
+// conv_bn.cu (K8-K10) and flash_attention.cu (K2-K4): mbarriers, TMA
 // copies, wgmma's shared-memory descriptors and instructions, and the
 // host's tensor-map encoders and shared-memory limit.
 //

@@ -46,14 +46,11 @@ fused_update_launches: Dict[str, int] = {
 FLASH_MAINLOOPS = ("wgmma", "mma_sync", "f32")
 #: the flash kernels by launch kind: K2 (fwd), K3 (bwd_dq), K4 (bwd_dkv)
 FLASH_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
-#: the kinds with a TMA + wgmma mainloop (K3 has none yet)
-FLASH_WGMMA_KINDS = ("fwd", "bwd_dkv")
 #: launches of K2-K4 per kind and mainloop (``"fwd.wgmma"``,
 #: ``"bwd_dq.mma_sync"``, ...), counted likewise; :func:`launch_totals`
 #: sums them per kind
 flash_launches: Dict[str, int] = {
-    f"{k}.{m}": 0 for k in FLASH_KINDS for m in FLASH_MAINLOOPS
-    if m != "wgmma" or k in FLASH_WGMMA_KINDS}
+    f"{k}.{m}": 0 for k in FLASH_KINDS for m in FLASH_MAINLOOPS}
 
 #: launches of K6 (scale_bias_relu), K6' (relu_grad) and K7
 #: (residual_relu), counted likewise
@@ -210,7 +207,7 @@ def load() -> ctypes.CDLL:
     for fn in flash:
         fn.argtypes = [ctypes.POINTER(_FlashArgs), ptr]
     lib.hvd_residual_relu.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
-    lib.hvd_relu_grad.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+    lib.hvd_relu_grad.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.hvd_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
                                         ptr]
     lib.hvd_conv3x3.argtypes = [ctypes.POINTER(_ConvArgs), ptr]
@@ -351,12 +348,13 @@ def flash_plan(kind: str, dtype: torch.dtype, head_dim: int,
     kernel copies (q, k, v and, for the backward, do), strides in
     elements:
 
-    * bfloat16, K2 or K4, head dim 64, both lengths nonzero, every operand
-      on a 16-byte boundary with every stride but the head dim's a
-      positive multiple of 16 bytes (what TMA can address): the TMA +
-      ``wgmma`` mainloop, K2 on 128-row q tiles and 128-key kv tiles, K4
-      on 128-key kv tiles and 64-row q tiles;
-    * any other bfloat16 operands, and all of K3: ``mma_sync``, 64 x 64;
+    * bfloat16, head dim 64, both lengths nonzero, every operand on a
+      16-byte boundary with every stride but the head dim's a positive
+      multiple of 16 bytes (what TMA can address): the TMA + ``wgmma``
+      mainloop, K2 on 128-row q tiles and 128-key kv tiles, K3 on 128-row
+      q tiles and 64-key kv tiles, K4 on 128-key kv tiles and 64-row q
+      tiles;
+    * any other bfloat16 operands: ``mma_sync``, 64 x 64;
     * float32: the scalar kernels, 64 x 64.
 
     ``mainloop="mma_sync"`` asks for that mainloop on bfloat16 operands
@@ -375,10 +373,11 @@ def flash_plan(kind: str, dtype: torch.dtype, head_dim: int,
     tma = all(ptr % 16 == 0 and all(st > 0 and st * 2 % 16 == 0
                                     for st in strides)
               for ptr, strides in operands)
-    if mainloop is None and kind in FLASH_WGMMA_KINDS and \
-            head_dim in FLASH_WGMMA_HEAD_DIMS and min(lengths) > 0 and tma:
-        return FlashPlan("wgmma", 128, 128) if kind == "fwd" else \
-            FlashPlan("wgmma", 64, 128)
+    if mainloop is None and head_dim in FLASH_WGMMA_HEAD_DIMS and \
+            min(lengths) > 0 and tma:
+        return {"fwd": FlashPlan("wgmma", 128, 128),
+                "bwd_dq": FlashPlan("wgmma", 128, 64),
+                "bwd_dkv": FlashPlan("wgmma", 64, 128)}[kind]
     return FlashPlan("mma_sync", 64, 64)
 
 
@@ -435,11 +434,12 @@ def launch_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def launch_flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
-                        scale: float, q_offset: int = 0,
-                        kv_offset: int = 0) -> torch.Tensor:
-    """K3: dq in float32, laid out like q."""
+                        scale: float, q_offset: int = 0, kv_offset: int = 0,
+                        mainloop: Optional[str] = None) -> torch.Tensor:
+    """K3: dq in float32, laid out like q; the mainloop as for
+    :func:`launch_flash_fwd`."""
     _check_flash(q, k, v, do, (lse, delta))
-    plan = flash_plan_for("bwd_dq", q, k, v, do)
+    plan = flash_plan_for("bwd_dq", q, k, v, do, mainloop=mainloop)
     dq = torch.empty_like(q, dtype=torch.float32)
     args = _flash_args(q, k, v, plan, causal=causal, scale=scale,
                        q_offset=q_offset, kv_offset=kv_offset, dout=do,
@@ -495,14 +495,21 @@ def launch_residual_relu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def launch_relu_grad(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K6': ``where(out > 0, g, 0)``, laid out like out."""
+def launch_relu_grad(out: torch.Tensor, g: torch.Tensor, *,
+                     loop: Optional[str] = None) -> torch.Tensor:
+    """K6': ``where(out > 0, g, 0)``, laid out like out, on its own loop;
+    ``loop="flat_binary"`` asks for the one-pack loop of K6 and K7 that it
+    ran before, kept to be timed beside it."""
+    if loop not in (None, "flat_binary"):
+        raise ValueError(f"K6' has no loop {loop!r}: its own (None) or "
+                         f"'flat_binary'")
     _check_elementwise(out, g)
     dx = torch.empty_like(g)
     if g.numel():
         _launch("hvd_relu_grad", elementwise_launches, "relu_grad",
                 g.device, out.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                g.numel(), _DTYPES[g.dtype])
+                g.numel(), _DTYPES[g.dtype],
+                int(loop == "flat_binary"))
     return dx
 
 

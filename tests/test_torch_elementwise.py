@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu.ops import elementwise as ref
 from horovod_tpu.ops.elementwise import residual_relu as ref_residual_relu
 from horovod_tpu.ops.elementwise import scale_bias_relu as ref_scale_bias_relu
 from horovod_tpu_torch import kernels
@@ -108,6 +109,107 @@ def test_expanded_gradient_is_taken():
     assert expanded.stride()[1] == 0
     for a, c in zip(grads(expanded), grads(expanded.contiguous())):
         assert torch.equal(a, c)
+
+
+def _edges(shape, seed):
+    """Seeded normal values with the ones a masked gradient must treat as
+    the reference does planted in turn: +0, -0, a negative and NaN (all
+    masked: NaN > 0 is false), then a positive (passed)."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[0::5] = 0.0
+    flat[1::5] = -0.0
+    flat[2::5] = -np.abs(flat[2::5])
+    flat[3::5] = np.nan
+    flat[4::5] = np.abs(flat[4::5])
+    return x
+
+
+def _bits(a) -> np.ndarray:
+    """The raw bits of a float32 or bf16 array or tensor."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().contiguous()
+        return a.view(torch.int16 if a.dtype == torch.bfloat16
+                      else torch.int32).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+def _jt(a, dtype):
+    """A float32 numpy array as (jax array, torch tensor) of dtype."""
+    ja = jnp.asarray(a, getattr(jnp, dtype))
+    return ja, torch.from_numpy(np.array(ja, np.float32)).to(
+        getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_relu_grad_matches_reference_bit_for_bit(dtype):
+    """K6' on its own: the port's relu-grad pass against the reference's
+    _relu_grad_kernel (interpret mode) on outputs holding +0, -0,
+    negatives and NaN and gradients holding -0: the same bits."""
+    shape = (3, 5, 7, 36)
+    out, jout_t = _jt(_edges(shape, 8), dtype)
+    g_np = np.random.default_rng(9).normal(size=shape).astype(np.float32)
+    g_np.reshape(-1)[4::10] = -0.0
+    g, g_t = _jt(g_np, dtype)
+    want = ref._flat_call(ref._relu_grad_kernel, out, g, block_rows=1024,
+                          interpret=None)
+    got = ew._relu_grad(jout_t, g_t)
+    assert got.dtype == g_t.dtype
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("join", ["residual_relu", "scale_bias_relu"])
+def test_join_gradients_match_reference_bit_for_bit(join, dtype):
+    """The backward of both joins through K6' against the reference's
+    custom VJP (its _relu_grad_kernel in interpret mode), from inputs whose
+    outputs hold +0, -0 and NaN and whose pre-activations hold negatives:
+    dx (and dy) bit for bit; dscale and dbias, sums taken in other orders,
+    at the JAX tests' 1e-5 (NaN where the reference has NaN)."""
+    shape = (3, 5, 7, 36)
+    x, tx = _jt(_edges(shape, 10), dtype)
+    g, tg = _jt(np.random.default_rng(11).normal(size=shape)
+                .astype(np.float32), dtype)
+    tx.requires_grad_()
+    if join == "residual_relu":
+        y, ty = _jt(_edges(shape, 12), dtype)
+        ty.requires_grad_()
+        out, vjp = jax.vjp(ref_residual_relu, x, y)
+        got = ew.residual_relu(tx, ty)
+        got.backward(tg)
+        pairs = ((tx.grad, vjp(g)[0]), (ty.grad, vjp(g)[1]))
+        sums = ()
+    else:
+        c = shape[-1]
+        s = np.random.default_rng(13).uniform(0.5, 1.5, c).astype(np.float32)
+        b = np.random.default_rng(14).normal(size=c).astype(np.float32)
+        b[::3] = 0.0  # x of +0 or -0 there makes an output of +0
+        ts, tb = _t(s, True), _t(b, True)
+        out, vjp = jax.vjp(ref_scale_bias_relu, x, s, b)
+        got = ew.scale_bias_relu(tx, ts, tb)
+        got.backward(tg)
+        dx, ds, db = vjp(g)
+        pairs = ((tx.grad, dx),)
+        sums = ((ts.grad, ds), (tb.grad, db))
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(out, np.float32), rtol=2 ** -8,
+                               atol=1e-6)
+    assert np.isnan(np.asarray(out, np.float32)).any()
+    for a, want in pairs:
+        np.testing.assert_array_equal(_bits(a), _bits(want))
+    for a, want in sums:
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_relu_grad_takes_only_its_own_loops():
+    """K6' runs its own loop, or flat_binary's when asked (to be timed
+    beside it); any other loop is refused before the wrapper's checks."""
+    x = torch.empty(2, 8, device="meta")
+    for loop in ("flat", "grid", "own", "stream", ("grid", 2, "none")):
+        with pytest.raises(ValueError, match="has no loop"):
+            kernels.launch_relu_grad(x, x, loop=loop)
 
 
 def _module_variables(c, seed):
@@ -226,3 +328,30 @@ def test_kernels_are_bit_equal_to_plain_versions_on_card(shape, dtype):
     assert {k: kernels.elementwise_launches[k] - before[k]
             for k in before} == {"scale_bias_relu": 1, "relu_grad": 1,
                                  "residual_relu": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((2, 7, 7, 256), False),
+                                          ((3, 5, 7, 36), False),
+                                          ((2, 5, 7, 64), True)])
+def test_relu_grad_loops_are_bit_equal_on_card(shape, offset, dtype):
+    """K6' on its own loop and on flat_binary's against its plain version,
+    bit for bit, on outputs holding +0, -0, negatives and NaN: aligned, a
+    ragged element count and an operand off 16-byte alignment (the scalar
+    loop)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K6' is CUDA C++ and runs only on an NVIDIA card "
+                    "(python3 chip_smoke.py runs it there)")
+    dt = getattr(torch, dtype)
+    out = torch.from_numpy(_edges(shape, 15)).to("cuda", dt)
+    if offset:
+        buf = torch.empty(out.numel() + 1, device="cuda", dtype=dt)
+        out = buf[1:].view(shape).copy_(out)
+    g = torch.randn(shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(16)).to(dt)
+    want = ew.plain_relu_grad(out, g)
+    for loop in (None, "flat_binary"):
+        got = kernels.launch_relu_grad(out, g, loop=loop)
+        torch.cuda.synchronize()
+        assert np.array_equal(_bits(got.cpu()), _bits(want.cpu())), loop

@@ -128,6 +128,33 @@ def test_ring_building_blocks_match_reference(q_off, kv_off):
     np.testing.assert_allclose(got_dv.numpy(), np.asarray(dv), **TOL)
 
 
+@pytest.mark.parametrize("q_off,kv_off", [(0, 48), (0, 16), (100, 120)])
+def test_bwd_dq_of_rows_that_see_no_key_is_zero(q_off, kv_off):
+    """mha_bwd_dq where every row of the q shard sees no key (kv_off 48:
+    the kv shard wholly in its future) or only the first rows see none:
+    the port's dq against the reference's in interpret mode, 2e-4, and
+    exactly 0 on every row that sees no key, on both sides (the TMA +
+    wgmma K3 must store those zeros: its output is not initialised)."""
+    q, k, v, do = _bhsd(*_inputs(q_off + kv_off, 2, 32, 48, 2, 16))
+    scale = 0.25
+    o, m, l = ref.mha_partial(q, k, v, q_off, kv_off, causal=True,
+                              scale=scale, **BLOCKS)
+    l = np.maximum(np.asarray(l), 1e-30)
+    lse = np.asarray(m) + np.log(l)
+    delta = np.sum(do * (np.asarray(o) / l), axis=-1,
+                   keepdims=True).astype(np.float32)
+    args = (q, k, v, do, lse.astype(np.float32), delta)
+    want = np.asarray(ref.mha_bwd_dq(*args, q_off, kv_off, causal=True,
+                                     scale=scale, **BLOCKS))
+    got = fa.mha_bwd_dq(*(_t(a) for a in args), q_off, kv_off, causal=True,
+                        scale=scale).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    blind = q_off + np.arange(32) < kv_off
+    assert blind.any()
+    np.testing.assert_array_equal(got[:, :, blind], 0.0)
+    np.testing.assert_array_equal(want[:, :, blind], 0.0)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_softmax_attention_matches_reference(causal):
     q, k, v, _ = _inputs(5, 2, 40, 40, 3, 8)
@@ -280,32 +307,39 @@ def _ops(n, ptr=4096, strides=BHSD_STRIDES):
     ("bwd_dkv", torch.bfloat16, 64, (1024, 1024),
      _ops(4, strides=GPT_STRIDES), ("wgmma", 64, 128)),
     ("bwd_dq", torch.bfloat16, 64, (1024, 1024),
-     _ops(4, strides=GPT_STRIDES), ("mma_sync", 64, 64)),
+     _ops(4, strides=GPT_STRIDES), ("wgmma", 128, 64)),
     ("fwd", torch.bfloat16, 64, (136, 192), _ops(3), ("wgmma", 128, 128)),
     ("fwd", torch.bfloat16, 64, (136, 136), _ops(3, ptr=4098),
      ("mma_sync", 64, 64)),
     ("bwd_dkv", torch.bfloat16, 64, (136, 136),
+     _ops(3) + [(4098, BHSD_STRIDES)], ("mma_sync", 64, 64)),
+    ("bwd_dq", torch.bfloat16, 64, (136, 136),
      _ops(3) + [(4098, BHSD_STRIDES)], ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 64, (136, 136),
      _ops(3, strides=(3 * 136 * 68, 136 * 68, 68)), ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 64, (136, 136),
      _ops(3, strides=(0, 136 * 64, 64)), ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 64, (136, 0), _ops(3), ("mma_sync", 64, 64)),
+    ("bwd_dq", torch.bfloat16, 64, (136, 0), _ops(4), ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 16, (136, 136), _ops(3), ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 32, (136, 136), _ops(3), ("mma_sync", 64, 64)),
     ("fwd", torch.bfloat16, 128, (136, 136), _ops(3), ("mma_sync", 64, 64)),
     ("bwd_dkv", torch.bfloat16, 128, (136, 136), _ops(4),
      ("mma_sync", 64, 64)),
+    ("bwd_dq", torch.bfloat16, 128, (136, 136), _ops(4),
+     ("mma_sync", 64, 64)),
     ("fwd", torch.float32, 64, (1024, 1024), _ops(3, strides=GPT_STRIDES),
      ("f32", 64, 64)),
     ("bwd_dkv", torch.float32, 64, (136, 136), _ops(4), ("f32", 64, 64)),
 ], ids=["gpt2-fwd", "gpt2-dkv", "gpt2-dq", "ragged", "misaligned",
-        "misaligned-do", "stride-68", "stride-0", "no-keys", "d16", "d32",
-        "d128-fwd", "d128-dkv", "float32", "float32-dkv"])
+        "misaligned-do", "misaligned-do-dq", "stride-68", "stride-0",
+        "no-keys", "no-keys-dq", "d16", "d32", "d128-fwd", "d128-dkv",
+        "d128-dq", "float32", "float32-dkv"])
 def test_flash_dispatch_rule(kind, dtype, d, lengths, ops, want):
-    """bf16 K2 and K4 at head dim 64 whose every copied operand TMA can
-    address take the TMA + wgmma mainloop; other bf16 operands and K3
-    mma.sync; float32 the scalar kernels."""
+    """bf16 K2, K3 and K4 at head dim 64 whose every copied operand TMA
+    can address take the TMA + wgmma mainloop (K3 on 128-row q tiles and
+    64-key kv tiles); other bf16 operands mma.sync; float32 the scalar
+    kernels."""
     assert tuple(kernels.flash_plan(kind, dtype, d, lengths, ops)) == want
 
 
@@ -316,11 +350,14 @@ def test_flash_plan_reads_the_operands_as_the_wrappers_pass_them():
     x = torch.zeros(2, 136, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
     assert kernels.flash_plan_for("fwd", x, x, x).mainloop == "wgmma"
     assert kernels.flash_plan_for("bwd_dkv", x, x, x, x).mainloop == "wgmma"
+    assert kernels.flash_plan_for("bwd_dq", x, x, x, x).mainloop == "wgmma"
     buf = torch.zeros(2 * 3 * 136 * 64 + 1, dtype=torch.bfloat16)
     off = buf[1:].view(2, 3, 136, 64)
     assert buf.data_ptr() % 16 == 0 and off.data_ptr() % 16
     assert kernels.flash_plan_for("fwd", off, x, x).mainloop == "mma_sync"
     assert kernels.flash_plan_for("bwd_dkv", x, x, x, off).mainloop == \
+        "mma_sync"
+    assert kernels.flash_plan_for("bwd_dq", x, x, x, off).mainloop == \
         "mma_sync"
     assert kernels.flash_plan_for("fwd", x, x, x,
                                   mainloop="mma_sync").mainloop == "mma_sync"
@@ -331,6 +368,8 @@ def test_flash_plan_reads_the_operands_as_the_wrappers_pass_them():
     ("fwd", torch.float32, "mma_sync", ValueError),
     ("fwd", torch.float16, None, TypeError),
     ("bwd", torch.bfloat16, None, ValueError),
+    ("bwd_dq", torch.bfloat16, "wgmma", ValueError),
+    ("bwd_dq", torch.float32, "mma_sync", ValueError),
 ])
 def test_flash_plan_refuses_what_it_cannot_give(kind, dtype, mainloop, error):
     """Only the mma.sync mainloop may be asked for, on bf16 alone: the
@@ -340,15 +379,17 @@ def test_flash_plan_refuses_what_it_cannot_give(kind, dtype, mainloop, error):
 
 
 def test_flash_launch_counts_are_keyed_by_kind_and_mainloop():
-    """One counter, ``kind.mainloop``; K3 has no wgmma key, and
-    launch_totals sums a kind's mainloops."""
+    """One counter, ``kind.mainloop``, every kind on each of the three
+    mainloops; launch_totals sums a kind's mainloops."""
     assert set(kernels.flash_launches) == {
-        "fwd.wgmma", "fwd.mma_sync", "fwd.f32", "bwd_dq.mma_sync",
-        "bwd_dq.f32", "bwd_dkv.wgmma", "bwd_dkv.mma_sync", "bwd_dkv.f32"}
+        "fwd.wgmma", "fwd.mma_sync", "fwd.f32", "bwd_dq.wgmma",
+        "bwd_dq.mma_sync", "bwd_dq.f32", "bwd_dkv.wgmma", "bwd_dkv.mma_sync",
+        "bwd_dkv.f32"}
     counts = dict.fromkeys(kernels.flash_launches, 0)
-    counts.update({"fwd.wgmma": 12, "fwd.mma_sync": 1, "bwd_dq.mma_sync": 12,
-                   "bwd_dkv.wgmma": 12, "bwd_dkv.f32": 2})
-    assert kernels.launch_totals(counts) == {"fwd": 13, "bwd_dq": 12,
+    counts.update({"fwd.wgmma": 12, "fwd.mma_sync": 1, "bwd_dq.wgmma": 12,
+                   "bwd_dq.mma_sync": 3, "bwd_dkv.wgmma": 12,
+                   "bwd_dkv.f32": 2})
+    assert kernels.launch_totals(counts) == {"fwd": 13, "bwd_dq": 15,
                                              "bwd_dkv": 14}
 
 
@@ -370,19 +411,45 @@ def test_flash_launch_hands_the_plan_to_the_kernel(monkeypatch):
     kernels.launch_flash_bwd_dq(q, q, q, q, stats, stats, **kw)
     kernels.launch_flash_bwd_dkv(q, q, q, q, stats, stats, **kw)
     kernels.launch_flash_fwd(q, q, q, **kw, mainloop="mma_sync")
+    kernels.launch_flash_bwd_dq(q, q, q, q, stats, stats, **kw,
+                                mainloop="mma_sync")
     kernels.launch_flash_bwd_dkv(q, q, q, q, stats, stats, **kw,
                                  mainloop="mma_sync")
     qf = q.float()
     kernels.launch_flash_fwd(qf, qf, qf, **kw)
     assert seen == [
         ("hvd_flash_fwd", True, "fwd.wgmma", 1),
-        ("hvd_flash_bwd_dq", True, "bwd_dq.mma_sync", 0),
+        ("hvd_flash_bwd_dq", True, "bwd_dq.wgmma", 1),
         ("hvd_flash_bwd_dkv", True, "bwd_dkv.wgmma", 1),
         ("hvd_flash_fwd", True, "fwd.mma_sync", 0),
+        ("hvd_flash_bwd_dq", True, "bwd_dq.mma_sync", 0),
         ("hvd_flash_bwd_dkv", True, "bwd_dkv.mma_sync", 0),
         ("hvd_flash_fwd", True, "fwd.f32", 0)]
     with pytest.raises(ValueError, match="mma_sync"):
         kernels.launch_flash_fwd(qf, qf, qf, **kw, mainloop="mma_sync")
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd_dq", "bwd_dkv"])
+@pytest.mark.parametrize("dtype,mainloop", [(torch.bfloat16, "wgmma"),
+                                            (torch.bfloat16, "f32"),
+                                            (torch.float32, "mma_sync")])
+def test_flash_wrappers_take_mma_sync_on_bf16_alone(monkeypatch, kind,
+                                                    dtype, mainloop):
+    """Each of launch_flash_fwd, launch_flash_bwd_dq and
+    launch_flash_bwd_dkv refuses any mainloop but mma_sync, and that one
+    on float32, before it launches anything."""
+    monkeypatch.setattr(kernels, "_check_on_card", lambda *a: None)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: pytest.fail(a))
+    q = torch.empty(2, 64, 3, 64, dtype=dtype, device="meta").transpose(1, 2)
+    stats = torch.empty(2, 3, 64, 1, device="meta")
+    kw = dict(causal=True, scale=0.125, mainloop=mainloop)
+    launch = {"fwd": lambda: kernels.launch_flash_fwd(q, q, q, **kw),
+              "bwd_dq": lambda: kernels.launch_flash_bwd_dq(
+                  q, q, q, q, stats, stats, **kw),
+              "bwd_dkv": lambda: kernels.launch_flash_bwd_dkv(
+                  q, q, q, q, stats, stats, **kw)}[kind]
+    with pytest.raises(ValueError, match="mma_sync"):
+        launch()
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +537,7 @@ def test_plain_bf16_casts_at_the_wgmma_tile_follow_the_kernel_body(seq, d):
 
 
 # ---------------------------------------------------------------------------
-# the TMA + wgmma K2 and K4 on the card
+# the TMA + wgmma K2, K3 and K4 on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,layout,causal,offsets,normalize", [
@@ -486,13 +553,14 @@ def test_plain_bf16_casts_at_the_wgmma_tile_follow_the_kernel_body(seq, d):
         "offsets-b", "future-shard", "offsets-c"])
 def test_wgmma_kernels_match_plain_versions_on_card(shape, layout, causal,
                                                     offsets, normalize):
-    """K2 and K4 on the TMA + wgmma mainloop (checked by the counts)
+    """K2, K3 and K4 on the TMA + wgmma mainloop (checked by the counts)
     against their plain versions, the forward at the plan's 128-key tile:
     GPT-2 small's shape in the model's layout, ragged lengths, chip_smoke
     .py's case (c) offsets unnormalized; bf16 row by row in norm at
-    chip_smoke.py's limits."""
+    chip_smoke.py's limits; a q shard that sees no key gives dq exactly
+    0."""
     if not torch.cuda.is_available():
-        pytest.skip("K2 and K4 are CUDA C++ and run only on an NVIDIA card "
+        pytest.skip("K2-K4 are CUDA C++ and run only on an NVIDIA card "
                     "(python3 chip_smoke.py runs them there)")
     import chip_smoke
 
@@ -514,25 +582,28 @@ def test_wgmma_kernels_match_plain_versions_on_card(shape, layout, causal,
                                                  **kw)))
     want.update(zip(("dk", "dv"), fa.plain_mha_bwd_dkv(q, k, v, do, lse,
                                                        delta, **kw)))
+    got["dq"] = fa._mha_bwd_dq(q, k, v, do, lse, delta, **kw)
+    want["dq"] = fa.plain_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     assert {n: kernels.flash_launches[n] - before[n] for n in before} == \
-        chip_smoke.flash_counts(kernels, ("fwd.wgmma", "bwd_dkv.wgmma"), 1)
+        chip_smoke.flash_counts(kernels, chip_smoke.GPT_BF16_FLASH, 1)
     for name in got:
         top, mean = chip_smoke.row_rel_err(got[name], want[name])
         assert top <= chip_smoke.FLASH_BF16_ROW_LIMIT[name], (name, top)
         assert mean <= chip_smoke.FLASH_BF16_MEAN_LIMIT, (name, mean)
     if offsets[1] > offsets[0] + sq - 1:
         assert got["l"].abs().max().item() == 0.0
+        assert got["dq"].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
 def test_wgmma_and_mma_sync_mainloops_agree_on_card():
-    """At GPT-2 small's shape the mma.sync K2 and K4, asked for by name,
-    against the plain versions at their own 64-key tile: the yardstick
-    chip_smoke.py times beside the new mainloop computes the same
-    function."""
+    """At GPT-2 small's shape the mma.sync K2, K3 and K4, asked for by
+    name, against the plain versions at their own 64-key tile: the
+    yardstick chip_smoke.py times beside the new mainloop computes the
+    same function."""
     if not torch.cuda.is_available():
-        pytest.skip("K2 and K4 are CUDA C++ and run only on an NVIDIA card "
+        pytest.skip("K2-K4 are CUDA C++ and run only on an NVIDIA card "
                     "(python3 chip_smoke.py runs them there)")
     import chip_smoke
 
@@ -546,9 +617,12 @@ def test_wgmma_and_mma_sync_mainloops_agree_on_card():
     dk, dv = kernels.launch_flash_bwd_dkv(q, k, v, do, lse, delta, **kw,
                                           mainloop="mma_sync")
     pdk, pdv = fa.plain_mha_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = kernels.launch_flash_bwd_dq(q, k, v, do, lse, delta, **kw,
+                                     mainloop="mma_sync")
+    pdq = fa.plain_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     for name, a, b in (("o", o, po), ("l", l, pl), ("dk", dk, pdk),
-                       ("dv", dv, pdv)):
+                       ("dv", dv, pdv), ("dq", dq, pdq)):
         top, mean = chip_smoke.row_rel_err(a, b)
         assert top <= chip_smoke.FLASH_BF16_ROW_LIMIT[name], (name, top)
         assert mean <= chip_smoke.FLASH_BF16_MEAN_LIMIT, (name, mean)
