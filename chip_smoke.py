@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
    alignment), then timed beside ``torch.optim``'s fused step on bf16
    parameters.  K1 counts its launches by rule and group type, so each
    rule's entry in the kernels line gives its main path's float32
-   launches and its ``bf16`` block that path's bf16 launches.
+   launches and its ``bf16`` block that path's bf16 launches.  Adam reads
+   its bias corrections from a device buffer filled from the device step
+   count, and its plain version reads the same buffer.
 4. flash_kernels — K2, K3 and K4 (flash attention forward, dq, dk/dv)
    against their plain versions on the same seeded inputs, each launch
    on the mainloop ``kernels.flash_plan`` names (checked by its counts:
@@ -51,12 +53,31 @@ Phases, each printing one JSON line:
    card through K2-K4 and through their plain versions
    (``plain_flash_attention``) from the same weights and ids, three
    seeds: the loss and every parameter's gradient.
+   graph_parity — the compiled step (a CUDA graph from its second call)
+   against ``step.eager`` on the card: narrow ResNet-18s (fused momentum,
+   all three kernel options, the per-leaf update) and the float32 GPT
+   (fused Adam), 3 calls of 1 and of 3 steps each, at the parity limits
+   above, the graphed warm-up and capture issuing the launches of the
+   first two eager calls and the replay none; a foreign state raises; a graphed
+   remat-full GPT step against the graphed step.  collectives — every
+   collective on CUDA tensors at world size 1 over NCCL against its
+   plain result, and an allreduce and an allgatherv inside a captured
+   graph.
 7. main path — ``examples.synthetic_benchmark.run``: ResNet-50, 224×224,
-   batch 128, bf16, ``--fused-optimizer``, world size 1 over NCCL.  Checks
-   a finite loss, one K1 launch per step and one gradient ``all_reduce``
-   per fusion bucket per step; reports img/s and MFU.
-8. profile — 3 more ResNet-50 steps under torch.profiler: device time
-   per step by kind of kernel and the device's idle share.
+   batch 128, bf16, ``--fused-optimizer``, world size 1 over NCCL, the
+   step graphed (the warm-up's first call eager, its second the capture,
+   every timed call a replay, checked).  Checks a finite loss, one K1
+   launch issued per eager and per captured step, and one gradient
+   ``all_reduce`` per fusion bucket (plus one for the loss) per eager
+   and per captured step; after the timed window, 2 more calls traced
+   by torch.profiler must be replays that no wrapper counted, and the
+   trace must hold one K1 launch for each of their steps; reports img/s
+   and MFU, then the same run through ``step.eager``: its img/s.
+8. profile — ResNet-50 steps graphed: the host's time to issue a call
+   (5 replays), then 3 replays under torch.profiler: device time per
+   step by kind of kernel, the device's idle share, and the port's
+   kernels counted by name in the trace, which must be a step's count
+   for each step.
 9. elementwise_kernels — K6, K6' and K7 (the ResNet joins) against their
    plain versions, bit for bit, in bf16 and float32 at ResNet-50's join
    shapes, a ragged row count, C = 36, an operand off 16-byte alignment
@@ -83,24 +104,33 @@ Phases, each printing one JSON line:
    ResNet-50, 224x224, batch 128, bf16, fused momentum.  Checks a finite
    loss, per step K6 20, K6' 36, K7 16, K9 13, K10 13, K8 0, K1 momentum
    1, no flash launch and one gradient ``all_reduce`` per fusion bucket,
+   both as issued and in the trace of 2 more replays, as the main path,
    every K9 and K10 launch on the TMA + wgmma mainloop; reports img/s,
-   MFU and peak memory beside the default path's img/s; then one eval
-   forward of a batch: K8 13 (all on TMA + wgmma), K9 0, finite logits.
-13. variants_profile — 3 of those steps under torch.profiler, by kind
+   MFU and peak memory beside the default path's img/s, graphed as the
+   main path and then through ``step.eager``; then one eval forward of a
+   batch: K8 13 (all on TMA + wgmma), K9 0, finite logits.
+13. variants_profile — those steps graphed, as in profile, by kind
    (``K6-K7`` and ``K8-K10`` for the port's kernels).
-14. rules   — the same trainer 3 steps each with fused SGD and fused Adam,
-   so every K1 rule runs on a training path.
+14. rules   — the same trainer 3 steps each with fused SGD and fused Adam
+   (eager, capture, a traced replay), so every K1 rule runs on a
+   training path.
 15. gpt_main_path — ``examples.gpt_synthetic_benchmark.run`` at its
    defaults: GPT-2 small, batch 4, seq 1024, bf16, flash attention,
    fused Adam, world size 1 over NCCL.  Checks a finite loss, K2, K3 and
    K4 each launched 12 times a step, K1 adam once a step, one gradient
-   ``all_reduce`` per fusion bucket per step, K2, K3 and K4 on TMA +
-   wgmma; reports seq/s and MFU.
-16. gpt_profile — 3 GPT-2 small steps under torch.profiler, by kind
+   ``all_reduce`` per fusion bucket per step, as issued and in the trace
+   of 2 more replays, K2, K3 and K4 on TMA + wgmma; graphed as the main
+   path, then through ``step.eager``; reports
+   seq/s of both and MFU.
+16. gpt_profile — GPT-2 small steps graphed, as in profile, by kind
    (``flash`` for K2-K4, ``matmul`` for the projections).
 
 Every kernel count is set to 0 just before each main path and read just
-after it.  Then the ``{"kernels": [...]}`` line, the nvidia-smi line
+after it.  A wrapper counts the launches the host issues; a graph's
+replay runs the captured kernels without it, so what the replays ran
+is read from the profiler's trace, and the kernels line's ``launches``
+are the trace's counts (``LAUNCHES_NOTE``).  Then the
+``{"kernels": [...]}`` line, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before the last line.
 
@@ -110,6 +140,7 @@ and prints no last line: the quick check of a change to K2-K4.
 then a kernels line of K6-K10, and prints no last line.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -307,6 +338,20 @@ def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for convolutions and matmuls while inside."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 # ---------------------------------------------------------------------------
 def phase_kernels(fu, flops_mod):
     """K1 against its plain version, then timed.  Returns the per-rule
@@ -326,7 +371,7 @@ def phase_kernels(fu, flops_mod):
             plain = {k: v.clone() for k, v in ours.items()}
             for step in range(1, 4):
                 g = torch.randn(n, device="cuda", generator=gen)
-                s = opt._scalars(step)
+                s = k1_scalars(opt, step)
                 fu.flat_update_(rule, ours["p"], g, ours["mu"], ours["nu"],
                                 **s)
                 if rule == "sgd":
@@ -399,6 +444,13 @@ def phase_kernels(fu, flops_mod):
     return results
 
 
+def k1_scalars(opt, step: int, dtype=torch.float32) -> dict:
+    """The scalars a train step hands K1 at ``step`` for a group of
+    ``dtype``: the optimizer's, from an int32 count on the card."""
+    return opt._step_scalars(
+        torch.tensor(step, dtype=torch.int32, device="cuda"), dtype)
+
+
 def _k1_bf16_mismatches(fu, rule, opt, n_main) -> list:
     """K1's ``rule`` on bf16 groups against its plain version over 3
     steps, at the rule's main-path length, a ragged length and one
@@ -413,7 +465,7 @@ def _k1_bf16_mismatches(fu, rule, opt, n_main) -> list:
         plain = {k: v.clone() for k, v in ours.items()}
         for step in range(1, 4):
             g = torch.randn(n, device="cuda", generator=gen).bfloat16()
-            s = opt._scalars(step, torch.bfloat16)
+            s = k1_scalars(opt, step, torch.bfloat16)
             fu.flat_update_(rule, ours["p"], g, ours["mu"], ours["nu"], **s)
             args = {"sgd": (plain["p"], g),
                     "momentum": (plain["p"], g, plain["mu"]),
@@ -436,7 +488,7 @@ def _k1_times(fu, rule, opt, n, dtype):
     p = torch.randn(n, device="cuda", generator=gen).to(dtype)
     g = torch.randn(n, device="cuda", generator=gen).to(dtype)
     mu, nu = torch.zeros_like(p), torch.zeros_like(p)
-    s = opt._scalars(1, dtype)
+    s = k1_scalars(opt, 1, dtype)
     plain_fn = {"sgd": lambda: fu.plain_sgd_(p, g, **s),
                 "momentum": lambda: fu.plain_momentum_(p, g, mu, **s),
                 "adam": lambda: fu.plain_adam_(p, g, mu, nu, **s)}[rule]
@@ -1096,6 +1148,71 @@ def _k1(kernels, rule: str) -> dict:
             for d in kernels.K1_DTYPES}
 
 
+class AllReduceCounter:
+    """Counts ``dist.all_reduce`` calls while active, apart: those made
+    eagerly and those recorded into a CUDA graph's capture."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.eager = self.captured = 0
+        self._dist, self._call = dist, dist.all_reduce
+
+        def counting(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                self.captured += 1
+            else:
+                self.eager += 1
+            return self._call(*args, **kwargs)
+
+        dist.all_reduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._call
+
+    def check(self, what: str, calls: dict, per_step: int,
+              k: int = 1) -> dict:
+        """Fails unless each eager step and each captured step of a
+        step's ``calls`` (its ``step.calls``, ``k`` steps a call) called
+        all_reduce ``per_step`` times.  A replay calls none: it runs
+        what the capture recorded, and at world size 1 NCCL launches no
+        kernel a trace could count.  Returns the calls counted."""
+        got = {"eager": self.eager, "captured": self.captured}
+        want = {"eager": per_step * k * calls["eager"],
+                "captured": per_step * k * calls["capture"]}
+        if got != want:
+            fail(f"{what}: all_reduce calls {got} over {calls}, want "
+                 f"{want} ({per_step} a step)")
+        return got
+
+
+def issued_steps(calls: dict, k: int = 1) -> int:
+    """The steps whose launches the wrappers issued over a step's
+    ``calls``: the eager ones and the captured ones (a replay issues
+    none)."""
+    return k * (calls["eager"] + calls["capture"])
+
+
+def check_graphed(what: str, calls: dict, steps: int) -> None:
+    """The step ran graphed: the first warm-up call eager, the second the
+    capture, and every timed call a replay."""
+    want = {"eager": 1, "capture": 1, "replay": steps - 2}
+    if calls != want:
+        fail(f"{what}: step calls {calls}, want {want} (the timed window "
+             "must hold only replays)")
+
+
+def eager_rate(what: str, bench, args, key: str, steps: int) -> float:
+    """The same benchmark through ``step.eager``: its rate."""
+    result = bench.run(args, eager=True)
+    if result["step_calls"] != {"eager": steps, "capture": 0, "replay": 0}:
+        fail(f"{what}: the eager run's calls {result['step_calls']}")
+    if not math.isfinite(result["final_loss"]):
+        fail(f"{what}: the eager run's final loss {result['final_loss']}")
+    return result[key]
+
+
 def phase_variants_parity(htt, kernels):
     """A narrow ResNet-18 and ResNet-50 with all three options, trained 2
     steps in float32 from the same weights on the card (K6-K10, K1) and on
@@ -1105,12 +1222,8 @@ def phase_variants_parity(htt, kernels):
 
     from horovod_tpu_torch.models import ResNet18, ResNet50
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     models = []
-    try:
+    with no_tf32():
         for name, cls in (("ResNet18", ResNet18), ("ResNet50", ResNet50)):
             base = cls(num_classes=10, num_filters=8, dtype=torch.float32,
                        generator=torch.Generator().manual_seed(1),
@@ -1176,9 +1289,6 @@ def phase_variants_parity(htt, kernels):
                 "max_state_abs_err": worst,
                 "max_eval_logit_abs_err": (z_gpu - z_cpu).abs().max().item(),
                 "card_launches_train": n_train, "card_launches_eval": n_eval})
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     emit({"phase": "variants_parity", "options": VARIANTS, "models": models,
           "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL},
           "tf32": False})
@@ -1190,8 +1300,6 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
     NCCL.  Checks a finite loss, the kernels' launches per step, one K1
     launch per step and one gradient all_reduce per fusion bucket per
     step; then one eval forward of a batch (K8).  Returns the launches."""
-    import torch.distributed as dist
-
     from horovod_tpu_torch.convert import canonical_params
     from horovod_tpu_torch.examples import synthetic_benchmark as sb
     from horovod_tpu_torch.models import ResNet50
@@ -1212,44 +1320,40 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
             VARIANT_STEP_LAUNCHES:
         fail(f"variants_main_path: the model has {structural}, want "
              f"{VARIANT_STEP_LAUNCHES} a step")
-    calls = [0]
-    all_reduce = dist.all_reduce
-
-    def counting_all_reduce(*args, **kwargs):
-        calls[0] += 1
-        return all_reduce(*args, **kwargs)
-
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    dist.all_reduce = counting_all_reduce
-    try:
+    with AllReduceCounter() as calls:
         t0 = time.perf_counter()
-        result = sb.run(sb.parse_args(argv))
+        result = sb.run(sb.parse_args(argv), then=main_path_trace(
+            "variants_main_path", kernels,
+            step_trace(variants=VARIANT_STEP_LAUNCHES)))
         wall = time.perf_counter() - t0
-    finally:
-        dist.all_reduce = all_reduce
     k1 = kernels.launch_totals(kernels.fused_update_launches)
-    launches = {**_counts(kernels), "K1_momentum": k1["momentum"],
-                "K1_other": k1["sgd"] + k1["adam"],
-                "flash": sum(kernels.flash_launches.values())}
+    issued = {**_counts(kernels), "K1_momentum": k1["momentum"],
+              "K1_other": k1["sgd"] + k1["adam"],
+              "flash": sum(kernels.flash_launches.values())}
     by_loop = _loops(kernels)
-    peak = torch.cuda.max_memory_allocated()
-    want = {**{k: v * steps for k, v in VARIANT_STEP_LAUNCHES.items()},
-            "bn_relu": 0, "K1_momentum": steps, "K1_other": 0, "flash": 0}
     if not math.isfinite(result["final_loss"]):
         fail(f"variants_main_path: final loss {result['final_loss']}")
-    if launches != want:
-        fail(f"variants_main_path: launches {launches} over {steps} steps, "
-             f"want {want}")
+    check_graphed("variants_main_path", result["step_calls"], steps)
+    host_steps = issued_steps(result["step_calls"])
+    want = {**{k: v * host_steps for k, v in VARIANT_STEP_LAUNCHES.items()},
+            "bn_relu": 0, "K1_momentum": host_steps, "K1_other": 0,
+            "flash": 0}
+    if issued != want:
+        fail(f"variants_main_path: launches issued {issued} over "
+             f"{host_steps} steps, want {want}")
     # every K9 and K10 launch of the step on the TMA + wgmma mainloop
     want_loop = {"stats.wgmma": want["stats"], "plain.wgmma": want["plain"]}
     if by_loop != want_loop:
         fail(f"variants_main_path: K8-K10 mainloops {by_loop}, want "
              f"{want_loop}")
-    grad_calls_per_step = calls[0] / steps - 1
-    if grad_calls_per_step != buckets:
-        fail(f"variants_main_path: {calls[0]} all_reduce calls over {steps} "
-             f"steps, want {buckets} buckets + 1 loss per step")
+    allreduce = calls.check("variants_main_path", result["step_calls"],
+                            buckets + 1)
+    traced = result["then"]
+    peak = torch.cuda.max_memory_allocated()
+    eager_img_sec = eager_rate("variants_main_path", sb, sb.parse_args(argv),
+                               "img_sec_per_chip", steps)
 
     # the eval forward of one batch: K8 in every fused block
     device = torch.device("cuda", torch.cuda.current_device())
@@ -1260,48 +1364,57 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
                    generator=torch.Generator(device=device).manual_seed(42))
     reset_counts(kernels)
     with torch.no_grad():
-        logits = model(x)
-    torch.cuda.synchronize()
+        logits, _, spans = profiled(lambda: model(x))
     eval_launches = _counts(kernels)
     eval_by_loop = _loops(kernels)
+    eval_traced = trace_launches(spans)
     want_eval = {"scale_bias_relu": VARIANT_STEP_LAUNCHES["scale_bias_relu"],
                  "relu_grad": 0,
                  "residual_relu": VARIANT_STEP_LAUNCHES["residual_relu"],
                  "bn_relu": structural["bn_relu"], "stats": 0, "plain": 0}
-    if eval_launches != want_eval or tuple(logits.shape) != (128, 1000) or \
+    want_eval_trace = {**step_trace(k1=0), "K6": want_eval["scale_bias_relu"],
+                       "K7": want_eval["residual_relu"],
+                       "K8-K10": want_eval["bn_relu"]}
+    if eval_launches != want_eval or eval_traced != want_eval_trace or \
+            tuple(logits.shape) != (128, 1000) or \
             not torch.isfinite(logits).all() or \
             eval_by_loop != {"bn_relu.wgmma": want_eval["bn_relu"]}:
         fail(f"variants_main_path: eval forward launches {eval_launches} "
-             f"(want {want_eval}) on {eval_by_loop}, logits "
-             f"{tuple(logits.shape)} finite="
-             f"{bool(torch.isfinite(logits).all())}")
+             f"(want {want_eval}) on {eval_by_loop}, traced {eval_traced} "
+             f"(want {want_eval_trace}), logits {tuple(logits.shape)} "
+             f"finite={bool(torch.isfinite(logits).all())}")
     del model, logits
     emit({"phase": "variants_main_path", "model": "ResNet50", "options":
           VARIANTS, "image_size": 224, "batch_per_chip": 128,
           "dtype": "bfloat16", "optimizer": "fused momentum (K1)",
           "world_size": result["size"], "steps": steps,
-          "launches": launches, "launches_per_step": {
-              k: v / steps for k, v in launches.items()},
-          "conv_launches_by_mainloop": by_loop,
+          "launches_issued": issued, "trace": traced,
+          "conv_launches_issued_by_mainloop": by_loop,
           "eval_forward_launches": eval_launches,
+          "eval_forward_trace": eval_traced,
           "eval_conv_launches_by_mainloop": eval_by_loop,
-          "fusion_buckets": buckets,
-          "grad_allreduce_per_step": grad_calls_per_step,
+          "fusion_buckets": buckets, "allreduce_calls": allreduce,
           "img_sec_per_chip": result["img_sec_per_chip"],
           "img_sec_conf": result["conf"],
+          "eager_img_sec_per_chip": eager_img_sec,
+          "step_calls": result["step_calls"],
           "default_path_img_sec_per_chip": default_img_sec,
           "mfu": flops_mod.image_model_mfu(result["img_sec_per_chip"]),
           "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
-    return {**{k: launches[k] for k in VARIANT_STEP_LAUNCHES},
-            "bn_relu": eval_launches["bn_relu"]}, {**by_loop, **eval_by_loop}
+    ran = traced["launches"]
+    return {"scale_bias_relu": ran["K6"], "relu_grad": ran["K6'"],
+            "residual_relu": ran["K7"], "stats": ran["K9_reduce"],
+            "plain": ran["K8-K10"] - ran["K9_reduce"],
+            "bn_relu": eval_traced["K8-K10"]}, {**by_loop, **eval_by_loop}
 
 
-def phase_variants_profile(htt):
-    """3 variants main-path steps (ResNet-50 with all three options,
-    224x224, batch 128, bf16, fused momentum) under torch.profiler:
-    device time per step by kind (``K6-K7``, ``K8-K10`` for the port's
-    kernels) and the device's idle share."""
+def phase_variants_profile(htt, kernels):
+    """3 graphed variants main-path steps (ResNet-50 with all three
+    options, 224x224, batch 128, bf16, fused momentum) under
+    torch.profiler: device time per step by kind (``K6-K7``, ``K8-K10``
+    for the port's kernels), the device's idle share, the host's time to
+    issue a call, and the port's kernels counted by name in the trace."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import ResNet50
@@ -1318,7 +1431,9 @@ def phase_variants_profile(htt):
                                loss_fetch_steps=0)
     state = htt.init_train_state(model, opt, has_batch_stats=True)
     steps = 3
-    wall_ms, spans, loss = _profile_steps(step, state, (x, y), steps)
+    wall_ms, spans, loss, graphed = _profile_steps(
+        "variants_profile", kernels, step, state, (x, y),
+        step_trace(variants=VARIANT_STEP_LAUNCHES), steps)
     ported = {}
     for start, end, name in spans:
         kind = _kernel_kind(name)
@@ -1326,7 +1441,7 @@ def phase_variants_profile(htt):
             n, ms = ported.get(name, (0, 0.0))
             ported[name] = (n + 1, ms + (end - start) / 1e3)
     emit({"phase": "variants_profile", "model": "ResNet50", "options":
-          VARIANTS, "steps": steps, "wall_ms_per_step": wall_ms,
+          VARIANTS, "steps": steps, "wall_ms_per_step": wall_ms, **graphed,
           **device_breakdown(spans, steps),
           "ported_kernels": {n[:80]: {"launches_per_step": k / steps,
                                       "ms_per_launch": ms / k}
@@ -1342,11 +1457,7 @@ def phase_parity(htt):
 
     from horovod_tpu_torch.models import ResNet18
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         base = ResNet18(num_classes=10, num_filters=8, dtype=torch.float32,
                         generator=torch.Generator().manual_seed(1))
         gen = torch.Generator().manual_seed(2)
@@ -1369,9 +1480,6 @@ def phase_parity(htt):
             runs[dev] = (losses, {k: v.detach().cpu() for k, v in
                                   {**state.params,
                                    **state.model_state}.items()})
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     (l_gpu, t_gpu), (l_cpu, t_cpu) = runs["cuda"], runs["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(l_gpu, l_cpu))
     worst = max((t_gpu[k] - t_cpu[k]).abs().max().item() for k in t_cpu)
@@ -1393,8 +1501,6 @@ def phase_parity(htt):
 
 
 def phase_main_path(kernels, flops_mod, card):
-    import torch.distributed as dist
-
     from horovod_tpu_torch.convert import canonical_params
     from horovod_tpu_torch.examples import synthetic_benchmark as sb
     from horovod_tpu_torch.models import ResNet50
@@ -1409,51 +1515,46 @@ def phase_main_path(kernels, flops_mod, card):
         buckets = FusionPlan(list(canonical_params(
             ResNet50()).values())).num_buckets()
 
-    calls = [0]
-    all_reduce = dist.all_reduce
-
-    def counting_all_reduce(*args, **kwargs):
-        calls[0] += 1
-        return all_reduce(*args, **kwargs)
-
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    dist.all_reduce = counting_all_reduce
-    try:
+    with AllReduceCounter() as calls:
         t0 = time.perf_counter()
-        result = sb.run(sb.parse_args(argv))
+        result = sb.run(sb.parse_args(argv), then=main_path_trace(
+            "main path", kernels, step_trace()))
         wall = time.perf_counter() - t0
-    finally:
-        dist.all_reduce = all_reduce
-    launches = kernels.launch_totals(kernels.fused_update_launches)
-    k1 = _k1(kernels, "momentum")
+    issued = kernels.launch_totals(kernels.fused_update_launches)
+    k1_issued = _k1(kernels, "momentum")
+    peak = torch.cuda.max_memory_allocated()
 
     if not math.isfinite(result["final_loss"]):
         fail(f"main path: final loss {result['final_loss']}")
-    if launches["momentum"] != steps or launches["sgd"] or launches["adam"]:
-        fail(f"main path: K1 launches {kernels.fused_update_launches}, want "
-             f"{steps} momentum")
+    check_graphed("main path", result["step_calls"], steps)
+    host_steps = issued_steps(result["step_calls"])
+    if issued != {"sgd": 0, "momentum": host_steps, "adam": 0}:
+        fail(f"main path: K1 launches issued {kernels.fused_update_launches}"
+             f", want {host_steps} momentum")
     if any(kernels.flash_launches.values()):
         fail(f"main path: ResNet-50 launched {kernels.flash_launches}")
     # one all_reduce per gradient bucket, plus one for the reported loss
-    grad_calls_per_step = calls[0] / steps - 1
-    if grad_calls_per_step != buckets:
-        fail(f"main path: {calls[0]} all_reduce calls over {steps} steps, "
-             f"want {buckets} buckets + 1 loss per step")
+    allreduce = calls.check("main path", result["step_calls"], buckets + 1)
+    traced = result["then"]
+    eager_img_sec = eager_rate("main path", sb, sb.parse_args(argv),
+                               "img_sec_per_chip", steps)
     emit({"phase": "main_path", "model": "ResNet50", "image_size": 224,
           "batch_per_chip": 128, "dtype": "bfloat16", "optimizer":
           "fused momentum (K1)", "world_size": result["size"],
-          "steps": steps, "k1_launches": k1,
-          "fusion_buckets": buckets,
-          "grad_allreduce_per_step": grad_calls_per_step,
+          "steps": steps, "k1_launches_issued": k1_issued,
+          "trace": traced, "fusion_buckets": buckets,
+          "allreduce_calls": allreduce,
           "img_sec_per_chip": result["img_sec_per_chip"],
           "img_sec_conf": result["conf"],
+          "eager_img_sec_per_chip": eager_img_sec,
+          "step_calls": result["step_calls"],
           "mfu": flops_mod.image_model_mfu(result["img_sec_per_chip"]),
           "peak_flops": flops_mod.peak_flops(),
           "final_loss": result["final_loss"],
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "wall_s": wall, "card": card})
-    return k1, result["img_sec_per_chip"]
+          "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
+    return traced["k1"]["momentum"], result["img_sec_per_chip"]
 
 
 def _kernel_kind(name: str) -> str:
@@ -1534,8 +1635,7 @@ def flash_counts(kernels, keys, n: int) -> dict:
 
 def reset_counts(kernels) -> None:
     """Every kernel's launch count to 0."""
-    for counts in (kernels.fused_update_launches, kernels.flash_launches,
-                   kernels.elementwise_launches, kernels.conv_bn_launches):
+    for counts in kernels.LAUNCH_COUNTERS:
         for k in counts:
             counts[k] = 0
 
@@ -1606,18 +1706,11 @@ def phase_gpt_parity(htt, kernels):
     vocab 256, seq 136) trained 2 steps with fused Adam from the same
     weights and ids on the card (K1-K4) and on the CPU (plain), from each
     of GPT_PARITY_SEEDS."""
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     lr, steps = 1e-3, 2
     bound = GPT_FLIP_BOUND * lr * steps
-    try:
+    with no_tf32():
         seeds = [_gpt_parity_run(htt, kernels, seed, lr, steps)
                  for seed in GPT_PARITY_SEEDS]
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     for r in seeds:
         if r["max_param_abs_err"] > bound or r["key_bias_max_abs_err"] > \
                 bound or r["params_beyond_atol"] > GPT_FLIP_SHARE * \
@@ -1698,6 +1791,248 @@ def phase_gpt_bf16(kernels, fa):
                         "exempt": f"*/{KEY_BIAS}"}})
 
 
+#: in_graph_steps of the graph_parity runs
+GRAPH_PARITY_KS = (1, 3)
+
+
+def _graph_parity_run(htt, kernels, model, opt, loss_fn, x, y, k, *,
+                      eager, batch_stats, **kw):
+    """3 calls of a new step over ``model`` on the card, graphed (eager
+    warm-up, capture, replay) or through ``step.eager``: the step, its
+    state, the calls' losses and the port's launches the wrappers had
+    counted after each call."""
+    step = htt.make_train_step(apply_fn=model, loss_fn=loss_fn,
+                               optimizer=opt, in_graph_steps=k,
+                               loss_fetch_steps=0, **kw)
+    state = htt.init_train_state(model, opt, has_batch_stats=batch_stats,
+                                 device="cuda")
+    reset_counts(kernels)
+    run = step.eager if eager else step
+    losses, counts = [], []
+    for _ in range(3):
+        state, loss = run(state, x, y)
+        losses.append(loss)
+        counts.append(host_launches(kernels))
+    torch.cuda.synchronize()
+    return step, state, [t.item() for t in losses], counts
+
+
+def _gpt_close(what, got, want, lr, steps) -> dict:
+    """GPT parameters held as gpt_parity holds them: at most 3e-4 of them
+    beyond GPT_PARAM_ATOL, none beyond GPT_FLIP_BOUND * lr a step."""
+    diff = torch.cat([(got[k] - want[k]).abs().reshape(-1) for k in want])
+    beyond = int((diff > GPT_PARAM_ATOL).sum().item())
+    worst = diff.max().item()
+    if worst > GPT_FLIP_BOUND * lr * steps or \
+            beyond > GPT_FLIP_SHARE * len(diff):
+        fail(f"graph_parity: {what}: parameters differ by up to {worst}, "
+             f"{beyond} of {len(diff)} beyond {GPT_PARAM_ATOL}")
+    return {"max_param_abs_err": worst, "params_beyond_atol": beyond}
+
+
+def phase_graph_parity(htt, kernels):
+    """The compiled step against ``step.eager`` on the card, in float32
+    with TF32 off: the narrow ResNet-18 (fused momentum; all three kernel
+    options; the per-leaf momentum update) and the narrow float32 GPT
+    (fused Adam), each 3 calls of k = 1 and 3 steps, graphed (eager
+    warm-up, capture, replay) against eager, from the same weights and
+    batch: the losses of every call, the parameters and statistics at
+    the parity phases' limits, and the launches counted: the graphed
+    warm-up and capture issue what the first two eager calls issue, the
+    replay none.  A call of a graphed step with the eager run's state
+    raises ``ValueError``.  A graphed remat-full GPT step matches the
+    graphed GPT step."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet18, gpt_tiny, next_token_loss
+
+    def resnet(**options):
+        return lambda: ResNet18(num_classes=10, num_filters=8,
+                                dtype=torch.float32,
+                                generator=torch.Generator().manual_seed(1),
+                                **options)
+
+    gen = torch.Generator().manual_seed(2)
+    image = (torch.rand((8, 64, 64, 3), generator=gen).cuda(),
+             torch.randint(0, 10, (8,), generator=gen).cuda())
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, size=(2, 136))).cuda()
+    lr_adam = 1e-3
+
+    def momentum():
+        return htt.fused_sgd(0.01, momentum=0.9)
+
+    stats = {"batch_stats": True}
+    cases = {
+        "resnet18": (resnet(), momentum, F.cross_entropy, image, stats),
+        "resnet18_all_options": (resnet(**VARIANTS), momentum,
+                                 F.cross_entropy, image, stats),
+        "resnet18_per_leaf": (resnet(), momentum, F.cross_entropy, image,
+                              {**stats, "fused_optimizer": False}),
+        "gpt_f32": (lambda: gpt_tiny(
+            vocab_size=256, hidden_dim=64, num_layers=2, num_heads=4,
+            dtype=torch.float32, generator=torch.Generator().manual_seed(3)),
+            lambda: htt.fused_adam(lr_adam), next_token_loss, (ids, ids),
+            {"batch_stats": False}),
+    }
+    rows = []
+    graphed_gpt = None
+    with no_tf32():
+        for name, (factory, make_opt, loss_fn, (x, y), kw) in cases.items():
+            base = factory()
+            for k in GRAPH_PARITY_KS:
+                g_step, g_state, g_loss, g_counts = _graph_parity_run(
+                    htt, kernels, copy.deepcopy(base), make_opt(), loss_fn,
+                    x, y, k, eager=False, **kw)
+                e_step, e_state, e_loss, e_counts = _graph_parity_run(
+                    htt, kernels, copy.deepcopy(base), make_opt(), loss_fn,
+                    x, y, k, eager=True, **kw)
+                what = f"{name} k={k}"
+                if g_step.calls != {"eager": 1, "capture": 1, "replay": 1} \
+                        or e_step.calls != {"eager": 3, "capture": 0,
+                                            "replay": 0}:
+                    fail(f"graph_parity: {what}: calls {g_step.calls} and "
+                         f"{e_step.calls}")
+                k1 = 0 if kw.get("fused_optimizer") is False else k
+                if g_counts[1] != e_counts[1] or g_counts[2] != g_counts[1] \
+                        or [c["K1"] for c in e_counts] != [k1, 2 * k1,
+                                                           3 * k1]:
+                    fail(f"graph_parity: {what}: launches after each call "
+                         f"graphed {g_counts}, eager {e_counts}")
+                try:
+                    g_step(e_state, x, y)
+                except ValueError:
+                    pass
+                else:
+                    fail(f"graph_parity: {what}: a foreign state was taken")
+                got = {**g_state.params, **g_state.model_state}
+                want = {**e_state.params, **e_state.model_state}
+                row = {"case": what, "loss_graphed": g_loss,
+                       "loss_eager": e_loss,
+                       "launches_issued": {k_: v for k_, v in
+                                           g_counts[-1].items() if v}}
+                if name.startswith("gpt"):
+                    if any(abs(a - b) > GPT_LOSS_RTOL * abs(b)
+                           for a, b in zip(g_loss, e_loss)):
+                        fail(f"graph_parity: {what}: losses {g_loss} vs "
+                             f"{e_loss}")
+                    row.update(_gpt_close(what, got, want, lr_adam, 3 * k))
+                    if k == 1:
+                        graphed_gpt = (base, g_state, g_loss)
+                else:
+                    if any(abs(a - b) > PARITY_RTOL * abs(b) + PARITY_ATOL
+                           for a, b in zip(g_loss, e_loss)):
+                        fail(f"graph_parity: {what}: losses {g_loss} vs "
+                             f"{e_loss}")
+                    for key in want:
+                        if not torch.allclose(got[key], want[key],
+                                              rtol=PARITY_RTOL,
+                                              atol=PARITY_ATOL):
+                            fail(f"graph_parity: {what}: {key} differs by "
+                                 f"{(got[key] - want[key]).abs().max()}")
+                    row["max_state_abs_err"] = max(
+                        (got[key] - want[key]).abs().max().item()
+                        for key in want)
+                rows.append(row)
+        base, g_state, g_loss = graphed_gpt
+        r_step, r_state, r_loss, _ = _graph_parity_run(
+            htt, kernels, copy.deepcopy(base), htt.fused_adam(lr_adam),
+            next_token_loss, ids, ids, 1, eager=False, batch_stats=False,
+            remat_policy="full")
+        if r_step.calls != {"eager": 1, "capture": 1, "replay": 1} or any(
+                abs(a - b) > GPT_LOSS_RTOL * abs(b)
+                for a, b in zip(r_loss, g_loss)):
+            fail(f"graph_parity: remat full GPT calls {r_step.calls}, "
+                 f"losses {r_loss} vs {g_loss}")
+        rows.append({"case": "gpt_f32 remat=full k=1 against no remat",
+                     "loss_graphed": r_loss, "loss_eager": g_loss,
+                     **_gpt_close("remat full", r_state.params,
+                                  g_state.params, lr_adam, 3)})
+    emit({"phase": "graph_parity", "calls": 3, "cases": rows,
+          "tolerance": {"resnet": {"rtol": PARITY_RTOL,
+                                   "atol": PARITY_ATOL},
+                        "gpt": {"loss_rtol": GPT_LOSS_RTOL,
+                                "param_atol": GPT_PARAM_ATOL,
+                                "share_beyond_atol": GPT_FLIP_SHARE}},
+          "tf32": False})
+
+
+def phase_collectives(htt):
+    """Every collective of the port on CUDA tensors over NCCL at world
+    size 1 (over the world and over the process set {0}) against its
+    plain result, bit for bit; then an allreduce with a prescale and an
+    allgatherv captured into one CUDA graph and replayed on new data."""
+    dev = htt.device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((8, 3), device=dev, generator=gen)
+    v = torch.randn((4, 2), device=dev, generator=gen)
+    ps = htt.ProcessSet([0])
+    masked = torch.cat([v[:2], torch.zeros_like(v[2:])])
+    two = torch.tensor([2], device=dev)
+
+    def flat(ts):
+        return torch.cat([t.reshape(-1).float() for t in ts])
+
+    gathered, counts = htt.allgatherv(v, valid_rows=2, max_rows=4)
+    gathered_ps, counts_ps = htt.allgatherv(
+        v, valid_rows=torch.tensor(2, device=dev), max_rows=4,
+        process_set=ps)
+    grads = htt.allreduce_gradients({"a": x, "b": v})
+    cases = {
+        "allreduce_sum": (htt.allreduce(x, op=htt.Sum), x),
+        "allreduce_average": (htt.allreduce(x), x / 1),
+        "allreduce_min": (htt.allreduce(x, op=htt.Min), x),
+        "allreduce_max": (htt.allreduce(x, op=htt.Max), x),
+        "allreduce_scaled": (htt.allreduce(x, prescale_factor=0.5,
+                                           postscale_factor=3.0),
+                             x * 0.5 / 1 * 3.0),
+        "allreduce_set": (htt.allreduce(x, op=htt.Sum, process_set=ps), x),
+        "grouped_allreduce": (flat(htt.grouped_allreduce(
+            [x, v], op=htt.Sum, threshold_bytes=32)), flat([x, v])),
+        "grouped_allreduce_set": (flat(htt.grouped_allreduce(
+            [x, v], process_set=ps)), flat([x / 1, v / 1])),
+        "allreduce_gradients": (flat([grads["a"], grads["b"]]),
+                                flat([x, v])),
+        "allgather": (htt.allgather(x), x),
+        "allgather_set": (htt.allgather(x, process_set=ps), x),
+        "allgatherv": (flat([gathered, counts]), flat([masked, two])),
+        "allgatherv_set": (flat([gathered_ps, counts_ps]),
+                           flat([masked, two])),
+        "broadcast": (htt.broadcast(x, root_rank=0), x),
+        "broadcast_set": (htt.broadcast(x, root_rank=0, process_set=ps), x),
+        "alltoall": (htt.alltoall(x), x),
+        "alltoall_set": (htt.alltoall(x, process_set=ps), x),
+        "reducescatter": (htt.reducescatter(x), x),
+        "reducescatter_average": (htt.reducescatter(x, op=htt.Average),
+                                  x / 1),
+        "reducescatter_set": (htt.reducescatter(x, process_set=ps), x),
+    }
+    for name, (got, want) in cases.items():
+        if got.device != want.device or not torch.equal(got, want):
+            fail(f"collectives: {name} gives {got}, want {want}")
+    # captured: the replay reduces and gathers what the input holds then
+    static = torch.randn((6, 3), device=dev, generator=gen)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        reduced = htt.allreduce(static, op=htt.Sum, prescale_factor=2.0)
+        g_rows, g_counts = htt.allgatherv(static[:4], valid_rows=3,
+                                          max_rows=6)
+    fresh = torch.randn((6, 3), device=dev, generator=gen)
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_rows = torch.cat([fresh[:3], torch.zeros_like(fresh[:3])])
+    if not (torch.equal(reduced, fresh * 2.0) and
+            torch.equal(g_rows, want_rows) and g_counts.tolist() == [3]):
+        fail("collectives: the captured allreduce and allgatherv replayed "
+             f"to {reduced}, {g_rows}, {g_counts}")
+    del graph
+    emit({"phase": "collectives", "backend": htt.core.backend(),
+          "world_size": htt.size(), "cases": list(cases),
+          "tolerance": "bit-equal (torch.equal)",
+          "captured": ["allreduce(prescale_factor=2)", "allgatherv"]})
+
+
 def _gpt2_buckets() -> int:
     from horovod_tpu_torch.convert import canonical_params
     from horovod_tpu_torch.models import gpt2_small
@@ -1712,8 +2047,6 @@ def phase_gpt_main_path(htt, kernels, card):
     """``examples.gpt_synthetic_benchmark.run`` at its defaults: GPT-2
     small, batch 4, seq 1024, bf16, flash attention (K2-K4), fused Adam
     (K1), world size 1 over NCCL."""
-    import torch.distributed as dist
-
     from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
 
     args = gb.parse_args([])
@@ -1721,80 +2054,224 @@ def phase_gpt_main_path(htt, kernels, card):
         args.num_batches_per_iter * args.num_iters
     layers = 12
     buckets = _gpt2_buckets()
-    calls = [0]
-    all_reduce = dist.all_reduce
-
-    def counting_all_reduce(*a, **kw):
-        calls[0] += 1
-        return all_reduce(*a, **kw)
-
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
-    dist.all_reduce = counting_all_reduce
-    try:
+    with AllReduceCounter() as calls:
         t0 = time.perf_counter()
-        result = gb.run(args)
+        result = gb.run(args, then=main_path_trace(
+            "gpt_main_path", kernels, step_trace(flash=layers)))
         wall = time.perf_counter() - t0
-    finally:
-        dist.all_reduce = all_reduce
+    peak = torch.cuda.max_memory_allocated()
     flash = dict(kernels.flash_launches)
     k1 = kernels.launch_totals(kernels.fused_update_launches)
-    adam = _k1(kernels, "adam")
+    k1_issued = _k1(kernels, "adam")
 
     if not math.isfinite(result["final_loss"]):
         fail(f"gpt_main_path: final loss {result['final_loss']}")
-    if flash != flash_counts(kernels, GPT_BF16_FLASH, layers * steps):
-        fail(f"gpt_main_path: K2-K4 launches {flash}, want "
-             f"{layers * steps} each of {GPT_BF16_FLASH}")
-    if k1 != {"sgd": 0, "momentum": 0, "adam": steps}:
-        fail(f"gpt_main_path: K1 launches {k1}, want {steps} adam")
-    grad_calls_per_step = calls[0] / steps - 1
-    if grad_calls_per_step != buckets:
-        fail(f"gpt_main_path: {calls[0]} all_reduce calls over {steps} "
-             f"steps, want {buckets} buckets + 1 loss per step")
+    check_graphed("gpt_main_path", result["step_calls"], steps)
+    host_steps = issued_steps(result["step_calls"])
+    if flash != flash_counts(kernels, GPT_BF16_FLASH, layers * host_steps):
+        fail(f"gpt_main_path: K2-K4 launches issued {flash}, want "
+             f"{layers * host_steps} each of {GPT_BF16_FLASH}")
+    if k1 != {"sgd": 0, "momentum": 0, "adam": host_steps}:
+        fail(f"gpt_main_path: K1 launches issued {k1}, want {host_steps} "
+             "adam")
+    allreduce = calls.check("gpt_main_path", result["step_calls"],
+                            buckets + 1)
+    traced = result["then"]
+    eager_seq_sec = eager_rate("gpt_main_path", gb, gb.parse_args([]),
+                               "seq_sec_per_chip", steps)
     emit({"phase": "gpt_main_path", "model": "gpt2_small",
           "batch_per_chip": args.batch_size, "seq_len": args.seq_len,
           "dtype": args.dtype, "attn": args.attn,
           "optimizer": "fused_adam(1e-4) (K1 adam)",
           "world_size": htt.size(), "steps": steps,
-          "k2_k4_launches": {k: v for k, v in flash.items() if v},
-          "k1_launches": dict(kernels.fused_update_launches),
-          "fusion_buckets": buckets,
-          "grad_allreduce_per_step": grad_calls_per_step,
+          "k2_k4_launches_issued": {k: v for k, v in flash.items() if v},
+          "k1_launches_issued": k1_issued, "trace": traced,
+          "fusion_buckets": buckets, "allreduce_calls": allreduce,
           "seq_sec_per_chip": result["seq_sec_per_chip"],
+          "eager_seq_sec_per_chip": eager_seq_sec,
+          "step_calls": result["step_calls"],
           "mfu": result["mfu"], "final_loss": result["final_loss"],
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "wall_s": wall, "card": card})
-    return flash, adam
+          "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
+    return flash, traced
 
 
-def _profile_steps(step, state, args, steps: int = 3):
-    """``steps`` calls of ``step(state, *args)`` under torch.profiler after
-    2 warm-up calls: wall ms per step and the device kernels' spans."""
+#: the port's kernels by the names they have in a CUPTI trace: K9 and
+#: K10 (and K8) share the TMA + wgmma conv kernel, and each K9 launch adds
+#: its second pass, the column reduce
+TRACE_KERNELS = {
+    "K1": ("sgd_kernel", "momentum_kernel", "adam_kernel"),
+    "K2": ("flash_fwd",), "K3": ("flash_bwd_dq",), "K4": ("flash_bwd_dkv",),
+    "K6": ("hvd_scale_bias_relu",), "K6'": ("hvd_relu_grad",),
+    "K7": ("hvd_residual_relu",), "K8-K10": ("hvd_conv3x3_",),
+    "K9_reduce": ("hvd_conv_stats_reduce",),
+}
+
+
+def trace_launches(spans) -> dict:
+    """The port's kernels counted by name in a profiler trace."""
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    for _, _, name in spans:
+        for key, parts in TRACE_KERNELS.items():
+            if any(p in name for p in parts):
+                counts[key] += 1
+    return counts
+
+
+def k1_trace(spans) -> dict:
+    """K1's launches in a profiler trace by rule and parameter-group
+    type (the kernels are templates of the group's type)."""
+    counts = {rule: {"float32": 0, "bfloat16": 0}
+              for rule in ("sgd", "momentum", "adam")}
+    for _, _, name in spans:
+        for rule, by_dtype in counts.items():
+            if f"{rule}_kernel" in name:
+                by_dtype["bfloat16" if "bfloat16" in name else
+                         "float32"] += 1
+    return counts
+
+
+def host_launches(kernels) -> dict:
+    """The port's kernels by TRACE_KERNELS' keys, from the wrappers'
+    counters: the launches the host issued."""
+    flash = kernels.launch_totals(kernels.flash_launches)
+    conv = kernels.launch_totals(kernels.conv_bn_launches)
+    ew = kernels.elementwise_launches
+    return {"K1": sum(kernels.fused_update_launches.values()),
+            "K2": flash["fwd"], "K3": flash["bwd_dq"],
+            "K4": flash["bwd_dkv"], "K6": ew["scale_bias_relu"],
+            "K6'": ew["relu_grad"], "K7": ew["residual_relu"],
+            "K8-K10": sum(conv.values()), "K9_reduce": conv["stats"]}
+
+
+def step_trace(k1: int = 1, flash: int = 0, variants=None) -> dict:
+    """The port's kernels, by TRACE_KERNELS' keys, that one train step
+    runs: ``k1`` K1 launches, ``flash`` of each of K2-K4, and K6-K10 as
+    ``variants`` (VARIANT_STEP_LAUNCHES' counters) gives them."""
+    v = variants or dict.fromkeys(VARIANT_STEP_LAUNCHES, 0)
+    return {"K1": k1, "K2": flash, "K3": flash, "K4": flash,
+            "K6": v["scale_bias_relu"], "K6'": v["relu_grad"],
+            "K7": v["residual_relu"], "K8-K10": v["stats"] + v["plain"],
+            "K9_reduce": v["stats"]}
+
+
+#: seconds the card idles under torch.profiler before and after the
+#: profiled work.  The profiler drops a device record stamped outside its
+#: capture window, and a replay launched at once after the profiler
+#: started could lose its first kernels.
+PROFILE_MARGIN_S = 0.05
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler, from an idle card and with
+    PROFILE_MARGIN_S of idle time on either side, the card synchronized
+    before the profiler stops: its result, its wall ms and the device
+    kernels' ``(start_us, end_us, name)`` spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        state, loss = step(state, *args)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, loss = step(state, *args)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not spans:
-        fail("profile: the profiler recorded no device kernels")
-    return wall_ms / steps, spans, loss.item()
+        fail("the profiler recorded no device kernels")
+    return out, wall_ms, spans
 
 
-def phase_gpt_profile(htt):
-    """3 GPT main-path steps (GPT-2 small, batch 4, seq 1024, bf16, flash
-    attention, fused Adam) under torch.profiler: device time per step by
-    kind, and the device's idle share."""
+def trace_replays(what, kernels, step, state, args, calls: int):
+    """``calls`` more calls of a graphed ``step`` under torch.profiler.
+    Each must be a replay, and no wrapper may count a launch in them: a
+    replay runs the captured kernels without their wrappers.  Returns
+    the state, the last loss, the calls' wall ms and the device kernels'
+    spans."""
+    before, issued = dict(step.calls), host_launches(kernels)
+
+    def run():
+        st, loss = state, None
+        for _ in range(calls):
+            st, loss = step(st, *args)
+        return st, loss
+
+    (state, loss), wall_ms, spans = profiled(run)
+    if step.calls != {**before, "replay": before["replay"] + calls}:
+        fail(f"{what}: the traced calls were not all replays: "
+             f"{before} -> {step.calls}")
+    if host_launches(kernels) != issued:
+        fail(f"{what}: the wrappers counted launches in replays: {issued} "
+             f"-> {host_launches(kernels)}")
+    return state, loss, wall_ms, spans
+
+
+#: graphed calls traced at the end of each main path
+TRACED_CALLS = 2
+
+
+def main_path_trace(what, kernels, per_step: dict, k: int = 1):
+    """The ``then`` of a main path's benchmark ``run``: TRACED_CALLS
+    more calls of its graphed step, traced; fails unless the trace holds
+    ``per_step`` (step_trace) for each of their ``TRACED_CALLS * k``
+    steps.  Returns the steps traced and the port's kernels counted in
+    the trace, K1 also by rule and group type."""
+    def then(step, state, x, y):
+        _, _, _, spans = trace_replays(what, kernels, step, state, (x, y),
+                                       TRACED_CALLS)
+        steps = TRACED_CALLS * k
+        traced = trace_launches(spans)
+        want = {key: n * steps for key, n in per_step.items()}
+        if traced != want:
+            fail(f"{what}: the trace of {steps} replayed steps holds the "
+                 f"port's kernels {traced}, want {want}")
+        return {"steps": steps, "launches": traced, "k1": k1_trace(spans)}
+
+    return then
+
+
+def _profile_steps(what, kernels, step, state, args, per_step: dict,
+                   steps: int = 3):
+    """``step(state, *args)`` graphed: 2 warm-up calls (eager, capture),
+    5 replays timed on the host clock call by call, each from an idle
+    card (the host's time to issue a call), then ``steps`` replays under
+    torch.profiler, whose trace must hold the port's kernels ``per_step``
+    (step_trace) times a step.  Returns the wall ms per profiled step,
+    the device kernels' spans, the last loss and the step's numbers."""
+    for _ in range(2):
+        state, loss = step(state, *args)
+    torch.cuda.synchronize()
+    issue = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, loss = step(state, *args)
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    state, loss, wall_ms, spans = trace_replays(what, kernels, step, state,
+                                                args, steps)
+    check_graphed(what, step.calls, 2 + 5 + steps)
+    traced = trace_launches(spans)
+    want = {key: n * steps for key, n in per_step.items()}
+    if traced != want:
+        fail(f"{what}: the trace of {steps} replays holds the port's "
+             f"kernels {traced}, want {want}")
+    return wall_ms / steps, spans, loss.item(), {
+        "host_ms_per_call": statistics.median(issue),
+        "step_calls": dict(step.calls),
+        "trace_launches_per_step": {k: v / steps for k, v in traced.items()
+                                    if v}}
+
+
+def phase_gpt_profile(htt, kernels):
+    """3 graphed GPT main-path steps (GPT-2 small, batch 4, seq 1024, bf16,
+    flash attention, fused Adam) under torch.profiler: device time per
+    step by kind, the device's idle share, the host's time to issue a
+    call, and the port's kernels counted by name in the trace."""
     from horovod_tpu_torch.models import gpt2_small, next_token_loss
 
     model = gpt2_small(generator=torch.Generator().manual_seed(0))
@@ -1805,7 +2282,9 @@ def phase_gpt_profile(htt):
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, 1000, size=(4, 1024))).to(htt.device())
     steps = 3
-    wall_ms, spans, loss = _profile_steps(step, state, (ids, ids), steps)
+    wall_ms, spans, loss, graphed = _profile_steps(
+        "gpt_profile", kernels, step, state, (ids, ids),
+        step_trace(flash=model.num_layers), steps)
     flash = {}
     for start, end, name in spans:
         if _kernel_kind(name) == "flash":
@@ -1814,7 +2293,8 @@ def phase_gpt_profile(htt):
             n, ms = flash.get(name, (0, 0.0))
             flash[name] = (n + 1, ms + (end - start) / 1e3)
     emit({"phase": "gpt_profile", "model": "gpt2_small", "steps": steps,
-          "wall_ms_per_step": wall_ms, **device_breakdown(spans, steps),
+          "wall_ms_per_step": wall_ms, **graphed,
+          **device_breakdown(spans, steps),
           "flash_ms_per_launch": {n: ms / k
                                   for n, (k, ms) in flash.items()},
           "flash_launches_per_step": {n: k / steps
@@ -1822,11 +2302,12 @@ def phase_gpt_profile(htt):
           "final_loss": loss})
 
 
-def phase_profile(htt):
-    """3 main-path steps (ResNet-50, 224x224, batch 128, bf16, fused
-    momentum) under torch.profiler: device time per step by kind of
-    kernel, and the device's idle share between the first kernel's start
-    and the last one's end."""
+def phase_profile(htt, kernels):
+    """3 graphed main-path steps (ResNet-50, 224x224, batch 128, bf16,
+    fused momentum) under torch.profiler: device time per step by kind of
+    kernel, the device's idle share between the first kernel's start and
+    the last one's end, the host's time to issue a call, and the port's
+    kernels counted by name in the trace."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import ResNet50
@@ -1843,16 +2324,19 @@ def phase_profile(htt):
                                loss_fetch_steps=0)
     state = htt.init_train_state(model, opt, has_batch_stats=True)
     steps = 3
-    wall_ms, spans, loss = _profile_steps(step, state, (x, y), steps)
+    wall_ms, spans, loss, graphed = _profile_steps(
+        "profile", kernels, step, state, (x, y), step_trace(), steps)
     emit({"phase": "profile", "model": "ResNet50", "steps": steps,
-          "wall_ms_per_step": wall_ms, **device_breakdown(spans, steps),
+          "wall_ms_per_step": wall_ms, **graphed,
+          **device_breakdown(spans, steps),
           "final_loss": loss})
     del model, state, step
 
 
 def phase_rules(htt, kernels):
-    """Fused SGD and fused Adam, 3 trainer steps each at the main path's
-    shapes; returns each rule's K1 launches by parameter-group type."""
+    """Fused SGD and fused Adam, 3 graphed trainer steps each at the main
+    path's shapes (eager, capture, a traced replay); returns each rule's
+    K1 launches by parameter-group type in the replay's trace."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import ResNet50
@@ -1871,19 +2355,33 @@ def phase_rules(htt, kernels):
                                    loss_fetch_steps=0)
         state = htt.init_train_state(model, opt, has_batch_stats=True)
         reset_counts(kernels)
-        for _ in range(3):
+        for _ in range(2):
             state, loss = step(state, x, y)
+        issued = dict(kernels.fused_update_launches)
+        state, loss, _, spans = trace_replays(f"rules: {rule}", kernels,
+                                              step, state, (x, y), 1)
         final = loss.item()
-        launches[rule] = _k1(kernels, rule)
-        if not math.isfinite(final) or sum(launches[rule].values()) != 3 or \
-                sum(kernels.fused_update_launches.values()) != 3:
-            fail(f"rules: {rule} loss {final}, launches "
-                 f"{kernels.fused_update_launches}")
+        launches[rule] = k1_trace(spans)[rule]
+        if not math.isfinite(final) or sum(_k1(kernels, rule).values()) != 2 \
+                or sum(issued.values()) != 2 or \
+                sum(launches[rule].values()) != 1 or \
+                trace_launches(spans)["K1"] != 1:
+            fail(f"rules: {rule} loss {final}, launches issued {issued}, "
+                 f"traced {launches[rule]}")
         emit({"phase": "rules", "rule": rule, "steps": 3,
-              "k1_launches": launches[rule], "final_loss": final})
+              "k1_launches_issued": _k1(kernels, rule),
+              "k1_trace_of_replay": launches[rule], "final_loss": final})
         del model, state, step
     return launches
 
+
+#: where the kernels line's launches come from
+LAUNCHES_NOTE = (
+    f"counted by name in the CUPTI trace of the last {TRACED_CALLS} "
+    "graphed calls (replays, 1 step each) of each kernel's main path: "
+    "K1 momentum on ResNet-50, K1 adam and K2-K4 on GPT-2 small, K6-K10 "
+    "on the variants path (K8 in its eval forward of one batch); K1 sgd "
+    "in one replay of the rules phase")
 
 #: the counters of K8-K10
 CONV_COUNTERS = ("bn_relu", "stats", "plain")
@@ -1909,10 +2407,10 @@ def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
     for key, counter in VARIANT_COUNTERS.items():
         results[key]["launches"] = launches[counter]
         if counter in CONV_COUNTERS:
-            results[key]["launches_by_mainloop"] = {
+            results[key]["launches_issued_by_mainloop"] = {
                 k.split(".")[1]: v for k, v in by_loop.items()
                 if k.startswith(counter + ".")}
-    phase_variants_profile(htt)
+    phase_variants_profile(htt, kernels)
     return results
 
 
@@ -1960,7 +2458,8 @@ def main() -> None:
     if variants_only:
         results = run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                      None)
-        emit({"kernels": [results[k] for k in VARIANT_KEYS]})
+        emit({"kernels": [results[k] for k in VARIANT_KEYS],
+              "launches": LAUNCHES_NOTE})
         htt.shutdown()
         return
     results = phase_kernels(fu, flops_mod)
@@ -1968,30 +2467,33 @@ def main() -> None:
     phase_parity(htt)
     phase_gpt_parity(htt, kernels)
     phase_gpt_bf16(kernels, fa)
+    phase_graph_parity(htt, kernels)
+    phase_collectives(htt)
     k1_launches = {}
     k1_launches["momentum"], default_img_sec = phase_main_path(
         kernels, flops_mod, card)
-    phase_profile(htt)
+    phase_profile(htt, kernels)
     results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                       default_img_sec))
     k1_launches.update(phase_rules(htt, kernels))
-    flash, k1_launches["adam"] = phase_gpt_main_path(htt, kernels, card)
+    flash, gpt_trace = phase_gpt_main_path(htt, kernels, card)
+    k1_launches["adam"] = gpt_trace["k1"]["adam"]
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]
         results[rule]["bf16"]["launches"] = by_dtype["bfloat16"]
-    flash_totals = kernels.launch_totals(flash)
     for key, counter in (("K2", "fwd"), ("K3", "bwd_dq"),
                          ("K4", "bwd_dkv")):
-        results[key]["launches"] = flash_totals[counter]
-        results[key]["launches_by_mainloop"] = {
+        results[key]["launches"] = gpt_trace["launches"][key]
+        results[key]["launches_issued_by_mainloop"] = {
             k.split(".")[1]: v for k, v in flash.items()
             if k.startswith(counter + ".")}
-    phase_gpt_profile(htt)
+    phase_gpt_profile(htt, kernels)
     htt.shutdown()
 
     emit({"kernels": [results[r] for r in ("momentum", "sgd", "adam", "K2",
                                            "K3", "K4", *VARIANT_KEYS)],
-          "card": card, "seconds": time.perf_counter() - t_start})
+          "launches": LAUNCHES_NOTE, "card": card,
+          "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

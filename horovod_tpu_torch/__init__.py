@@ -6,9 +6,8 @@ the reference on the same inputs.  This package imports torch and numpy,
 never JAX or anything of ``horovod_tpu``.  Its entry points run on the
 CUDA device unless the caller passes ``device="cpu"``.
 
-The first slice is the data-parallel ResNet training step with the fused
-optimizer update, whose kernel (K1, ``csrc/fused_update.cu``) is written
-by hand for Hopper.
+Its kernels (``csrc/``) are written by hand for Hopper; on a CUDA device
+the training step runs as one captured CUDA graph.
 """
 
 from .core import (  # noqa: F401
@@ -16,10 +15,13 @@ from .core import (  # noqa: F401
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
     gloo_built, gloo_enabled, init, is_homogeneous, is_initialized,
     local_rank, local_size, mpi_built, mpi_enabled, mpi_threads_supported,
-    nccl_built, process_rank, process_size, rank, rocm_built, shutdown, size,
-    xla_built,
+    nccl_built, process_rank, process_size, rank, reinit, rocm_built,
+    shutdown, size, xla_built,
 )
-from .ops.collectives import allreduce, broadcast  # noqa: F401
+from .ops.collectives import (  # noqa: F401
+    ProcessSet, allgather, allgatherv, allreduce, allreduce_gradients,
+    alltoall, broadcast, grouped_allreduce, reducescatter,
+)
 from .ops.compression import Compression  # noqa: F401
 from .ops.fusion import (  # noqa: F401
     FusionPlan, allreduce_pytree, fused_allreduce, tree_leaf_names,

@@ -50,7 +50,7 @@ from torch import nn
 
 from .models.layers import BatchNorm, DenseGeneral, Embed, LayerNorm
 from .models.resnet import BatchNormReLU, PallasConvBN3x3
-from .optim.fused_update import FusedOptState, dtype_name
+from .optim.fused_update import FusedOptState, bc_buffers, dtype_name
 from .utils.tree import tree_flatten_with_path
 
 _PARAM_NAMES = {"weight": "kernel", "bias": "bias"}
@@ -260,5 +260,9 @@ def fused_opt_state_from_flax(count, mu: Mapping, nu: Mapping,
                 device=ref.device, dtype=ref.dtype)
         return out
 
-    return FusedOptState(count=int(np.asarray(count)), mu=convert(mu),
-                         nu=convert(nu))
+    device = next(iter(params.values())).device if params else "cpu"
+    nu = convert(nu)
+    return FusedOptState(
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device),
+        mu=convert(mu), nu=nu, bc=bc_buffers(nu))

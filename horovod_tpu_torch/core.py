@@ -53,6 +53,11 @@ class _World:
 # The process group is process-global in torch.distributed, so the world
 # that describes it is too.
 _world: Optional[_World] = None
+#: the arguments of the last init(), which reinit() replays
+_init_kwargs: dict = {}
+#: how many worlds this process has joined; what was built for one world
+#: (a process set's group, a captured train step) checks it
+_epoch = 0
 
 
 def init(device=None, backend: Optional[str] = None) -> None:
@@ -64,7 +69,7 @@ def init(device=None, backend: Optional[str] = None) -> None:
     device-keyed string such as ``"cpu:gloo,cuda:nccl"`` serves tensors on
     both.  Idempotent, like ``hvd.init()``.
     """
-    global _world
+    global _world, _init_kwargs, _epoch
     if _world is not None:
         return
     size = env_util.get_int(env_util.HVD_NUM_PROCESSES, 1)
@@ -104,6 +109,8 @@ def init(device=None, backend: Optional[str] = None) -> None:
             f"{env_util.HVD_COORDINATOR_ADDR} (host:port of rank 0)")
     _world = _World(device=dev, backend=backend, rank=rank, size=size,
                     local_size=local_size)
+    _init_kwargs = {"device": device, "backend": backend}
+    _epoch += 1
     log.info("initialized: rank=%d size=%d local_size=%d device=%s "
              "backend=%s", rank, size, local_size, dev, backend)
 
@@ -116,6 +123,24 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _world = None
+
+
+def reinit() -> None:
+    """Leave the process group and join it again against the current
+    environment, with the device selection of the last :func:`init`
+    (reference ``core.reinit``).  What was built for the old world (a
+    :class:`~horovod_tpu_torch.ops.collectives.ProcessSet`, a train step)
+    raises on its next use.  A process that never initialized gets a
+    plain :func:`init`."""
+    kwargs = dict(_init_kwargs)
+    shutdown()
+    init(**kwargs)
+
+
+def epoch() -> int:
+    """The number of worlds this process has joined (0 before the first
+    :func:`init`); what was built for one world compares it."""
+    return _epoch
 
 
 def is_initialized() -> bool:

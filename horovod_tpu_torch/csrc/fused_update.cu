@@ -12,6 +12,13 @@
 //   adam      mu = (1-b1) * g + b1 * mu;  nu = (1-b2) * (g*g) + b2 * nu
 //             p = p + (-lr) * ((mu * inv_bc1) / (sqrt(nu * inv_bc2) + eps))
 //
+// Adam's bias corrections inv_bc1 = 1 / (1 - b1^count) and inv_bc2 change
+// every step, so they are not launch arguments: the step writes them on
+// the device into a 2-float buffer (bc), from the device step count, and
+// every thread loads the pair once before its loop, as the Pallas kernel
+// reads them from its bc_ref row.  A launch captured into a CUDA graph
+// therefore stays right on every replay.
+//
 // in the expression order of _sgd_update / _momentum_update / _adam_update
 // (:120-135).  The library is built with --fmad=false, so nvcc does not
 // contract m * t + g into an FMA.  Every operation is computed in float32
@@ -53,7 +60,7 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;
 
 struct AdamArgs {
-  float lr, b1, b2, eps, one_minus_b1, one_minus_b2, inv_bc1, inv_bc2;
+  float lr, b1, b2, eps, one_minus_b1, one_minus_b2;
 };
 
 // One operation's result rounded to the buffer's type.
@@ -96,11 +103,12 @@ __device__ __forceinline__ void momentum_math(float& p, float g, float& t,
 
 template <typename T>
 __device__ __forceinline__ void adam_math(float& p, float g, float& mu,
-                                          float& nu, const AdamArgs& a) {
+                                          float& nu, const AdamArgs& a,
+                                          float inv_bc1, float inv_bc2) {
   mu = rnd<T>(rnd<T>(a.one_minus_b1 * g) + rnd<T>(a.b1 * mu));
   nu = rnd<T>(rnd<T>(a.one_minus_b2 * rnd<T>(g * g)) + rnd<T>(a.b2 * nu));
-  const float den = rnd<T>(rnd<T>(sqrtf(rnd<T>(nu * a.inv_bc2))) + a.eps);
-  const float step = rnd<T>(rnd<T>(mu * a.inv_bc1) / den);
+  const float den = rnd<T>(rnd<T>(sqrtf(rnd<T>(nu * inv_bc2))) + a.eps);
+  const float step = rnd<T>(rnd<T>(mu * inv_bc1) / den);
   p = rnd<T>(p + rnd<T>((-a.lr) * step));
 }
 
@@ -180,10 +188,13 @@ __global__ void momentum_kernel(T* __restrict__ p, const T* __restrict__ g,
 template <typename T>
 __global__ void adam_kernel(T* __restrict__ p, const T* __restrict__ g,
                             T* __restrict__ mu, T* __restrict__ nu, int64_t n,
-                            int64_t n_vec, AdamArgs a) {
+                            int64_t n_vec, AdamArgs a,
+                            const float* __restrict__ bc) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
+  const float inv_bc1 = bc[0];
+  const float inv_bc2 = bc[1];
   for (int64_t i = start; i < n_vec; i += stride) {
     Pack<T> pv, gv, mv, vv;
     pv.load(p, i);
@@ -192,7 +203,7 @@ __global__ void adam_kernel(T* __restrict__ p, const T* __restrict__ g,
     vv.load(nu, i);
 #pragma unroll
     for (int k = 0; k < Pack<T>::kN; ++k)
-      adam_math<T>(pv.v[k], gv.v[k], mv.v[k], vv.v[k], a);
+      adam_math<T>(pv.v[k], gv.v[k], mv.v[k], vv.v[k], a, inv_bc1, inv_bc2);
     mv.store(mu, i);
     vv.store(nu, i);
     pv.store(p, i);
@@ -201,7 +212,7 @@ __global__ void adam_kernel(T* __restrict__ p, const T* __restrict__ g,
     float pv = to_f(p[i]);
     float mv = to_f(mu[i]);
     float vv = to_f(nu[i]);
-    adam_math<T>(pv, to_f(g[i]), mv, vv, a);
+    adam_math<T>(pv, to_f(g[i]), mv, vv, a, inv_bc1, inv_bc2);
     mu[i] = from_f<T>(mv);
     nu[i] = from_f<T>(vv);
     p[i] = from_f<T>(pv);
@@ -263,14 +274,14 @@ int momentum(void* p, const void* g, void* t, int64_t n, float lr, float m,
 
 template <typename T>
 int adam(void* p, const void* g, void* mu, void* nu, int64_t n,
-         const AdamArgs& a, cudaStream_t st) {
+         const AdamArgs& a, const float* bc, cudaStream_t st) {
   const int64_t n_vec = packs<T>(n, {p, g, mu, nu});
   int grid = 0;
   cudaError_t err = grid_for(n_vec > 0 ? n_vec : n, &grid);
   if (err != cudaSuccess) return err;
   adam_kernel<T><<<grid, kThreads, 0, st>>>(
       static_cast<T*>(p), static_cast<const T*>(g), static_cast<T*>(mu),
-      static_cast<T*>(nu), n, n_vec, a);
+      static_cast<T*>(nu), n, n_vec, a, bc);
   return cudaGetLastError();
 }
 
@@ -299,16 +310,17 @@ int hvd_momentum(void* p, const void* g, void* t, int64_t n, float lr,
   return cudaErrorInvalidValue;
 }
 
+// bc: [inv_bc1, inv_bc2] as float32 on the device, each already rounded to
+// the group's type.
 int hvd_adam(void* p, const void* g, void* mu, void* nu, int64_t n, float lr,
              float b1, float b2, float eps, float one_minus_b1,
-             float one_minus_b2, float inv_bc1, float inv_bc2, int32_t dtype,
+             float one_minus_b2, const float* bc, int32_t dtype,
              void* stream) {
   if (n <= 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const AdamArgs a{lr, b1, b2, eps, one_minus_b1, one_minus_b2, inv_bc1,
-                   inv_bc2};
-  if (dtype == 0) return adam<float>(p, g, mu, nu, n, a, st);
-  if (dtype == 1) return adam<bf16>(p, g, mu, nu, n, a, st);
+  const AdamArgs a{lr, b1, b2, eps, one_minus_b1, one_minus_b2};
+  if (dtype == 0) return adam<float>(p, g, mu, nu, n, a, bc, st);
+  if (dtype == 1) return adam<bf16>(p, g, mu, nu, n, a, bc, st);
   return cudaErrorInvalidValue;
 }
 

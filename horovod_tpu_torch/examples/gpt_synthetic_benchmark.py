@@ -21,6 +21,11 @@ this runs ``fused_adam(1e-4)``, the JAX package's own fused Adam, which
 computes optax's ``scale_by_adam`` expression for expression, here
 through K1's adam rule over one flat float32 buffer.
 
+On a card the step is the compiled one (the first warm-up call eager,
+the second captures ``--num-in-graph-steps`` steps into a CUDA graph,
+the rest replay it), so at the default two warm-up batches the timed
+window holds only replays.
+
 Run:  python -m horovod_tpu_torch.examples.gpt_synthetic_benchmark --seq-len 1024
 """
 
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -76,7 +82,14 @@ def _attention_fn(args):
     return lambda q, k, v, m: softmax_attention(q, k, v, causal=True)
 
 
-def run(args) -> dict:
+def run(args, eager: bool = False,
+        then: Optional[Callable] = None) -> dict:
+    """The benchmark; ``eager`` times ``step.eager``, the same step never
+    captured, instead of the step (to compare the two).  ``then(step,
+    state, x, y)``, when given, is called after the timed window with the
+    step that was timed, its state and its inputs (``chip_smoke.py``
+    traces more calls with it); what it returns is the result's
+    ``"then"``."""
     if args.seq_parallel != "none":
         raise NotImplementedError(
             f"--seq-parallel {args.seq_parallel} is not ported yet: ring "
@@ -93,6 +106,7 @@ def run(args) -> dict:
                            optimizer=opt,
                            in_graph_steps=args.num_in_graph_steps)
     state = init_train_state(model, opt)
+    run_step = step.eager if eager else step
     rng = np.random.default_rng(0)
     ids = shard_batch(torch.from_numpy(rng.integers(
         0, 1000, size=(args.batch_size * core.size(), args.seq_len))))
@@ -106,7 +120,7 @@ def run(args) -> dict:
         f"sp {args.seq_parallel}  device {core.device()}")
     # Reading the loss waits for the whole chain of steps queued before it.
     for _ in range(max(args.num_warmup_batches, 1)):
-        state, loss = step(state, ids, ids)
+        state, loss = run_step(state, ids, ids)
     loss.item()
 
     rates = []
@@ -114,13 +128,15 @@ def run(args) -> dict:
     for _ in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
-            state, loss = step(state, ids, ids)
+            state, loss = run_step(state, ids, ids)
         loss.item()
         dt = time.perf_counter() - t0
         rate = n_batches * k * args.num_batches_per_iter / dt
         log(f"Iter: sequences/sec total: {rate:.1f}")
         rates.append(rate)
 
+    calls, final_loss = dict(step.calls), float(loss.item())
+    after = then(run_step, state, ids, ids) if then is not None else None
     per_chip = float(np.mean(rates)) / core.size()
     mfu = None  # a rate of the CPU is no fraction of the card's peak
     if core.device().type == "cuda":
@@ -130,7 +146,8 @@ def run(args) -> dict:
         log(f"analytic MFU {mfu:.1%} of the H100 bf16 peak")
     log(f"sequences/sec per chip: {per_chip:.1f}")
     return {"seq_sec_per_chip": per_chip, "mfu": mfu,
-            "final_loss": float(loss.item())}
+            "final_loss": final_loss, "step_calls": calls,
+            **({"then": after} if then is not None else {})}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,11 @@
 Trains a ResNet data-parallel on one synthetic batch and reports images
 per second, with the reference's CLI for the flags this slice supports
 plus ``--device``.  The weights come from a seeded generator and the
-batch from another, made on the device.
+batch from another, made on the device.  On a card the step is the
+compiled one: the first warm-up call runs eagerly, the second captures
+``--num-in-graph-steps`` steps into a CUDA graph, and the rest replay
+it, so with two or more warm-up batches the timed window holds only
+replays.
 
 Run:  python -m horovod_tpu_torch.examples.synthetic_benchmark --batch-size 128
 """
@@ -12,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -74,7 +79,14 @@ def log(s):
         print(s, flush=True)
 
 
-def run(args) -> dict:
+def run(args, eager: bool = False,
+        then: Optional[Callable] = None) -> dict:
+    """The benchmark; ``eager`` times ``step.eager``, the same step never
+    captured, instead of the step (to compare the two).  ``then(step,
+    state, x, y)``, when given, is called after the timed window with the
+    step that was timed, its state and its inputs (``chip_smoke.py``
+    traces more calls with it); what it returns is the result's
+    ``"then"``."""
     core.init(device=args.device)
     device = core.device()
     if device.type == "cuda":
@@ -107,6 +119,7 @@ def run(args) -> dict:
         loss_fetch_steps=args.loss_fetch_steps,
     )
     state = init_train_state(model, opt, has_batch_stats=True)
+    run_step = step.eager if eager else step
     x = shard_batch(data)
     y = shard_batch(target)
 
@@ -117,7 +130,7 @@ def run(args) -> dict:
     # Reading the loss waits for the whole chain of steps queued before it.
     log("Running warmup...")
     for _ in range(max(args.num_warmup_batches, 1)):
-        state, loss = step(state, x, y)
+        state, loss = run_step(state, x, y)
     loss.item()
 
     log("Running benchmark...")
@@ -127,13 +140,15 @@ def run(args) -> dict:
     for _ in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
-            state, loss = step(state, x, y)
+            state, loss = run_step(state, x, y)
         loss.item()
         dt = time.perf_counter() - t0
         img_sec = imgs_per_call * args.num_batches_per_iter / dt
         log(f"Iter: Img/sec total: {img_sec:.1f}")
         img_secs.append(img_sec)
 
+    calls, final_loss = dict(step.calls), float(loss.item())
+    after = then(run_step, state, x, y) if then is not None else None
     img_sec_mean = float(np.mean(img_secs))
     img_sec_conf = float(1.96 * np.std(img_secs))
     log(f"Img/sec per device: {img_sec_mean / core.size():.1f}")
@@ -144,7 +159,9 @@ def run(args) -> dict:
         "img_sec_per_chip": img_sec_mean / core.size(),
         "conf": img_sec_conf,
         "size": core.size(),
-        "final_loss": float(loss.item()),
+        "final_loss": final_loss,
+        "step_calls": calls,
+        **({"then": after} if then is not None else {}),
     }
 
 

@@ -64,6 +64,11 @@ conv_bn_launches: Dict[str, int] = {
     f"{k}.{m}": 0 for k in ("bn_relu", "stats", "plain")
     for m in CONV_MAINLOOPS}
 
+#: every launch counter above.  A wrapper counts the launches it issues;
+#: a CUDA graph's replay runs the kernels it captured without them
+LAUNCH_COUNTERS = (fused_update_launches, flash_launches,
+                   elementwise_launches, conv_bn_launches)
+
 #: head dims with a template instance in csrc/flash_attention.cu (the
 #: mma.sync and float32 kernels)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
@@ -201,8 +206,8 @@ def load() -> ctypes.CDLL:
     i32 = ctypes.c_int32
     lib.hvd_sgd.argtypes = [ptr, ptr, i64, f32, i32, ptr]
     lib.hvd_momentum.argtypes = [ptr, ptr, ptr, i64, f32, f32, i32, ptr]
-    lib.hvd_adam.argtypes = [ptr, ptr, ptr, ptr, i64] + [f32] * 8 + [i32,
-                                                                     ptr]
+    lib.hvd_adam.argtypes = [ptr, ptr, ptr, ptr, i64] + [f32] * 6 + [
+        ptr, i32, ptr]
     flash = (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
     for fn in flash:
         fn.argtypes = [ctypes.POINTER(_FlashArgs), ptr]
@@ -264,24 +269,31 @@ def launch_fused_update(kind: str, p: torch.Tensor, g: torch.Tensor,
                         momentum: float = 0.0, b1: float = 0.0,
                         b2: float = 0.0, eps: float = 0.0,
                         one_minus_b1: float = 0.0, one_minus_b2: float = 0.0,
-                        inv_bc1: float = 1.0, inv_bc2: float = 1.0) -> None:
+                        bc: Optional[torch.Tensor] = None) -> None:
     """Launch K1's ``kind`` rule in place over flat CUDA buffers of one
-    dtype group (float32 or bfloat16) on the current stream.  Raises on
-    anything the kernel does not take and on a launch the CUDA runtime
-    refuses."""
+    dtype group (float32 or bfloat16) on the current stream.  Adam reads
+    its bias corrections from ``bc``, a float32 ``[inv_bc1, inv_bc2]`` on
+    the same card, when the kernel runs.  Raises on anything the kernel
+    does not take and on a launch the CUDA runtime refuses."""
     bufs = {"sgd": [p, g], "momentum": [p, g, mu], "adam": [p, g, mu, nu]}
     if kind not in bufs:
         raise ValueError(f"unknown fused update rule {kind!r}")
     if any(t is None for t in bufs[kind]):
         raise ValueError(f"the {kind} rule needs its moment buffers")
     _check(bufs[kind])
+    if kind == "adam":
+        if bc is None or bc.dtype != torch.float32 or bc.shape != (2,) or \
+                not bc.is_contiguous():
+            raise ValueError("K1 adam takes its bias corrections as a "
+                             "contiguous float32 [2] buffer")
+        _check_on_card("K1", [p, bc])
     n = p.numel()
     if n == 0:
         return
     ptrs = [t.data_ptr() for t in bufs[kind]]
     args = {"sgd": (n, lr), "momentum": (n, lr, momentum),
             "adam": (n, lr, b1, b2, eps, one_minus_b1, one_minus_b2,
-                     inv_bc1, inv_bc2)}[kind]
+                     bc.data_ptr() if bc is not None else None)}[kind]
     _launch(f"hvd_{kind}", fused_update_launches,
             f"{kind}.{str(p.dtype).split('.')[-1]}", p.device, *ptrs, *args,
             _DTYPES[p.dtype])

@@ -19,11 +19,10 @@ from typing import Any, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .. import core
 from ..core import Average
 from ..utils import env as env_util
 from ..utils.tree import tree_flatten, tree_leaf_names, tree_unflatten
-from .collectives import reduce_op
+from .collectives import ProcessSet, group_of, reduce_op
 from .compression import Compression
 
 __all__ = ["FusionPlan", "tree_leaf_names", "fused_allreduce",
@@ -158,6 +157,7 @@ def _nvtx_range(flat: torch.Tensor, names: Sequence[str]):
 
 def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
                     compression=Compression.none,
+                    process_set: Optional[ProcessSet] = None,
                     threshold_bytes: Optional[int] = None,
                     plan: Optional[FusionPlan] = None,
                     names: Optional[Sequence[str]] = None
@@ -166,9 +166,12 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
     list in the input order.  Inputs are not modified: each bucket is
     packed into a fresh flat buffer (``torch.cat``), reduced in place
     there, and the outputs are views of it.  ``names`` label the NVTX
-    ranges."""
+    ranges.  Over a ``process_set``, the set's ranks reduce among
+    themselves and a rank outside it gets copies of its inputs."""
     dist_op = reduce_op(op)
-    group_size = core.size()
+    member, group, group_size = group_of(process_set)
+    if not member:
+        return [t.clone() for t in tensors]
     names = list(names) if names is not None \
         else [str(i) for i in range(len(tensors))]
     comps = [compression] * len(tensors)
@@ -199,7 +202,7 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
     for bucket in plan.buckets:
         flat = torch.cat([compressed[i].reshape(-1) for i in bucket])
         with _nvtx_range(flat, [names[i] for i in bucket]):
-            dist.all_reduce(flat, op=dist_op)
+            dist.all_reduce(flat, op=dist_op, group=group)
         if op == Average:
             flat.div_(group_size)
         offset = 0

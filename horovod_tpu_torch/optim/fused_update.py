@@ -18,10 +18,19 @@ per-dtype flat moment buffers plus the step count), shared by the fused
 path (:meth:`FusedOptimizer.fused_update`) and the per-leaf path
 (:meth:`FusedOptimizer.update`), which compute identical numbers.
 
-In place: unlike the reference, which returns fresh arrays, the fused
-path writes the new parameters back into the given parameter tensors and
-the new moments into the state's flat buffers.  That is the port's form
-of buffer donation: a step holds one copy of the optimizer state.
+In place: unlike the reference, which returns fresh arrays, both paths
+write the new moments into the state's flat buffers and advance its
+count in place, and the fused path writes the new parameters back into
+the given parameter tensors.  That is the port's form of buffer
+donation: a step holds one copy of the optimizer state, at addresses
+that never change, so a CUDA graph of the step stays bound to it.
+
+Everything that changes from step to step lives on the device, in the
+state: the count is an int32 scalar tensor, as in the reference, and
+Adam's bias corrections are computed from it on the device, in float32
+in the reference's order (``_bias_corrections``), into each group's
+2-float ``bc`` buffer, which K1 reads when it runs.  The optimizer holds
+only the constant scalars, rounded once, when it is built.
 """
 
 from __future__ import annotations
@@ -37,16 +46,23 @@ from ..utils.tree import tree_flatten, tree_unflatten
 
 #: the supported update rules
 SGD, MOMENTUM, ADAM = "sgd", "momentum", "adam"
+#: the parameter-group types whose constants an optimizer rounds when it
+#: is built
+_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 
 
 class FusedOptState(NamedTuple):
-    """Flat optimizer state: ``count`` (host int, optax-style step
-    counter) plus per-dtype-group moment buffers keyed by dtype name
-    (``{"float32": flat}``).  SGD carries empty dicts."""
+    """Flat optimizer state: ``count`` (the optax-style step counter, an
+    int32 scalar tensor on the parameters' device) plus per-dtype-group
+    moment buffers keyed by dtype name (``{"float32": flat}``) and, for
+    Adam, each group's float32 ``[inv_bc1, inv_bc2]`` of the current step
+    (``bc``), refilled in place from ``count``.  SGD carries empty
+    dicts."""
 
-    count: int
+    count: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    bc: Dict[str, torch.Tensor]
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -104,11 +120,20 @@ def copy_from_flat_(tree, flat: Dict[str, torch.Tensor], meta) -> None:
             dst.copy_(src)
 
 
+def bc_buffers(nu: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Adam's ``bc`` buffer of each group of ``nu`` (``{}`` for the other
+    rules, which carry no ``nu``), on the group's device; every step
+    fills it before K1 reads it."""
+    return {name: torch.zeros(2, dtype=torch.float32, device=t.device)
+            for name, t in nu.items()}
+
+
 # ---------------------------------------------------------------------------
 # the update math — ONE definition per rule, returning the optax-style
 # UPDATE (delta) plus new moments; the plain flat versions and the
-# per-leaf path both use these.  The scalars are Python floats holding
-# float32 values, so torch rounds nothing further when it takes them.
+# per-leaf path both use these.  The constants are Python floats and the
+# bias corrections 0-d float32 tensors, each holding a value of the
+# group's type, so torch rounds nothing further when it takes them.
 # ---------------------------------------------------------------------------
 def _sgd_update(g, lr):
     return (-lr) * g
@@ -139,10 +164,10 @@ def plain_momentum_(p, g, t, *, lr, momentum):
 
 
 def plain_adam_(p, g, mu, nu, *, lr, b1, b2, eps, one_minus_b1,
-                one_minus_b2, inv_bc1, inv_bc2):
+                one_minus_b2, bc):
     u, mu_new, nu_new = _adam_update(g, mu, nu, lr, b1, b2, eps,
-                                     one_minus_b1, one_minus_b2, inv_bc1,
-                                     inv_bc2)
+                                     one_minus_b1, one_minus_b2, bc[0],
+                                     bc[1])
     mu.copy_(mu_new)
     nu.copy_(nu_new)
     p.copy_(p + u)
@@ -181,26 +206,13 @@ class FusedOptimizer:
     def __post_init__(self):
         if self.kind not in (SGD, MOMENTUM, ADAM):
             raise ValueError(f"unknown fused optimizer kind {self.kind!r}")
+        # the constants of a group of each type, rounded once
+        object.__setattr__(self, "_constants", {
+            dtype: self._round_constants(dtype) for dtype in _FLOAT_TYPES})
 
-    # -- state ---------------------------------------------------------------
-    def init(self, params) -> FusedOptState:
-        groups, leaves, _ = _group_leaves(params)
-
-        def zeros():
-            return {name: torch.zeros(
-                sum(leaves[i].numel() for i in idxs),
-                dtype=leaves[idxs[0]].dtype, device=leaves[idxs[0]].device)
-                for name, idxs in groups.items()}
-
-        mu = zeros() if self.kind in (MOMENTUM, ADAM) else {}
-        nu = zeros() if self.kind == ADAM else {}
-        return FusedOptState(count=0, mu=mu, nu=nu)
-
-    def _scalars(self, count: int, dtype: torch.dtype = torch.float32
-                 ) -> dict:
-        """The rule's scalars for a group of ``dtype``, rounded as the
-        reference rounds them: each to the group's dtype, the Adam bias
-        corrections computed in float32 first."""
+    def _round_constants(self, dtype: torch.dtype) -> dict:
+        """The rule's constant scalars for a group of ``dtype``, each
+        rounded to it, as the reference rounds them."""
         def rnd(x) -> float:
             return torch.tensor(float(x), dtype=dtype).item()
 
@@ -210,45 +222,85 @@ class FusedOptimizer:
         if self.kind == MOMENTUM:
             return {"lr": lr, "momentum": rnd(self.momentum)}
         b1, b2 = rnd(self.b1), rnd(self.b2)
-        one = np.float32(1.0)
-        c = np.float32(count)
         return {"lr": lr, "b1": b1, "b2": b2, "eps": rnd(self.eps),
-                "one_minus_b1": rnd(1.0 - b1), "one_minus_b2": rnd(1.0 - b2),
-                "inv_bc1": rnd(one / (one - np.power(np.float32(self.b1), c))),
-                "inv_bc2": rnd(one / (one - np.power(np.float32(self.b2), c)))}
+                "one_minus_b1": rnd(1.0 - b1), "one_minus_b2": rnd(1.0 - b2)}
+
+    # -- state ---------------------------------------------------------------
+    def init(self, params) -> FusedOptState:
+        groups, leaves, _ = _group_leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
+
+        def zeros():
+            return {name: torch.zeros(
+                sum(leaves[i].numel() for i in idxs),
+                dtype=leaves[idxs[0]].dtype, device=leaves[idxs[0]].device)
+                for name, idxs in groups.items()}
+
+        mu = zeros() if self.kind in (MOMENTUM, ADAM) else {}
+        nu = zeros() if self.kind == ADAM else {}
+        return FusedOptState(
+            count=torch.zeros((), dtype=torch.int32, device=device), mu=mu,
+            nu=nu, bc=bc_buffers(nu))
+
+    def bias_corrections(self, count: torch.Tensor, dtype: torch.dtype
+                         ) -> torch.Tensor:
+        """Adam's ``[1 / (1 - b1**count), 1 / (1 - b2**count)]`` on
+        ``count``'s device, computed there in float32 in the reference's
+        order (``_bias_corrections``), each rounded to ``dtype`` and
+        returned as float32."""
+        c = count.float()
+        return torch.stack([(1.0 / (1.0 - torch.pow(b, c))).to(dtype)
+                            for b in (self.b1, self.b2)]).float()
+
+    def _step_scalars(self, count: torch.Tensor, dtype: torch.dtype,
+                      bc: Optional[torch.Tensor] = None) -> dict:
+        """The scalars of the step at ``count`` for a group of ``dtype``:
+        the constants and, for Adam, ``bc``, the bias corrections computed
+        on ``count``'s device — written into the group's ``bc`` buffer
+        when one is given (read in stream order by the launch that
+        follows), else a new tensor."""
+        scalars = self._constants[dtype]
+        if self.kind != ADAM:
+            return scalars
+        corrections = self.bias_corrections(count, dtype)
+        if bc is None:
+            return {**scalars, "bc": corrections}
+        bc.copy_(corrections)
+        return {**scalars, "bc": bc}
 
     # -- the fused path (one kernel per dtype group) -------------------------
     def fused_update(self, grads, state: FusedOptState, params):
-        """``(params, new_state)``: flatten, one K1 launch per dtype
-        group, write back.  ``params`` and the state's moment buffers are
-        updated in place and returned."""
+        """``(params, state)``: flatten, one K1 launch per dtype group,
+        write back.  ``params``, the state's moment buffers and its count
+        are updated in place and returned."""
         with torch.no_grad():
             pf, meta = flatten_by_dtype(params)
             gf, _ = flatten_by_dtype(grads)
-            count = state.count + 1
+            state.count.add_(1)
             for name, p in pf.items():
                 flat_update_(self.kind, p, gf[name].to(p.dtype),
                              state.mu.get(name), state.nu.get(name),
-                             **self._scalars(count, p.dtype))
+                             **self._step_scalars(state.count, p.dtype,
+                                                  state.bc.get(name)))
             copy_from_flat_(params, pf, meta)
-        return params, FusedOptState(count=count, mu=state.mu, nu=state.nu)
+        return params, state
 
     # -- the per-leaf path (optax-compatible) --------------------------------
     def update(self, grads, state: FusedOptState, params=None):
-        """optax signature: ``(updates, new_state)`` by per-leaf
-        traversal — the unfused side of the ``fused_optimizer`` knob.
-        Same math, same flat state layout; new moment buffers."""
+        """optax signature: ``(updates, state)`` by per-leaf traversal —
+        the unfused side of the ``fused_optimizer`` knob.  Same math, same
+        flat state layout: each leaf's new moments are written into its
+        slice of the state's flat buffers, and the count advances in
+        place."""
         del params
         with torch.no_grad():
             groups, g_leaves, treedef = _group_leaves(grads)
-            count = state.count + 1
+            state.count.add_(1)
             upd: List[Any] = [None] * len(g_leaves)
-            new_mu: Dict[str, torch.Tensor] = {}
-            new_nu: Dict[str, torch.Tensor] = {}
             for name, idxs in groups.items():
-                s = self._scalars(count, g_leaves[idxs[0]].dtype)
+                s = self._step_scalars(state.count, g_leaves[idxs[0]].dtype,
+                                       state.bc.get(name))
                 offs = np.cumsum([0] + [g_leaves[i].numel() for i in idxs])
-                mu_parts, nu_parts = [], []
                 for j, i in enumerate(idxs):
                     g = g_leaves[i]
                     if self.kind == SGD:
@@ -256,22 +308,17 @@ class FusedOptimizer:
                         continue
                     mu = state.mu[name][offs[j]:offs[j + 1]].view(g.shape)
                     if self.kind == MOMENTUM:
-                        upd[i], mu = _momentum_update(g, mu, s["lr"],
-                                                      s["momentum"])
+                        upd[i], mu_new = _momentum_update(g, mu, s["lr"],
+                                                          s["momentum"])
                     else:
                         nu = state.nu[name][offs[j]:offs[j + 1]].view(g.shape)
-                        upd[i], mu, nu = _adam_update(
+                        upd[i], mu_new, nu_new = _adam_update(
                             g, mu, nu, s["lr"], s["b1"], s["b2"], s["eps"],
                             s["one_minus_b1"], s["one_minus_b2"],
-                            s["inv_bc1"], s["inv_bc2"])
-                        nu_parts.append(nu.reshape(-1))
-                    mu_parts.append(mu.reshape(-1))
-                if mu_parts:
-                    new_mu[name] = torch.cat(mu_parts)
-                if nu_parts:
-                    new_nu[name] = torch.cat(nu_parts)
-        return (tree_unflatten(treedef, upd),
-                FusedOptState(count=count, mu=new_mu, nu=new_nu))
+                            s["bc"][0], s["bc"][1])
+                        nu.copy_(nu_new)
+                    mu.copy_(mu_new)
+        return tree_unflatten(treedef, upd), state
 
 
 def apply_updates(params, updates) -> None:

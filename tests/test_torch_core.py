@@ -113,3 +113,46 @@ def test_local_cross_layout_matches_reference_mesh(tmp_path):
         assert (lay["rank"], lay["local_rank"], lay["cross_rank"]) == \
             tuple(int(v) for v in ref[r]), json.dumps(got)
         assert (lay["size"], lay["local_size"], lay["cross_size"]) == sizes
+
+
+def test_reinit_keeps_the_world_and_retires_what_was_built(port_cpu_world):
+    """reinit() replays the last init: rank, size and device survive and
+    an allreduce works after it; a train step and a process set built
+    before it raise on their next use, and new ones work."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import MLP
+
+    def build():
+        model = MLP(4, (3,))
+        opt = htt.fused_sgd(0.1, momentum=0.9)
+        step = training.make_train_step(apply_fn=model,
+                                        loss_fn=F.cross_entropy,
+                                        optimizer=opt, loss_fetch_steps=0)
+        return step, training.init_train_state(model, opt)
+
+    x, y = torch.randn(2, 4), torch.tensor([0, 2])
+    step, state = build()
+    state, _ = step(state, x, y)
+    ps = htt.ProcessSet([0])
+    layout = {k: getattr(core, k)() for k in LAYOUT}
+    device, backend, epoch = core.device(), core.backend(), core.epoch()
+
+    core.reinit()
+    assert {k: getattr(core, k)() for k in LAYOUT} == layout
+    assert (core.device(), core.backend()) == (device, backend)
+    assert core.epoch() == epoch + 1
+    assert torch.equal(htt.allreduce(torch.ones(3), op=htt.Sum),
+                       torch.ones(3))
+    for stale in (lambda: step(state, x, y), lambda: step.eager(state, x, y),
+                  lambda: htt.allreduce(torch.ones(3), process_set=ps)):
+        with pytest.raises(RuntimeError, match="reinit"):
+            stale()
+    step, state = build()
+    state, loss = step(state, x, y)
+    assert state.step == 1 and torch.isfinite(loss)
+    assert torch.equal(htt.allreduce(torch.ones(3), process_set=htt.
+                                     ProcessSet([0])), torch.ones(3))

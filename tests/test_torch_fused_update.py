@@ -102,7 +102,8 @@ def test_plain_flat_path_matches_pallas_kernel(rule, problem, monkeypatch):
         tp, ts = opt.fused_update(_to_torch(g), ts, tp)
         for a, b in zip(_tleaves(tp), _leaves(rp)):
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
-    assert ts.count == int(rs.count) == 3
+    assert ts.count.dtype == torch.int32
+    assert int(ts.count) == int(rs.count) == 3
     for name in rs.mu:
         np.testing.assert_allclose(ts.mu[name].numpy(), np.asarray(
             rs.mu[name]), rtol=RTOL, atol=ATOL)
@@ -183,7 +184,7 @@ def test_converted_reference_state_continues_identically(rule):
     # the Conv / Dense rule, as canonical_layouts gives it for these layers
     layouts = {k: Layout.of_rank(t.shape) for k, t in tp.items()}
     ts = fused_opt_state_from_flax(rs.count, rs.mu, rs.nu, tp, layouts)
-    assert ts.count == 2
+    assert int(ts.count) == 2
     rp, rs = ref_opt.fused_update(jax.tree_util.tree_map(jnp.asarray,
                                                          grads[2]), rs, rp)
     tp, ts = opt.fused_update(torch_canonical(grads[2]), ts, tp)
@@ -362,9 +363,10 @@ def test_bf16_adam_group_matches_reference_kernel(pallas, b2):
     rnu = jnp.zeros(n, jnp.bfloat16)
     for count in range(1, 6):
         g = rng.normal(size=n).astype(np.float32)
-        s = opt._scalars(count, torch.bfloat16)
+        s = opt._step_scalars(torch.tensor(count, dtype=torch.int32),
+                               torch.bfloat16)
         rg = jnp.asarray(g).astype(jnp.bfloat16)
-        bc = jnp.asarray([s["inv_bc1"], s["inv_bc2"]], jnp.bfloat16)
+        bc = jnp.asarray(s["bc"].numpy()).astype(jnp.bfloat16)
         if pallas:
             row = jnp.zeros((1, 128), jnp.bfloat16).at[0, :2].set(bc)
             rp, rmu, rnu = ref_fu._pallas_elementwise(
@@ -415,7 +417,7 @@ def test_k1_counts_launches_by_rule_and_group_type(monkeypatch, rule,
     p = torch.empty(10, dtype=dtype, device="meta")
     kernels.launch_fused_update(rule, p, torch.empty_like(p),
                                 torch.empty_like(p), torch.empty_like(p),
-                                lr=0.1)
+                                lr=0.1, bc=torch.empty(2, device="meta"))
     name = str(dtype).split(".")[-1]
     assert seen == [(f"hvd_{rule}", True, f"{rule}.{name}",
                      kernels._DTYPES[dtype])]
@@ -444,7 +446,9 @@ def test_bf16_kernel_is_bit_equal_to_plain_version_on_card(rule):
         before = dict(kernels.fused_update_launches)
         for step in range(1, 4):
             g = torch.randn(n, device="cuda", generator=gen).bfloat16()
-            s = opt._scalars(step, torch.bfloat16)
+            s = opt._step_scalars(torch.tensor(step, dtype=torch.int32,
+                                               device="cuda"),
+                                  torch.bfloat16)
             fu.flat_update_(rule, ours["p"], g, ours["mu"], ours["nu"], **s)
             args = {"sgd": (plain["p"], g),
                     "momentum": (plain["p"], g, plain["mu"]),
@@ -475,7 +479,8 @@ def test_kernel_matches_plain_version_on_card(rule):
     before = kernels.fused_update_launches[f"{rule}.float32"]
     for step in range(1, 4):
         g = torch.randn(n, device="cuda", generator=gen)
-        s = opt._scalars(step)
+        s = opt._step_scalars(torch.tensor(step, dtype=torch.int32,
+                                           device="cuda"), torch.float32)
         fu.flat_update_(rule, ours["p"], g, ours["mu"], ours["nu"], **s)
         args = {"sgd": (plain["p"], g),
                 "momentum": (plain["p"], g, plain["mu"]),
@@ -485,3 +490,85 @@ def test_kernel_matches_plain_version_on_card(rule):
     assert kernels.fused_update_launches[f"{rule}.float32"] == before + 3
     for k in ours:
         torch.testing.assert_close(ours[k], plain[k], rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the step count and Adam's bias corrections on the device
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("count", [1, 2, 10, 1000, 100000])
+def test_bias_corrections_match_reference(count, dtype):
+    """``bias_corrections`` from an int32 count tensor against the
+    reference's ``_bias_corrections`` (float32, then the group's type):
+    within one float32 ulp (the two libraries' float32 ``pow`` may round
+    differently)."""
+    ref = ref_fu.fused_adam(1e-3)._bias_corrections(
+        jnp.asarray(count, jnp.int32),
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    want = np.asarray([np.float32(np.asarray(v, np.float32)) for v in ref])
+    got = fu.fused_adam(1e-3).bias_corrections(
+        torch.tensor(count, dtype=torch.int32), dtype)
+    assert got.dtype == torch.float32 and got.shape == (2,)
+    assert torch.equal(got, got.to(dtype).float())  # rounded to the group
+    np.testing.assert_array_less(np.abs(got.numpy() - want),
+                                 np.spacing(want) * 1.0001)
+
+
+@pytest.mark.parametrize("rule", list(RULES))
+def test_count_is_an_int32_tensor_advanced_in_place(rule, problem):
+    """Both paths advance the state's own count and write the moments
+    and Adam's bias corrections into the state's own buffers: a step's
+    state has fixed addresses."""
+    _, opt = RULES[rule]
+    params, grads = problem
+    for fused in (True, False):
+        tp = _to_torch(params)
+        st = opt.init(tp)
+        count, mu, nu, bc = st.count, dict(st.mu), dict(st.nu), dict(st.bc)
+        assert count.dtype == torch.int32 and count.shape == ()
+        assert set(bc) == (set(st.nu) if rule == "adam" else set())
+        for g in grads:
+            if fused:
+                tp, st = opt.fused_update(_to_torch(g), st, tp)
+            else:
+                upd, st = opt.update(_to_torch(g), st, tp)
+                fu.apply_updates(tp, upd)
+        assert st.count is count and int(count) == len(grads)
+        assert all(st.mu[k] is v for k, v in mu.items())
+        assert all(st.nu[k] is v for k, v in nu.items())
+        assert rule == "sgd" or any(v.any() for v in st.mu.values())
+        for name, buf in bc.items():
+            assert st.bc[name] is buf
+            assert torch.equal(buf, opt.bias_corrections(
+                count, st.nu[name].dtype))
+
+
+def test_adam_1000_step_trajectory_matches_reference(monkeypatch):
+    """1000 fused Adam steps on a small flat buffer against the
+    reference's fused_update (jnp path), at its pinned rtol 2e-6 / atol
+    1e-7: the bias corrections track the device count all the way."""
+    monkeypatch.setenv("HVD_FUSED_UPDATE_PALLAS", "0")
+    ref_opt, opt = RULES["adam"]
+    rng = np.random.default_rng(1000)
+    n = 517
+    p0 = {"w": rng.normal(size=n).astype(np.float32)}
+    grads = rng.normal(size=(1000, n)).astype(np.float32)
+    step = jax.jit(lambda g, s, p: ref_opt.fused_update(g, s, p))
+    rp = {"w": jnp.asarray(p0["w"])}
+    rs = ref_opt.init(rp)
+    tp = _to_torch(p0)
+    ts = opt.init(tp)
+    for g in grads:
+        rp, rs = step({"w": jnp.asarray(g)}, rs, rp)
+        tp, ts = opt.fused_update({"w": torch.from_numpy(g)}, ts, tp)
+    assert int(ts.count) == int(rs.count) == 1000
+    np.testing.assert_allclose(tp["w"].numpy(), np.asarray(rp["w"]),
+                               rtol=RTOL, atol=ATOL)
+    for name in rs.mu:
+        np.testing.assert_allclose(ts.mu[name].numpy(),
+                                   np.asarray(rs.mu[name]), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(ts.nu[name].numpy(),
+                                   np.asarray(rs.nu[name]), rtol=RTOL,
+                                   atol=ATOL)

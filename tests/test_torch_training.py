@@ -67,7 +67,7 @@ def port_cpu_world(monkeypatch):
 
 
 def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats,
-                   steps=STEPS):
+                   steps=STEPS, remat_policy=None):
     """STEPS steps of the reference's make_train_step on ``ndev`` CPU
     devices; returns (losses, params, batch_stats) as flat numpy dicts."""
     hvd.shutdown()
@@ -82,7 +82,7 @@ def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats,
         step = ref_training.make_train_step(
             apply_fn=apply_fn, loss_fn=_ref_loss, optimizer=opt,
             has_batch_stats=batch_stats, fused_optimizer=fused,
-            loss_fetch_steps=0)
+            remat_policy=remat_policy, loss_fetch_steps=0)
         params = variables["params"]
         state = ref_training.TrainState(
             params=params, opt_state=opt.init(params),
@@ -102,12 +102,13 @@ def _reference_run(model, variables, x, y, *, ndev, fused, batch_stats,
         hvd.shutdown()
 
 
-def _port_run(model, x, y, *, fused, batch_stats, steps=STEPS):
+def _port_run(model, x, y, *, fused, batch_stats, steps=STEPS,
+              remat_policy=None):
     opt = fused_sgd(0.1, momentum=0.9)
     step = training.make_train_step(
         apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
         has_batch_stats=batch_stats, fused_optimizer=fused,
-        loss_fetch_steps=0)
+        remat_policy=remat_policy, loss_fetch_steps=0)
     state = training.init_train_state(model, opt,
                                       has_batch_stats=batch_stats)
     xs = training.shard_batch(torch.from_numpy(x))
@@ -116,7 +117,7 @@ def _port_run(model, x, y, *, fused, batch_stats, steps=STEPS):
     for _ in range(steps):
         state, loss = step(state, xs, ys)
         losses.append(loss.item())
-    assert state.step == steps and state.opt_state.count == steps
+    assert state.step == steps and int(state.opt_state.count) == steps
     stats = {k: t.numpy() for k, t in state.model_state.items()}
     return np.asarray(losses), export_flax_variables(
         state.params, canonical_layouts(model)), stats
@@ -308,7 +309,6 @@ def test_trailing_loss_fetcher_reads_one_cadence_behind():
     ({"autotune": True}, {}),
     ({"profile_guided": True}, {}),
     ({}, {"HVD_PROFILE": "1"}),
-    ({"remat_policy": "full"}, {}),
     ({"donate": False}, {}),
     ({"compression": "int8"}, {}),
     ({}, {"HVD_COMPRESSION": "bf16"}),       # error feedback by default
@@ -343,9 +343,41 @@ def test_synthetic_benchmark_runs_on_cpu(monkeypatch):
     finally:
         core.shutdown()
     assert set(out) == {"img_sec_total", "img_sec_per_chip", "conf", "size",
-                        "final_loss"}
+                        "final_loss", "step_calls"}
+    # on the CPU every call runs the eager loop: 1 warm-up + 2 x 2 timed
+    assert out["step_calls"] == {"eager": 5, "capture": 0, "replay": 0}
     assert out["size"] == 1 and np.isfinite(out["final_loss"])
     assert out["img_sec_per_chip"] > 0
+
+
+def test_synthetic_benchmark_then_gets_the_timed_step(monkeypatch):
+    """``run(args, then=fn)`` calls ``fn`` once, after the timed window,
+    with the step that was timed, its state and its inputs; the result's
+    ``step_calls`` are those of the timed run, before ``fn``'s calls."""
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    seen = []
+
+    def then(step, state, x, y):
+        seen.append(dict(step.calls))
+        state, loss = step(state, x, y)
+        return {"step": state.step, "x": tuple(x.shape), "loss": float(loss)}
+
+    core.shutdown()
+    try:
+        out = sb.run(sb.parse_args([
+            "--model", "ResNet18", "--image-size", "32", "--batch-size", "2",
+            "--num-classes", "10", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "1", "--num-iters", "2",
+            "--fused-optimizer", "--device", "cpu"]), then=then)
+    finally:
+        core.shutdown()
+    assert seen == [{"eager": 3, "capture": 0, "replay": 0}]
+    assert out["step_calls"] == seen[0]
+    assert out["then"]["step"] == 4 and out["then"]["x"] == (2, 32, 32, 3)
+    assert np.isfinite(out["then"]["loss"])
 
 
 def test_synthetic_benchmark_runs_the_kernel_variants_on_cpu(monkeypatch):
@@ -371,4 +403,36 @@ def test_synthetic_benchmark_runs_the_kernel_variants_on_cpu(monkeypatch):
     assert np.isfinite(out["final_loss"]) and out["img_sec_per_chip"] > 0
     assert {**kernels.elementwise_launches,
             **kernels.conv_bn_launches} == before
+
+
+
+def test_cpu_step_runs_eagerly_and_counts_its_calls(port_cpu_world):
+    """On the CPU every call of the step is the eager loop; ``step.eager``
+    is the same step and gives the same numbers; ``step.calls`` counts
+    both, and each call returns a loss tensor of its own."""
+    _, variables, x, y = _mlp_problem()
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y).long()
+    runs = []
+    for use_eager in (False, True):
+        model = MLP(12, (16, 6))
+        load_flax_variables(model, variables["params"])
+        opt = fused_sgd(0.1, momentum=0.9)
+        step = training.make_train_step(apply_fn=model,
+                                        loss_fn=F.cross_entropy,
+                                        optimizer=opt, in_graph_steps=2,
+                                        loss_fetch_steps=1)
+        state = training.init_train_state(model, opt)
+        run = step.eager if use_eager else step
+        losses = []
+        for _ in range(3):
+            state, loss = run(state, xt, yt)
+            losses.append(loss)
+        assert step.calls == {"eager": 3, "capture": 0, "replay": 0}
+        assert state.step == 6 and int(state.opt_state.count) == 6
+        assert len({id(t) for t in losses}) == 3
+        assert step.loss_fetcher.flush() == losses[-1].item()
+        runs.append((losses, state.params))
+    (l0, p0), (l1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
 

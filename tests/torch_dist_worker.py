@@ -137,8 +137,97 @@ def _task_train_mlp(workdir: Path):
     return out
 
 
+#: the process set of the collectives task, in a world of 4
+COLLECTIVE_SET = (0, 2)
+#: the collectives task's allgatherv rows per rank, padded to 3
+ALLGATHERV_ROWS = (3, 0, 2, 1)
+
+
+def collective_inputs(rank: int) -> dict:
+    """Rank ``rank``'s inputs for the collectives task, from a per-rank
+    seed: ``x`` [4, 3] (four rows, so it splits among 4 ranks and among
+    the 2 of the set), three leaves ``g0``-``g2`` for the grouped
+    allreduce, and ``v`` [3, 2] for allgatherv."""
+    rng = np.random.default_rng(200 + rank)
+    return {"x": rng.normal(size=(4, 3)).astype(np.float32),
+            "g0": rng.normal(size=(3,)).astype(np.float32),
+            "g1": rng.normal(size=(4, 2)).astype(np.float32),
+            "g2": rng.normal(size=(5,)).astype(np.float32),
+            "v": rng.normal(size=(3, 2)).astype(np.float32)}
+
+
+def collective_cases(htt, ps, t: dict, rows):
+    """``{case: () -> tensor or list of tensors}``: every collective of
+    the port, over the whole world and over the process set ``ps``;
+    ``t`` holds this rank's inputs as tensors, ``rows`` its allgatherv
+    valid rows (an int)."""
+    import torch
+
+    grads = {"a": t["g0"], "b": {"c": t["g1"]}}
+    return {
+        "allreduce_sum": lambda: htt.allreduce(t["x"], op=htt.Sum),
+        "allreduce_average": lambda: htt.allreduce(t["x"]),
+        "allreduce_min": lambda: htt.allreduce(t["x"], op=htt.Min),
+        "allreduce_max": lambda: htt.allreduce(t["x"], op=htt.Max),
+        "allreduce_scaled": lambda: htt.allreduce(
+            t["x"], prescale_factor=0.5, postscale_factor=3.0),
+        "allreduce_set_sum": lambda: htt.allreduce(
+            t["x"], op=htt.Sum, process_set=ps),
+        "allreduce_set_scaled": lambda: htt.allreduce(
+            t["x"], process_set=ps, prescale_factor=0.5,
+            postscale_factor=3.0),
+        "grouped_allreduce": lambda: htt.grouped_allreduce(
+            [t["g0"], t["g1"], t["g2"]], op=htt.Sum, threshold_bytes=32),
+        "grouped_allreduce_set": lambda: htt.grouped_allreduce(
+            [t["g0"], t["g1"], t["g2"]], process_set=ps),
+        "allreduce_gradients": lambda: (lambda r: [r["a"], r["b"]["c"]])(
+            htt.allreduce_gradients(grads)),
+        "allgather": lambda: htt.allgather(t["x"]),
+        "allgather_set": lambda: htt.allgather(t["x"], process_set=ps),
+        "allgatherv": lambda: list(htt.allgatherv(
+            t["v"], valid_rows=rows, max_rows=3)),
+        "allgatherv_set": lambda: list(htt.allgatherv(
+            t["v"], valid_rows=torch.tensor(rows), max_rows=3,
+            process_set=ps)),
+        "broadcast": lambda: htt.broadcast(t["x"], root_rank=1),
+        "broadcast_set": lambda: htt.broadcast(t["x"], root_rank=2,
+                                               process_set=ps),
+        "alltoall": lambda: htt.alltoall(t["x"]),
+        "alltoall_set": lambda: htt.alltoall(t["x"], process_set=ps),
+        "reducescatter": lambda: htt.reducescatter(t["x"]),
+        "reducescatter_average": lambda: htt.reducescatter(
+            t["x"], op=htt.Average),
+        "reducescatter_set": lambda: htt.reducescatter(t["x"],
+                                                       process_set=ps),
+    }
+
+
+def _task_collectives(workdir: Path):
+    """Every case of :func:`collective_cases` on this rank; a list result
+    is stored as ``<case>/<i>``, and each input as ``input/<name>``."""
+    import torch
+
+    import horovod_tpu_torch as htt
+
+    htt.init(device="cpu")
+    inputs = collective_inputs(htt.rank())
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    ps = htt.ProcessSet(COLLECTIVE_SET)
+    out = {f"input/{k}": v for k, v in inputs.items()}
+    cases = collective_cases(htt, ps, t, ALLGATHERV_ROWS[htt.rank()])
+    for name, run in cases.items():
+        got = run()
+        for i, g in enumerate(got if isinstance(got, list) else [got]):
+            out[f"{name}/{i}"] = g.numpy()
+    for k, v in inputs.items():
+        if not np.array_equal(t[k].numpy(), v):
+            raise AssertionError(f"a collective changed its input {k}")
+    htt.shutdown()
+    return out
+
+
 TASKS = {"core": _task_core, "fusion": _task_fusion,
-         "train_mlp": _task_train_mlp}
+         "train_mlp": _task_train_mlp, "collectives": _task_collectives}
 
 
 def main():
