@@ -124,6 +124,27 @@ Phases, each printing one JSON line:
    seq/s of both and MFU.
 16. gpt_profile — GPT-2 small steps graphed, as in profile, by kind
    (``flash`` for K2-K4, ``matmul`` for the projections).
+17. bert_main_path — ``examples.bert_synthetic_benchmark.run`` with
+   ``--attn pallas`` at its defaults: BERT-base, batch 8, seq 512, bf16,
+   non-causal flash attention, AdamW leaf by leaf (optax's order), the
+   fixed float32 MLM head; checks as gpt_main_path (K2, K3, K4 12 a step
+   each on TMA + wgmma, no K1), then ``step.eager`` and ``--attn xla``
+   graphed: their rates, and the head's float32 product timed alone.
+18. registry_main_path — ``examples.synthetic_benchmark.run`` on VGG-16
+   (224x224), Inception V3 (299x299) and ViT-B/16 (224x224), batch 64,
+   bf16, fused momentum: a finite loss, K1 momentum once a step and one
+   gradient all_reduce per bucket, as issued and traced; the graphed and
+   eager rates, peak memory, and MFU over ``FlopCounterMode``'s count of
+   one forward and backward on the card.
+
+Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
+Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
+on the card and on the CPU as in parity, and bert_tiny (flash attention
+at seq 136) with the BERT bench's masked loss and AdamW as in
+gpt_parity.  Phase 3 times K1 momentum at VGG-16's 138,357,544
+parameters too, phase 4 checks and times K2-K4 at BERT-base's shape
+(b 8, h 12, s 512, d 64, non-causal), and every main path's traced
+replays give its device time by kind and idle share.
 
 Every kernel count is set to 0 just before each main path and read just
 after it.  A wrapper counts the launches the host issues; a graph's
@@ -157,6 +178,8 @@ import torch
 PARAMS_RESNET50 = 25_557_032
 #: GPT-2 small's parameters: one flat float32 buffer on the GPT main path
 PARAMS_GPT2_SMALL = 124_439_808
+#: VGG-16's (224x224, 1000 classes): K1 momentum's largest main path
+PARAMS_VGG16 = 138_357_544
 RAGGED = 1_000_003
 TIMED_RUNS = 25
 #: about 2 ms of the card's clock: longer than the host takes to queue any
@@ -184,6 +207,9 @@ RULES = {
 #: GPT-2 small's attention on the main path: batch 4, 12 heads, seq 1024,
 #: head dim 64
 GPT_ATTN_SHAPE = (4, 12, 1024, 64)
+#: BERT-base's on the BERT main path (--attn pallas, non-causal): batch 8,
+#: 12 heads, seq 512, head dim 64
+BERT_ATTN_SHAPE = (8, 12, 512, 64)
 
 #: K2-K4 against their plain versions in float32, elementwise (rtol,
 #: atol): both sum in float32 in other orders, and the JAX tests' own
@@ -246,6 +272,8 @@ FLASH_KERNELS = {
     "K3": ("flash_bwd_dq", "horovod_tpu/ops/flash_attention.py:235"),
     "K4": ("flash_bwd_dkv", "horovod_tpu/ops/flash_attention.py:290"),
 }
+#: the outputs of each
+FLASH_OUTPUTS = {"K2": ("o", "m", "l"), "K3": ("dq",), "K4": ("dk", "dv")}
 
 
 #: the three ResNet options whose kernels are K6-K10
@@ -301,7 +329,15 @@ CONV_BF16_MEAN_LIMIT = 5e-4
 CONV_SUM_RTOL = 5e-5
 
 
+#: when the script started (time.perf_counter)
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gives the script's seconds so
+    far (``at_s``), from which each phase's time follows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -362,8 +398,11 @@ def phase_kernels(fu, flops_mod):
     for rule, opt in opts.items():
         # each rule at the size of its main path: GPT-2 small's for adam
         n_main = PARAMS_GPT2_SMALL if rule == "adam" else PARAMS_RESNET50
+        sizes = {PARAMS_RESNET50, RAGGED, n_main}
+        if rule == "momentum":
+            sizes.add(PARAMS_VGG16)
         max_abs = max_rel = 0.0
-        for n in sorted({PARAMS_RESNET50, RAGGED, n_main}):
+        for n in sorted(sizes):
             gen = torch.Generator(device="cuda").manual_seed(n)
             p = torch.randn(n, device="cuda", generator=gen)
             ours = {"p": p, "mu": torch.zeros_like(p),
@@ -436,10 +475,19 @@ def phase_kernels(fu, flops_mod):
                      "tolerance": "bit-equal (torch.equal)",
                      "launches": None},
         }
+        if rule == "momentum":
+            # VGG-16's 138.4M parameters, the registry path's largest
+            ms, plain, lib = _k1_times(fu, rule, opt, PARAMS_VGG16,
+                                       torch.float32)
+            results[rule]["vgg16"] = {
+                "n": PARAMS_VGG16, "ms": ms, "plain_ms": plain,
+                "library_ms": lib, "bound_by": "bytes",
+                "bound_ms": bytes_per * PARAMS_VGG16
+                / flops_mod.hbm_bytes_per_sec() * 1e3, "launches": None}
     emit({"phase": "kernels", "rules": {
         r: {**{k: v[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                  "plain_ms", "library_ms", "bound_ms")},
-            "bf16": v["bf16"]}
+            **{k: v[k] for k in ("bf16", "vgg16") if k in v}}
         for r, v in results.items()}})
     return results
 
@@ -617,16 +665,18 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     """K2, K3 and K4 against their plain versions on the card: (a) the main
     path's shape in bf16, (b) float32 and bf16 at ragged lengths and every
     head dim, (c) unnormalized at nonzero offsets, with a kv shard wholly
-    in the future of every row, (d) operands off 16-byte alignment; each
-    launch on the mainloop _flash_loops names.  Then each kernel timed at
-    shape (a) on both bf16 mainloops."""
-    import torch.nn.functional as F
-
+    in the future of every row, (d) operands off 16-byte alignment, (e)
+    BERT-base's shape, non-causal; each launch on the mainloop
+    _flash_loops names.  Then each kernel timed at shapes (a) and (e) on
+    both bf16 mainloops."""
     b, h, s, d = GPT_ATTN_SHAPE
     # (tag, (b, h, sq, sk, d), dtype, causal, q_off, kv_off, normalize,
     # layout); bfloat16 runs the tensor-core kernels, float32 the scalar
+    bb_, hb, sb_, db = BERT_ATTN_SHAPE
     cases = [("a", (b, h, s, s, d), torch.bfloat16, True, 0, 0, True,
-              "bshd")]
+              "bshd"),
+             ("e", (bb_, hb, sb_, sb_, db), torch.bfloat16, False, 0, 0,
+              True, "bshd")]
     for dtype in (torch.float32, torch.bfloat16):
         for sq, sk in ((136, 136), (192, 192), (136, 192)):
             for causal in (True, False):
@@ -685,9 +735,54 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     by_loop = {key: n - before[key]
                for key, n in kernels.flash_launches.items()}
 
-    # timing at the main path's shape and layout
+    results = {}
+    for key, timing in _flash_timing(kernels, fa, flops_mod, GPT_ATTN_SHAPE,
+                                     True).items():
+        name, replaces = FLASH_KERNELS[key]
+        results[key] = {
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": per_kernel[key],
+            "max_bf16_row_rel_err": {n: worst_row[n]
+                                     for n in FLASH_OUTPUTS[key]},
+            "max_bf16_mean_row_rel_err": {n: worst_mean[n]
+                                          for n in FLASH_OUTPUTS[key]},
+            "tolerance": {
+                "float32": dict(zip(("rtol", "atol"),
+                                    FLASH_TOL[torch.float32])),
+                "bfloat16_row": {n: FLASH_BF16_ROW_LIMIT[n]
+                                 for n in FLASH_OUTPUTS[key]},
+                "bfloat16_mean_row": FLASH_BF16_MEAN_LIMIT,
+                "bfloat16_row_floor": FLASH_ROW_FLOOR},
+            **timing}
+    # BERT-base's attention (--attn pallas), non-causal, timed apart
+    for key, timing in _flash_timing(kernels, fa, flops_mod, BERT_ATTN_SHAPE,
+                                     False).items():
+        results[key]["bert"] = timing
+    timed = ("mainloop", "ms", "old_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    emit({"phase": "flash_kernels", "cases": rows,
+          "launches_by_mainloop": by_loop,
+          "max_bf16_row_rel_err": worst_row,
+          "max_bf16_mean_row_rel_err": worst_mean,
+          "timing": {k: {f: v[f] for f in timed} for k, v in results.items()},
+          "timing_bert": {k: {f: v["bert"][f] for f in timed}
+                          for k, v in results.items()}})
+    return results
+
+
+def _flash_timing(kernels, fa, flops_mod, shape, causal: bool) -> dict:
+    """K2, K3 and K4 timed at ``shape`` (b, h, s, d) in bf16 and the
+    model's [b, s, h, d] layout, on the mainloop of their plan and on
+    mma.sync, beside their plain versions, their bounds and
+    ``F.scaled_dot_product_attention``'s forward (for K2) and backward
+    (K3 and K4's work together), timed only."""
+    import torch.nn.functional as F
+
+    b, h, s, d = shape
     q, k, v, do = _flash_inputs(b, h, s, s, d, torch.bfloat16, 7, "bshd")
-    kw = dict(causal=True, scale=1.0 / math.sqrt(d), q_offset=0,
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), q_offset=0,
               kv_offset=0)
     plans = {key: kernels.flash_plan_for(kind, q, k, v, do)
              for key, kind in (("K2", "fwd"), ("K3", "bwd_dq"),
@@ -713,14 +808,14 @@ def phase_flash_kernels(kernels, fa, flops_mod):
     }
     # the library's fused attention, timed beside the kernels only
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     library = {
         "K2": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
+            q, k, v, is_causal=causal)),
         "K3+K4": cuda_ms(lambda: torch.autograd.grad(
             lib_out, (ql, kl, vl), do, retain_graph=True)),
     }
-    pairs = b * h * _causal_pairs(s, s, 0, 0, True)
+    pairs = b * h * _causal_pairs(s, s, 0, 0, causal)
     elems = b * h * s * d
     rows_f32 = b * h * s * 4
     # (flops, bytes): each input read once, each output written once
@@ -728,54 +823,28 @@ def phase_flash_kernels(kernels, fa, flops_mod):
             "K3": (6 * d * pairs, 4 * elems * 2 + 2 * rows_f32 + elems * 4),
             "K4": (8 * d * pairs, 4 * elems * 2 + 2 * rows_f32
                    + 2 * elems * 4)}
-    outputs = {"K2": ("o", "m", "l"), "K3": ("dq",), "K4": ("dk", "dv")}
+    sdpa = f"F.scaled_dot_product_attention(is_causal={causal})"
     results = {}
     for key, (kernel_fn, old_fn, plain_fn) in timed.items():
         flops, nbytes = work[key]
-        bytes_ms = nbytes / flops_mod.hbm_bytes_per_sec() * 1e3
-        ops_ms = flops / flops_mod.H100_PEAK_FLOPS * 1e3
-        name, replaces = FLASH_KERNELS[key]
+        bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                    flops_mod.H100_PEAK_FLOPS)
         results[key] = {
-            "name": name, "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": None,
             "mainloop": plans[key].mainloop,
             "tiles_q_kv": [plans[key].q_tile, plans[key].kv_tile],
-            "max_abs_err": per_kernel[key],
-            "max_bf16_row_rel_err": {n: worst_row[n] for n in outputs[key]},
-            "max_bf16_mean_row_rel_err": {n: worst_mean[n]
-                                          for n in outputs[key]},
-            "tolerance": {
-                "float32": dict(zip(("rtol", "atol"),
-                                    FLASH_TOL[torch.float32])),
-                "bfloat16_row": {n: FLASH_BF16_ROW_LIMIT[n]
-                                 for n in outputs[key]},
-                "bfloat16_mean_row": FLASH_BF16_MEAN_LIMIT,
-                "bfloat16_row_floor": FLASH_ROW_FLOOR},
             "shape_bhsd": [b, h, s, d], "dtype": "bfloat16",
-            "causal": True, "flops": flops, "bytes": nbytes,
+            "causal": causal, "flops": flops, "bytes": nbytes,
             "ms": cuda_ms(kernel_fn),
             "old_ms": cuda_ms(old_fn), "old_mainloop": "mma_sync",
             "plain_ms": cuda_ms(plain_fn),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library["K2"] if key == "K2"
             else library["K3+K4"],
             "library_call": (
-                "F.scaled_dot_product_attention(is_causal=True) forward"
-                if key == "K2" else
-                "backward of F.scaled_dot_product_attention(is_causal=True),"
-                " dq, dk and dv together (K3+K4's work)"),
+                f"{sdpa} forward" if key == "K2" else
+                f"backward of {sdpa}, dq, dk and dv together (K3+K4's "
+                "work)"),
         }
-    emit({"phase": "flash_kernels", "cases": rows,
-          "launches_by_mainloop": by_loop,
-          "max_bf16_row_rel_err": worst_row,
-          "max_bf16_mean_row_rel_err": worst_mean,
-          "timing": {k: {f: v[f] for f in ("mainloop", "ms", "old_ms",
-                                           "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")
-                         if f in v}
-                     for k, v in results.items()}})
     return results
 
 
@@ -1357,9 +1426,8 @@ def phase_variants_main_path(kernels, flops_mod, card, default_img_sec):
 
     # the eval forward of one batch: K8 in every fused block
     device = torch.device("cuda", torch.cuda.current_device())
-    model = ResNet50(generator=torch.Generator().manual_seed(0),
-                     **VARIANTS).to(device,
-                                    memory_format=torch.channels_last).eval()
+    model = on_card(ResNet50, **VARIANTS).to(
+        memory_format=torch.channels_last).eval()
     x = torch.rand((128, 224, 224, 3), device=device,
                    generator=torch.Generator(device=device).manual_seed(42))
     reset_counts(kernels)
@@ -1423,8 +1491,8 @@ def phase_variants_profile(htt, kernels):
     gen = torch.Generator(device=device).manual_seed(42)
     x = torch.rand((128, 224, 224, 3), generator=gen, device=device)
     y = torch.randint(0, 1000, (128,), generator=gen, device=device)
-    model = ResNet50(generator=torch.Generator().manual_seed(0),
-                     **VARIANTS).to(device, memory_format=torch.channels_last)
+    model = on_card(ResNet50, **VARIANTS).to(
+        memory_format=torch.channels_last)
     opt = htt.fused_sgd(0.01, momentum=0.9)
     step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
                                optimizer=opt, has_batch_stats=True,
@@ -1463,57 +1531,26 @@ def phase_parity(htt):
         gen = torch.Generator().manual_seed(2)
         x = torch.rand((8, 64, 64, 3), generator=gen)
         y = torch.randint(0, 10, (8,), generator=gen)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            model = copy.deepcopy(base)
-            opt = htt.fused_sgd(0.01, momentum=0.9)
-            step = htt.make_train_step(apply_fn=model,
-                                       loss_fn=F.cross_entropy,
-                                       optimizer=opt, has_batch_stats=True,
-                                       loss_fetch_steps=0)
-            state = htt.init_train_state(model, opt, has_batch_stats=True,
-                                         device=dev)
-            losses = []
-            for _ in range(2):
-                state, loss = step(state, x.to(dev), y.to(dev))
-                losses.append(loss.item())
-            runs[dev] = (losses, {k: v.detach().cpu() for k, v in
-                                  {**state.params,
-                                   **state.model_state}.items()})
-    (l_gpu, t_gpu), (l_cpu, t_cpu) = runs["cuda"], runs["cpu"]
-    loss_err = max(abs(a - b) for a, b in zip(l_gpu, l_cpu))
-    worst = max((t_gpu[k] - t_cpu[k]).abs().max().item() for k in t_cpu)
-    if not all(math.isfinite(v) for v in l_gpu):
-        fail(f"parity: non-finite loss on the card {l_gpu}")
-    if any(abs(a - b) > PARITY_RTOL * abs(b) + PARITY_ATOL
-           for a, b in zip(l_gpu, l_cpu)):
-        fail(f"parity: losses differ, card {l_gpu} vs CPU {l_cpu}")
-    for k in t_cpu:
-        if not torch.allclose(t_gpu[k], t_cpu[k], rtol=PARITY_RTOL,
-                              atol=PARITY_ATOL):
-            fail(f"parity: {k} differs by "
-                 f"{(t_gpu[k] - t_cpu[k]).abs().max().item()}")
+        runs = _card_cpu_runs(htt, base, x, y,
+                              lambda: htt.fused_sgd(0.01, momentum=0.9),
+                              F.cross_entropy, has_batch_stats=True)
     emit({"phase": "parity", "model": "ResNet18(num_filters=8) 64x64 b8",
-          "steps": 2, "loss_card": l_gpu, "loss_cpu": l_cpu,
-          "max_loss_err": loss_err, "max_state_abs_err": worst,
+          "steps": 2, **check_card_cpu("parity", runs),
           "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL},
           "tf32": False})
 
 
 def phase_main_path(kernels, flops_mod, card):
-    from horovod_tpu_torch.convert import canonical_params
     from horovod_tpu_torch.examples import synthetic_benchmark as sb
     from horovod_tpu_torch.models import ResNet50
-    from horovod_tpu_torch.ops.fusion import FusionPlan
 
     argv = ["--model", "ResNet50", "--image-size", "224", "--batch-size",
             "128", "--dtype", "bfloat16", "--fused-optimizer",
             "--num-warmup-batches", "2", "--num-batches-per-iter", "5",
             "--num-iters", "3"]
     steps = 2 + 5 * 3
-    with torch.device("meta"):
-        buckets = FusionPlan(list(canonical_params(
-            ResNet50()).values())).num_buckets()
+    buckets = fusion_buckets(ResNet50)
+    counted = counted_train_flops(on_card(ResNet50), 224, 128)
 
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
@@ -1551,6 +1588,11 @@ def phase_main_path(kernels, flops_mod, card):
           "eager_img_sec_per_chip": eager_img_sec,
           "step_calls": result["step_calls"],
           "mfu": flops_mod.image_model_mfu(result["img_sec_per_chip"]),
+          # the same rate over FlopCounterMode's count (a multiply-add
+          # counts 2), where the constant above counts it once
+          "flop_counter_train_flops_per_img": counted,
+          "mfu_flop_counter": flops_mod.image_model_mfu(
+              result["img_sec_per_chip"], counted),
           "peak_flops": flops_mod.peak_flops(),
           "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
@@ -1825,7 +1867,7 @@ def _gpt_close(what, got, want, lr, steps) -> dict:
     worst = diff.max().item()
     if worst > GPT_FLIP_BOUND * lr * steps or \
             beyond > GPT_FLIP_SHARE * len(diff):
-        fail(f"graph_parity: {what}: parameters differ by up to {worst}, "
+        fail(f"{what}: parameters differ by up to {worst}, "
              f"{beyond} of {len(diff)} beyond {GPT_PARAM_ATOL}")
     return {"max_param_abs_err": worst, "params_beyond_atol": beyond}
 
@@ -1916,7 +1958,8 @@ def phase_graph_parity(htt, kernels):
                            for a, b in zip(g_loss, e_loss)):
                         fail(f"graph_parity: {what}: losses {g_loss} vs "
                              f"{e_loss}")
-                    row.update(_gpt_close(what, got, want, lr_adam, 3 * k))
+                    row.update(_gpt_close(f"graph_parity: {what}", got,
+                                          want, lr_adam, 3 * k))
                     if k == 1:
                         graphed_gpt = (base, g_state, g_loss)
                 else:
@@ -1946,8 +1989,9 @@ def phase_graph_parity(htt, kernels):
                  f"losses {r_loss} vs {g_loss}")
         rows.append({"case": "gpt_f32 remat=full k=1 against no remat",
                      "loss_graphed": r_loss, "loss_eager": g_loss,
-                     **_gpt_close("remat full", r_state.params,
-                                  g_state.params, lr_adam, 3)})
+                     **_gpt_close("graph_parity: remat full",
+                                  r_state.params, g_state.params, lr_adam,
+                                  3)})
     emit({"phase": "graph_parity", "calls": 3, "cases": rows,
           "tolerance": {"resnet": {"rtol": PARITY_RTOL,
                                    "atol": PARITY_ATOL},
@@ -2033,14 +2077,23 @@ def phase_collectives(htt):
           "captured": ["allreduce(prescale_factor=2)", "allgatherv"]})
 
 
-def _gpt2_buckets() -> int:
+def on_card(factory, **kw):
+    """``factory(**kw)`` initialized on the card from a generator there
+    seeded with 0 (on the CPU, VGG-16's initialization takes seconds)."""
+    with torch.device("cuda"):
+        return factory(generator=torch.Generator(device="cuda").manual_seed(
+            0), **kw)
+
+
+def fusion_buckets(factory, **kw) -> int:
+    """The fusion buckets of the model ``factory(**kw)`` builds (on the
+    meta device: shapes only)."""
     from horovod_tpu_torch.convert import canonical_params
-    from horovod_tpu_torch.models import gpt2_small
     from horovod_tpu_torch.ops.fusion import FusionPlan
 
     with torch.device("meta"):
         return FusionPlan(list(canonical_params(
-            gpt2_small()).values())).num_buckets()
+            factory(**kw)).values())).num_buckets()
 
 
 def phase_gpt_main_path(htt, kernels, card):
@@ -2053,7 +2106,9 @@ def phase_gpt_main_path(htt, kernels, card):
     steps = args.num_warmup_batches + \
         args.num_batches_per_iter * args.num_iters
     layers = 12
-    buckets = _gpt2_buckets()
+    from horovod_tpu_torch.models import gpt2_small
+
+    buckets = fusion_buckets(gpt2_small)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     with AllReduceCounter() as calls:
@@ -2095,6 +2150,319 @@ def phase_gpt_main_path(htt, kernels, card):
           "mfu": result["mfu"], "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
     return flash, traced
+
+
+def counted_train_flops(model, size: int, batch: int) -> float:
+    """Training FLOPs per image of ``model`` (on the card) at ``size``, as
+    torch.utils.flop_counter.FlopCounterMode counts them over one forward
+    and backward of a ``batch`` there (a multiply-add counts 2)."""
+    import torch.nn.functional as F
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = model.to(memory_format=torch.channels_last)
+    x = torch.rand((batch, size, size, 3), device="cuda")
+    y = torch.randint(0, 1000, (batch,), device="cuda")
+    with FlopCounterMode(display=False) as counter:
+        F.cross_entropy(model(x), y).backward()
+    return counter.get_total_flops() / batch
+
+
+#: BERT-base's cell: the BERT bench at its defaults with --attn pallas,
+#: cut as the other main paths (2 warm-up steps, 3 iterations of 5)
+BERT_ARGV = ["--attn", "pallas", "--num-warmup-batches", "2",
+             "--num-batches-per-iter", "5", "--num-iters", "3"]
+
+
+def phase_bert_main_path(htt, kernels, card):
+    """``examples.bert_synthetic_benchmark.run`` at its defaults with
+    ``--attn pallas``: BERT-base, batch 8, seq 512, bf16, non-causal flash
+    attention (K2-K4), AdamW leaf by leaf, world size 1 over NCCL, the step
+    graphed.  Checks a finite loss, K2, K3 and K4 each launched 12 times a
+    step on TMA + wgmma and no K1, one gradient all_reduce per fusion
+    bucket plus one for the loss, as issued and in the trace of 2 more
+    replays; then the same through ``step.eager``, and ``--attn xla``
+    (the materialized attention) graphed: their rates.  The MLM head's
+    float32 product is timed alone at its shape."""
+    from horovod_tpu_torch.examples import bert_synthetic_benchmark as bb
+    from horovod_tpu_torch.models import bert_base
+
+    args = bb.parse_args(BERT_ARGV)
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+    layers = 12
+    buckets = fusion_buckets(bert_base)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("bert_main_path: TF32 is on; the head's product is float32")
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    with AllReduceCounter() as calls:
+        t0 = time.perf_counter()
+        result = bb.run(args, then=main_path_trace(
+            "bert_main_path", kernels, step_trace(k1=0, flash=layers)))
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    flash = dict(kernels.flash_launches)
+    k1 = kernels.launch_totals(kernels.fused_update_launches)
+
+    if not math.isfinite(result["final_loss"]):
+        fail(f"bert_main_path: final loss {result['final_loss']}")
+    check_graphed("bert_main_path", result["step_calls"], steps)
+    host_steps = issued_steps(result["step_calls"])
+    if flash != flash_counts(kernels, GPT_BF16_FLASH, layers * host_steps):
+        fail(f"bert_main_path: K2-K4 launches issued {flash}, want "
+             f"{layers * host_steps} each of {GPT_BF16_FLASH}")
+    if any(k1.values()):
+        fail(f"bert_main_path: K1 launched {k1} (AdamW runs leaf by leaf)")
+    allreduce = calls.check("bert_main_path", result["step_calls"],
+                            buckets + 1)
+    traced = result["then"]
+    eager = eager_rate("bert_main_path", bb, bb.parse_args(BERT_ARGV),
+                       "sent_sec_per_chip", steps)
+    reset_counts(kernels)
+    xla = bb.run(bb.parse_args(BERT_ARGV + ["--attn", "xla"]))
+    check_graphed("bert_main_path --attn xla", xla["step_calls"], steps)
+    if not math.isfinite(xla["final_loss"]) or any(
+            kernels.flash_launches.values()):
+        fail(f"bert_main_path --attn xla: loss {xla['final_loss']}, "
+             f"flash launches {kernels.flash_launches}")
+    # the MLM head alone: [b*s, 768] @ [768, 30522] in float32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hidden = torch.randn(args.batch_size * args.seq_len, 768, device="cuda",
+                         generator=gen)
+    head = torch.randn(768, 30522, device="cuda", generator=gen)
+    head_ms = cuda_ms(lambda: torch.matmul(hidden, head))
+    emit({"phase": "bert_main_path", "model": "bert_base",
+          "batch_per_chip": args.batch_size, "seq_len": args.seq_len,
+          "dtype": args.dtype, "attn": args.attn,
+          "optimizer": "transforms.adamw(1e-4), leaf by leaf",
+          "world_size": htt.size(), "steps": steps,
+          "k2_k4_launches_issued": {k: v for k, v in flash.items() if v},
+          "trace": traced, "fusion_buckets": buckets,
+          "allreduce_calls": allreduce,
+          "sent_sec_per_chip": result["sent_sec_per_chip"],
+          "eager_sent_sec_per_chip": eager,
+          "attn_xla_sent_sec_per_chip": xla["sent_sec_per_chip"],
+          "step_calls": result["step_calls"], "mfu": result["mfu"],
+          "final_loss": result["final_loss"],
+          "head_matmul_f32_ms": head_ms, "tf32": False,
+          "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
+    return traced
+
+
+#: the registry's cells: (model, image size), each at batch 64, bf16,
+#: --fused-optimizer, cut to 2 warm-up steps and 2 iterations of 3
+REGISTRY_CELLS = (("VGG16", 224), ("InceptionV3", 299), ("ViT-B16", 224))
+REGISTRY_BATCH = 64
+
+
+def phase_registry_main_path(htt, kernels, flops_mod, card) -> dict:
+    """``examples.synthetic_benchmark.run`` on each of REGISTRY_CELLS,
+    graphed, world size 1 over NCCL.  Each must show a finite loss, one
+    K1 momentum launch a step and no flash launch, one gradient
+    all_reduce per fusion bucket plus one for the loss, as issued and in
+    the trace of 2 more replays; reports the graphed and the eager rate,
+    peak memory and MFU over FlopCounterMode's count of one forward and
+    backward on the card.  Returns each model's K1 trace."""
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import MODELS
+
+    traces = {}
+    for name, size in REGISTRY_CELLS:
+        argv = ["--model", name, "--image-size", str(size), "--batch-size",
+                str(REGISTRY_BATCH), "--dtype", "bfloat16",
+                "--fused-optimizer", "--num-warmup-batches", "2",
+                "--num-batches-per-iter", "3", "--num-iters", "2"]
+        steps = 2 + 3 * 2
+        what = f"registry_main_path {name}"
+        buckets = fusion_buckets(MODELS[name], image_size=size)
+        counted = counted_train_flops(
+            on_card(MODELS[name], image_size=size), size, REGISTRY_BATCH)
+        reset_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        with AllReduceCounter() as calls:
+            t0 = time.perf_counter()
+            result = sb.run(sb.parse_args(argv), then=main_path_trace(
+                what, kernels, step_trace()))
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        issued = kernels.launch_totals(kernels.fused_update_launches)
+        if not math.isfinite(result["final_loss"]):
+            fail(f"{what}: final loss {result['final_loss']}")
+        check_graphed(what, result["step_calls"], steps)
+        host_steps = issued_steps(result["step_calls"])
+        if issued != {"sgd": 0, "momentum": host_steps, "adam": 0}:
+            fail(f"{what}: K1 launches issued "
+                 f"{kernels.fused_update_launches}, want {host_steps} "
+                 "momentum")
+        if any(kernels.flash_launches.values()):
+            fail(f"{what}: launched {kernels.flash_launches}")
+        allreduce = calls.check(what, result["step_calls"], buckets + 1)
+        traces[name] = result["then"]
+        eager = eager_rate(what, sb, sb.parse_args(argv),
+                           "img_sec_per_chip", steps)
+        rate = result["img_sec_per_chip"]
+        emit({"phase": "registry_main_path", "model": name,
+              "image_size": size, "batch_per_chip": REGISTRY_BATCH,
+              "dtype": "bfloat16", "optimizer": "fused momentum (K1)",
+              "world_size": result["size"], "steps": steps,
+              "k1_launches_issued": _k1(kernels, "momentum"),
+              "trace": traces[name], "fusion_buckets": buckets,
+              "allreduce_calls": allreduce, "img_sec_per_chip": rate,
+              "img_sec_conf": result["conf"], "eager_img_sec_per_chip": eager,
+              "step_calls": result["step_calls"],
+              "flop_counter_train_flops_per_img": counted,
+              "mfu": flops_mod.image_model_mfu(rate, counted),
+              "peak_flops": flops_mod.peak_flops(),
+              "final_loss": result["final_loss"],
+              "max_memory_allocated_bytes": peak, "wall_s": wall,
+              "card": card})
+    return traces
+
+
+def _card_cpu_runs(htt, base, x, y, make_opt, loss_fn, *, apply=None,
+                   has_batch_stats: bool, steps: int = 2):
+    """``base`` trained ``steps`` steps on the card and on the CPU from
+    the same weights and batch (``apply(model, device)``, when given,
+    makes the step's apply_fn): each device's losses and final parameters
+    and statistics (on the CPU)."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base)
+        opt = make_opt()
+        apply_fn = model if apply is None else apply(model, dev)
+        step = htt.make_train_step(apply_fn=apply_fn, loss_fn=loss_fn,
+                                   optimizer=opt,
+                                   has_batch_stats=has_batch_stats,
+                                   loss_fetch_steps=0)
+        state = htt.init_train_state(model, opt,
+                                     has_batch_stats=has_batch_stats,
+                                     device=dev)
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, x.to(dev), y.to(dev))
+            losses.append(loss.item())
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                              {**state.params,
+                               **state.model_state}.items()})
+    return runs
+
+
+def check_card_cpu(what: str, runs) -> dict:
+    """Fails unless the card's losses, parameters and statistics in
+    ``runs`` (_card_cpu_runs) agree with the CPU's to PARITY_RTOL /
+    PARITY_ATOL; returns the readings."""
+    (l_gpu, t_gpu), (l_cpu, t_cpu) = runs["cuda"], runs["cpu"]
+    if not all(math.isfinite(v) for v in l_gpu):
+        fail(f"{what}: non-finite loss on the card {l_gpu}")
+    if any(abs(a - b) > PARITY_RTOL * abs(b) + PARITY_ATOL
+           for a, b in zip(l_gpu, l_cpu)):
+        fail(f"{what}: losses differ, card {l_gpu} vs CPU {l_cpu}")
+    for k in t_cpu:
+        if not torch.allclose(t_gpu[k], t_cpu[k], rtol=PARITY_RTOL,
+                              atol=PARITY_ATOL):
+            fail(f"{what}: {k} differs by "
+                 f"{(t_gpu[k] - t_cpu[k]).abs().max().item()}")
+    return {"loss_card": l_gpu, "loss_cpu": l_cpu,
+            "max_loss_err": max(abs(a - b) for a, b in zip(l_gpu, l_cpu)),
+            "max_state_abs_err": max((t_gpu[k] - t_cpu[k]).abs().max().item()
+                                     for k in t_cpu)}
+
+
+def phase_registry_parity(htt, kernels):
+    """Card-vs-CPU training parity, float32 with TF32 off, 2 steps from
+    the same weights and batch (the step graphed on the card from its
+    second call), held as ``parity`` holds ResNet-18: a narrow VGG (with
+    BatchNorm), Inception V3 at 107x107 (its last stage 2x2) and a
+    2-layer ViT with fused momentum (K1); then bert_tiny through the BERT
+    bench's masked loss and head with AdamW leaf by leaf and flash
+    attention (K2-K4) at a ragged 136, held as gpt_parity holds GPT."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.examples import bert_synthetic_benchmark as bb
+    from horovod_tpu_torch.models import VGG, InceptionV3, ViT, bert_tiny
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    from horovod_tpu_torch.optim.transforms import adamw, sgd
+
+    momentum = (lambda: htt.fused_sgd(0.01, momentum=0.9), "fused (K1)")
+    # model: (build from a generator, image size, batch, BatchNorm,
+    # dtype, optimizer, its name).  Inception runs float64 parameters,
+    # per leaf (K1 takes float32 and bf16 groups), at the same limits:
+    # in float32 at 107x107 the first step's losses agreed to 3e-6 and
+    # the second's differed by 1e-2 (1.8197 card, 1.8350 CPU), its small
+    # BatchNorms amplifying the two devices' convolution rounding; in
+    # float64 only the float32 logits' rounding is left (read: losses
+    # 2.6e-7 apart, a stem BatchNorm bias 9.5e-7)
+    image = {
+        "VGG(16-M-32-M-64-64-M, BN) 32x32 b8": (lambda g: VGG(
+            (16, "M", 32, "M", 64, 64, "M"), num_classes=10,
+            dtype=torch.float32, batch_norm=True, image_size=32,
+            generator=g), 32, 8, True, torch.float32, momentum),
+        "InceptionV3 75x75 b4": (lambda g: InceptionV3(
+            num_classes=10, dtype=torch.float32, image_size=75,
+            generator=g), 75, 4, True, torch.float64,
+            (lambda: sgd(0.01, momentum=0.9), "transforms.sgd")),
+        "ViT(patch 8, hidden 64, 2 layers, 4 heads) 32x32 b8": (lambda g: ViT(
+            num_classes=10, patch_size=8, hidden_dim=64, num_layers=2,
+            num_heads=4, mlp_dim=128, dtype=torch.float32, image_size=32,
+            generator=g), 32, 8, False, torch.float32, momentum),
+    }
+    out = []
+    with no_tf32():
+        for what, (build, size, batch, stats, dtype, (make_opt, opt_name)) \
+                in image.items():
+            gen = torch.Generator().manual_seed(2)
+            x = torch.rand((batch, size, size, 3), generator=gen).to(dtype)
+            y = torch.randint(0, 10, (batch,), generator=gen)
+            runs = _card_cpu_runs(
+                htt, build(torch.Generator().manual_seed(1)).to(dtype), x,
+                y, make_opt, F.cross_entropy, has_batch_stats=stats)
+            out.append({"model": what, "dtype": str(dtype), "optimizer":
+                        opt_name, **check_card_cpu(
+                            f"registry_parity: {what}", runs)})
+
+        # bert_tiny, masked MLM loss over the fixed head, AdamW
+        lr, steps, seq = 1e-4, 2, 136
+        base = bert_tiny(dtype=torch.float32,
+                         attention_fn=lambda q, k, v, m: flash_attention(
+                             q, k, v, causal=False),
+                         generator=torch.Generator().manual_seed(4))
+        inputs, tokens, mask = bb.mlm_batch(4, seq, base.vocab_size, 0.15)
+        x = torch.from_numpy(inputs[:4]).long()
+        y = bb.mlm_targets(tokens[:4], mask[:4])
+        head = torch.randn(base.hidden_dim, base.vocab_size,
+                           generator=torch.Generator().manual_seed(5)) * 0.02
+        reset_counts(kernels)
+        runs = _card_cpu_runs(
+            htt, base, x, y, lambda: adamw(lr), bb.masked_mlm_loss,
+            apply=lambda model, dev: bb.mlm_apply(model, head.to(dev)),
+            has_batch_stats=False, steps=steps)
+        flash = dict(kernels.flash_launches)
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    if flash != flash_counts(kernels, GPT_F32_FLASH, 4 * steps):
+        fail(f"registry_parity: bert_tiny launched K2-K4 {flash}")
+    if not all(math.isfinite(v) for v in l_gpu) or any(
+            abs(a - b) > GPT_LOSS_RTOL * abs(b) for a, b in zip(l_gpu, l_cpu)):
+        fail(f"registry_parity: bert_tiny losses card {l_gpu} vs CPU "
+             f"{l_cpu}")
+    keyb = {k for k in p_cpu if k.endswith(KEY_BIAS)}
+    bound = GPT_FLIP_BOUND * lr * steps
+    if max((p_gpu[k] - p_cpu[k]).abs().max().item() for k in keyb) > bound:
+        fail("registry_parity: bert_tiny key bias beyond its bound")
+    close = _gpt_close("registry_parity: bert_tiny",
+                       {k: v for k, v in p_gpu.items() if k not in keyb},
+                       {k: v for k, v in p_cpu.items() if k not in keyb},
+                       lr, steps)
+    out.append({"model": "bert_tiny float32, b4 s136, flash (K2-K4), "
+                "masked MLM loss over a fixed head, transforms.adamw(1e-4)",
+                "loss_card": l_gpu, "loss_cpu": l_cpu, **close,
+                "card_launches": {k: v for k, v in flash.items() if v}})
+    emit({"phase": "registry_parity", "steps": 2, "runs": out,
+          "tolerance": {"image": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL},
+                        "bert": {"loss_rtol": GPT_LOSS_RTOL,
+                                 "param_atol": GPT_PARAM_ATOL,
+                                 "share_beyond_atol": GPT_FLIP_SHARE,
+                                 "param_bound": bound}},
+          "tf32": False})
 
 
 #: the port's kernels by the names they have in a CUPTI trace: K9 and
@@ -2220,7 +2588,8 @@ def main_path_trace(what, kernels, per_step: dict, k: int = 1):
     more calls of its graphed step, traced; fails unless the trace holds
     ``per_step`` (step_trace) for each of their ``TRACED_CALLS * k``
     steps.  Returns the steps traced and the port's kernels counted in
-    the trace, K1 also by rule and group type."""
+    the trace, K1 also by rule and group type, and the steps' device time
+    by kind and idle share (device_breakdown)."""
     def then(step, state, x, y):
         _, _, _, spans = trace_replays(what, kernels, step, state, (x, y),
                                        TRACED_CALLS)
@@ -2230,7 +2599,8 @@ def main_path_trace(what, kernels, per_step: dict, k: int = 1):
         if traced != want:
             fail(f"{what}: the trace of {steps} replayed steps holds the "
                  f"port's kernels {traced}, want {want}")
-        return {"steps": steps, "launches": traced, "k1": k1_trace(spans)}
+        return {"steps": steps, "launches": traced, "k1": k1_trace(spans),
+                "breakdown": device_breakdown(spans, steps)}
 
     return then
 
@@ -2274,7 +2644,7 @@ def phase_gpt_profile(htt, kernels):
     call, and the port's kernels counted by name in the trace."""
     from horovod_tpu_torch.models import gpt2_small, next_token_loss
 
-    model = gpt2_small(generator=torch.Generator().manual_seed(0))
+    model = on_card(gpt2_small)
     opt = htt.fused_adam(1e-4)
     step = htt.make_train_step(apply_fn=model, loss_fn=next_token_loss,
                                optimizer=opt, loss_fetch_steps=0)
@@ -2316,8 +2686,7 @@ def phase_profile(htt, kernels):
     gen = torch.Generator(device=device).manual_seed(42)
     x = torch.rand((128, 224, 224, 3), generator=gen, device=device)
     y = torch.randint(0, 1000, (128,), generator=gen, device=device)
-    model = ResNet50(generator=torch.Generator().manual_seed(0)).to(
-        device, memory_format=torch.channels_last)
+    model = on_card(ResNet50).to(memory_format=torch.channels_last)
     opt = htt.fused_sgd(0.01, momentum=0.9)
     step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
                                optimizer=opt, has_batch_stats=True,
@@ -2348,8 +2717,7 @@ def phase_rules(htt, kernels):
     launches = {}
     for rule, opt in (("sgd", htt.fused_sgd(0.01)),
                       ("adam", htt.fused_adam(1e-3))):
-        model = ResNet50(generator=torch.Generator().manual_seed(0)).to(
-            device, memory_format=torch.channels_last)
+        model = on_card(ResNet50).to(memory_format=torch.channels_last)
         step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
                                    optimizer=opt, has_batch_stats=True,
                                    loss_fetch_steps=0)
@@ -2381,7 +2749,9 @@ LAUNCHES_NOTE = (
     "graphed calls (replays, 1 step each) of each kernel's main path: "
     "K1 momentum on ResNet-50, K1 adam and K2-K4 on GPT-2 small, K6-K10 "
     "on the variants path (K8 in its eval forward of one batch); K1 sgd "
-    "in one replay of the rules phase")
+    "in one replay of the rules phase; the 'bert' entries of K2-K4 on "
+    "BERT-base (--attn pallas), the 'vgg16' entry of K1 momentum on "
+    "VGG-16")
 
 #: the counters of K8-K10
 CONV_COUNTERS = ("bn_relu", "stats", "plain")
@@ -2435,7 +2805,6 @@ def main() -> None:
     from horovod_tpu_torch.optim import fused_update as fu
     from horovod_tpu_torch.utils import flops as flops_mod
 
-    t_start = time.perf_counter()
     card = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "count": torch.cuda.device_count(),
@@ -2468,6 +2837,7 @@ def main() -> None:
     phase_gpt_parity(htt, kernels)
     phase_gpt_bf16(kernels, fa)
     phase_graph_parity(htt, kernels)
+    phase_registry_parity(htt, kernels)
     phase_collectives(htt)
     k1_launches = {}
     k1_launches["momentum"], default_img_sec = phase_main_path(
@@ -2488,12 +2858,18 @@ def main() -> None:
             k.split(".")[1]: v for k, v in flash.items()
             if k.startswith(counter + ".")}
     phase_gpt_profile(htt, kernels)
+    bert_trace = phase_bert_main_path(htt, kernels, card)
+    for key in ("K2", "K3", "K4"):
+        results[key]["bert"]["launches"] = bert_trace["launches"][key]
+    registry = phase_registry_main_path(htt, kernels, flops_mod, card)
+    results["momentum"]["vgg16"]["launches"] = \
+        registry["VGG16"]["k1"]["momentum"]["float32"]
     htt.shutdown()
 
     emit({"kernels": [results[r] for r in ("momentum", "sgd", "adam", "K2",
                                            "K3", "K4", *VARIANT_KEYS)],
           "launches": LAUNCHES_NOTE, "card": card,
-          "seconds": time.perf_counter() - t_start})
+          "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

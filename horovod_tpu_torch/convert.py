@@ -16,6 +16,7 @@ PallasConvBN3x3    weight → kernel,    HWIO → OIHW; scale, bias as is (and
                    scale, bias         running_mean/var → mean/var)
 LayerNorm          weight → scale      as is
 Embed              weight → embedding  as is (``[vocab, features]`` in both)
+ViT (its own)      cls, pos_embed      as is (same names)
 DenseGeneral       weight → kernel     ``in_shape + out_shape`` →
                                        ``[prod(out), prod(in)]``; bias
                                        ``out_shape`` → ``[prod(out)]``
@@ -50,12 +51,14 @@ from torch import nn
 
 from .models.layers import BatchNorm, DenseGeneral, Embed, LayerNorm
 from .models.resnet import BatchNormReLU, PallasConvBN3x3
+from .models.vit import ViT
 from .optim.fused_update import FusedOptState, bc_buffers, dtype_name
 from .utils.tree import tree_flatten_with_path
 
 _PARAM_NAMES = {"weight": "kernel", "bias": "bias"}
 _NORM_PARAM_NAMES = {"weight": "scale", "bias": "bias"}
 _EMBED_PARAM_NAMES = {"weight": "embedding"}
+_VIT_PARAM_NAMES = {"cls": "cls", "pos_embed": "pos_embed"}
 _FUSED_CONV_PARAM_NAMES = {"weight": "kernel", "scale": "scale",
                            "bias": "bias"}
 _BN_BUFFER_NAMES = {"running_mean": "mean", "running_var": "var"}
@@ -119,6 +122,8 @@ def _rules(mod: nn.Module, buffers: bool):
         return _NORM_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
     if isinstance(mod, Embed):
         return _EMBED_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
+    if isinstance(mod, ViT):
+        return _VIT_PARAM_NAMES, lambda local, t: Layout.same(t.shape)
     if isinstance(mod, PallasConvBN3x3):
         return _FUSED_CONV_PARAM_NAMES, lambda local, t: Layout.of_rank(
             t.shape)

@@ -12,11 +12,17 @@ Process identity comes from the same environment the reference's
 in-process store.  ``HVD_LOCAL_SIZE`` gives the processes per host (the
 whole world by default), from which the local and cross ranks follow as
 in the reference's ``(cross, local)`` mesh.
+
+The rendezvous at ``HVD_COORDINATOR_ADDR`` is bounded: every rank waits
+at most ``HVD_START_TIMEOUT`` seconds (60 by default) for the others to
+join, then raises, so a rank that never arrives fails the job with its
+error instead of hanging it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Optional
 
 import torch
@@ -98,7 +104,7 @@ def init(device=None, backend: Optional[str] = None) -> None:
 
     addr = env_util.get_str(env_util.HVD_COORDINATOR_ADDR)
     if addr:
-        dist.init_process_group(backend, init_method=f"tcp://{addr}",
+        dist.init_process_group(backend, store=_rendezvous(addr, rank, size),
                                 rank=rank, world_size=size)
     elif size == 1:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
@@ -113,6 +119,20 @@ def init(device=None, backend: Optional[str] = None) -> None:
     _epoch += 1
     log.info("initialized: rank=%d size=%d local_size=%d device=%s "
              "backend=%s", rank, size, local_size, dev, backend)
+
+
+def _rendezvous(addr: str, rank: int, size: int) -> dist.TCPStore:
+    """The job's store at ``host:port``: rank 0 serves it (or joins a
+    server this process already runs there), and every rank counts itself
+    in.  Rank 0 waits until all ``size`` ranks have, the others until they
+    reach the server, each at most ``HVD_START_TIMEOUT`` seconds; past
+    that the constructor raises."""
+    host, _, port = addr.rpartition(":")
+    timeout = env_util.get_float(env_util.HVD_START_TIMEOUT,
+                                 env_util.DEFAULT_START_TIMEOUT_SECONDS)
+    return dist.TCPStore(host, int(port), size, is_master=rank == 0,
+                         timeout=datetime.timedelta(seconds=timeout),
+                         wait_for_workers=True, multi_tenant=True)
 
 
 def shutdown() -> None:

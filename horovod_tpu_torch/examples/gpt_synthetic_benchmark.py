@@ -6,7 +6,7 @@ batch of token ids and reports sequences per second per card and MFU,
 with the reference's CLI and defaults (batch 4 per rank, seq 1024,
 bf16, 2 warm-up steps, 3 iterations of 5) plus ``--device``.  The ids
 are the reference's, ``np.random.default_rng(0).integers(0, 1000)``;
-the weights come from a generator seeded with 0.
+the weights come from a generator on the device seeded with 0.
 
 * ``--attn flash`` (the reference's ``pallas``, the default): causal
   attention through the hand-written kernels K2-K4.
@@ -97,10 +97,13 @@ def run(args, eager: bool = False,
             "parallelism) of horovod_tpu_torch")
     core.init(device=args.device)
     factory = gpt2_small if args.model == "gpt2" else gpt_tiny
-    model = factory(dtype=_DTYPES[args.dtype],
-                    attention_fn=_attention_fn(args),
-                    max_len=max(args.seq_len, 1024),
-                    generator=torch.Generator().manual_seed(0))
+    # initialized on the device, from a generator there seeded with 0
+    with torch.device(core.device()):
+        model = factory(dtype=_DTYPES[args.dtype],
+                        attention_fn=_attention_fn(args),
+                        max_len=max(args.seq_len, 1024),
+                        generator=torch.Generator(
+                            device=core.device()).manual_seed(0))
     opt = fused_adam(1e-4)
     step = make_train_step(apply_fn=model, loss_fn=next_token_loss,
                            optimizer=opt,

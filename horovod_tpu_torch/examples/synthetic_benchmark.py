@@ -1,13 +1,20 @@
 """Synthetic benchmark: the port of ``examples/synthetic_benchmark.py``.
 
-Trains a ResNet data-parallel on one synthetic batch and reports images
-per second, with the reference's CLI for the flags this slice supports
-plus ``--device``.  The weights come from a seeded generator and the
-batch from another, made on the device.  On a card the step is the
-compiled one: the first warm-up call runs eagerly, the second captures
-``--num-in-graph-steps`` steps into a CUDA graph, and the rest replay
-it, so with two or more warm-up batches the timed window holds only
-replays.
+Trains a model of the image registry (``models.MODELS``: the ResNets,
+VGG, Inception V3, the ViTs) data-parallel on one synthetic batch and
+reports images per second, with the reference's CLI for the flags this
+slice supports plus ``--device``.  As in the reference,
+``--fused-optimizer`` trains with ``fused_sgd(0.01, momentum=0.9)``, the
+flat kernel K1, and without it with ``sgd(0.01, momentum=0.9)`` (optax's,
+``optim/transforms.py``) leaf by leaf; the ResNet kernel options
+(``--norm-act``, ``--residual-join``, ``--conv-bn``) go to the ResNets
+only, and raise for any other model.  The weights come from a seeded
+generator and the batch from another, both on the device (initializing
+VGG-16's 138M parameters on the card takes a fraction of the CPU's
+time).  On a card the step is the compiled one: the first warm-up call
+runs eagerly, the second captures ``--num-in-graph-steps`` steps into a
+CUDA graph, and the rest replay it, so with two or more warm-up batches
+the timed window holds only replays.
 
 Run:  python -m horovod_tpu_torch.examples.synthetic_benchmark --batch-size 128
 """
@@ -23,9 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import core
-from ..models import MODELS
+from ..models import BATCH_STATS_FREE, MODELS
 from ..ops.compression import Compression
 from ..optim.fused_update import fused_sgd
+from ..optim.transforms import sgd
 from ..training import init_train_state, make_train_step, shard_batch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -74,6 +82,31 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+#: the ResNet kernel options and their flags
+RESNET_OPTIONS = ("norm_act", "residual_join", "conv_bn")
+
+
+def build_model(args, device) -> torch.nn.Module:
+    """The registry's model at ``args``' size, initialized on ``device``
+    from a generator there seeded with 0: the kernel options to a ResNet,
+    the image size to the others (it sizes VGG's first Dense and ViT's
+    position table; Inception checks it)."""
+    kw = {"num_classes": args.num_classes, "dtype": _DTYPES[args.dtype],
+          "generator": torch.Generator(device=device).manual_seed(0)}
+    options = {o: getattr(args, o) for o in RESNET_OPTIONS}
+    if args.model.startswith("ResNet"):
+        kw.update(options)
+    else:
+        set_options = [o for o, v in options.items() if v != "xla"]
+        if set_options:
+            raise ValueError(
+                f"--{set_options[0].replace('_', '-')} is a ResNet option; "
+                f"{args.model} has no such layer")
+        kw["image_size"] = args.image_size
+    with torch.device(device):
+        return MODELS[args.model](**kw)
+
+
 def log(s):
     if core.rank() == 0:
         print(s, flush=True)
@@ -92,13 +125,10 @@ def run(args, eager: bool = False,
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
-    model = MODELS[args.model](
-        num_classes=args.num_classes, dtype=_DTYPES[args.dtype],
-        norm_act=args.norm_act,
-        residual_join=args.residual_join, conv_bn=args.conv_bn,
-        generator=torch.Generator().manual_seed(0),
-    ).to(device, memory_format=torch.channels_last)
-    opt = fused_sgd(0.01, momentum=0.9)
+    model = build_model(args, device).to(memory_format=torch.channels_last)
+    has_batch_stats = args.model not in BATCH_STATS_FREE
+    opt = fused_sgd(0.01, momentum=0.9) if args.fused_optimizer \
+        else sgd(0.01, momentum=0.9)
 
     global_batch = args.batch_size * core.size()
     gen = torch.Generator(device=device).manual_seed(42)
@@ -113,12 +143,12 @@ def run(args, eager: bool = False,
         optimizer=opt,
         op=core.Average,
         compression=Compression.fp16 if args.fp16_allreduce else None,
-        has_batch_stats=True,
+        has_batch_stats=has_batch_stats,
         in_graph_steps=args.num_in_graph_steps,
         fused_optimizer=args.fused_optimizer,
         loss_fetch_steps=args.loss_fetch_steps,
     )
-    state = init_train_state(model, opt, has_batch_stats=True)
+    state = init_train_state(model, opt, has_batch_stats=has_batch_stats)
     run_step = step.eager if eager else step
     x = shard_batch(data)
     y = shard_batch(target)

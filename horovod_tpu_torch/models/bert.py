@@ -95,6 +95,7 @@ class BertEncoder(nn.Module):
                  attention_fn: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         self.Embed_0 = Embed(vocab_size, hidden_dim, dtype=dtype,

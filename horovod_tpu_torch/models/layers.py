@@ -1,10 +1,11 @@
 """The flax ``linen`` layers the models use, as ``nn.Module``s that
 compute what flax computes.
 
-* :class:`Conv` — ``nn.Conv`` without bias, ``"SAME"`` padding by
-  default.  XLA pads SAME asymmetrically when the padding is odd: a
-  stride-2 3×3 conv over an even input pads ``(0, 1)``, where
-  ``nn.Conv2d(padding=1)`` would pad ``(1, 1)`` and shift every output by
+* :class:`Conv` — ``nn.Conv``, without bias unless ``use_bias``,
+  ``"SAME"`` padding by default (``"VALID"`` or explicit pairs too).
+  XLA pads SAME asymmetrically when the padding is odd: a stride-2 3×3
+  conv over an even input pads ``(0, 1)``, where ``nn.Conv2d(padding=1)``
+  would pad ``(1, 1)`` and shift every output by
   one pixel, so the padding is computed per call from the input size.
 * :class:`BatchNorm` — ``nn.BatchNorm`` with flax's statistics: the
   running averages blend by ``momentum=0.9`` as ``ra = 0.9·ra +
@@ -61,18 +62,28 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv(use_bias=False)``; ``padding`` is ``"SAME"`` or
-    explicit ``((top, bottom), (left, right))``."""
+    """flax ``nn.Conv``: a lecun-normal kernel and, with ``use_bias``, a
+    zero bias (flax's default has one; the ResNets and Inception pass
+    ``use_bias=False``).  ``kernel_size`` and ``strides`` are an int or an
+    (h, w) pair; ``padding`` is ``"SAME"``, ``"VALID"`` or explicit
+    ``((top, bottom), (left, right))``."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int,
-                 strides: int = 1,
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Tuple[int, int]],
+                 strides: Union[int, Tuple[int, int]] = 1,
                  padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-                 *, generator: Optional[torch.Generator] = None):
+                 *, use_bias: bool = False,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(in_features, features, kernel_size, stride=strides,
-                         padding=0, bias=False)
+                         padding=0, bias=use_bias)
         self.same = padding == "SAME"
+        if padding == "VALID":
+            padding = ((0, 0), (0, 0))
         self.pads = None if self.same else tuple(map(tuple, padding))
         lecun_normal_(self.weight, generator)
+        if use_bias:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         if self.same:
@@ -82,8 +93,8 @@ class Conv(nn.Conv2d):
         else:
             (t, b), (l, r) = self.pads
         if t == b and l == r:
-            return F.conv2d(x, self.weight, None, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), self.weight, None,
+            return F.conv2d(x, self.weight, self.bias, self.stride, (t, l))
+        return F.conv2d(F.pad(x, (l, r, t, b)), self.weight, self.bias,
                         self.stride)
 
 
@@ -182,8 +193,8 @@ class LayerNorm(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
-    dim of NCHW input.  ``zero_scale`` is the zero-initialized scale of
-    each residual block's last norm."""
+    dim of NCHW input (Inception's ``epsilon=1e-3``).  ``zero_scale`` is
+    the zero-initialized scale of each residual block's last norm."""
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  epsilon: float = 1e-5, zero_scale: bool = False):

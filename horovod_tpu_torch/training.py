@@ -5,9 +5,11 @@ Every rank runs the same step on its shard of the global batch: forward
 and backward through the model, one fused allreduce of the gradients
 (``ops/fusion.py``), the loss averaged across ranks for reporting, and
 the optimizer update — the flat fused kernel K1 for a
-:class:`~horovod_tpu_torch.optim.fused_update.FusedOptimizer`.  The
-step's blocks are kept as separate functions, as the reference keeps
-them for its profiler.
+:class:`~horovod_tpu_torch.optim.fused_update.FusedOptimizer`, or an
+optax-style :class:`~horovod_tpu_torch.optim.transforms.Transform` leaf
+by leaf (the reference's ``optimizer.update`` + ``optax.apply_updates``
+path).  The step's blocks are kept as separate functions, as the
+reference keeps them for its profiler.
 
 Where the reference returns a new state from a jitted, donating step,
 the port updates the state in place: the model's parameters, its
@@ -32,7 +34,7 @@ raise ``NotImplementedError``; none is silently ignored.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -44,7 +46,12 @@ from .ops import collectives
 from .ops.compression import Compression, from_env as _compression_from_env
 from .ops.fusion import allreduce_pytree
 from .optim.fused_update import FusedOptimizer, apply_updates
+from .optim.transforms import Transform
 from .utils import env as env_util
+from .utils.logging import get_logger
+from .utils.tree import tree_flatten
+
+log = get_logger(__name__)
 
 
 class TrainState(NamedTuple):
@@ -179,10 +186,12 @@ def _remat_wrap(fn: Callable, policy: Optional[str],
 # the compiled step
 # ---------------------------------------------------------------------------
 def _state_tensors(state: TrainState) -> List[torch.Tensor]:
-    """The tensors a captured step reads and writes in place."""
-    opt = state.opt_state
-    return [*state.params.values(), *state.model_state.values(), opt.count,
-            *opt.mu.values(), *opt.nu.values(), *opt.bc.values()]
+    """The tensors a captured step reads and writes in place: the
+    parameters, the statistics and every tensor of the optimizer's state
+    (a fused optimizer's flat buffers, count and bias corrections, or a
+    transform's moments and count)."""
+    return [*state.params.values(), *state.model_state.values(),
+            *tree_flatten(state.opt_state)[0]]
 
 
 class _CompiledStep:
@@ -194,8 +203,7 @@ class _CompiledStep:
     graph's inputs and replays it.  Every call runs ``k`` steps.
 
     The graph is bound to the tensors of the state it captured (the
-    model's parameters and statistics, the optimizer's buffers, count and
-    bias corrections): a call with other tensors raises ``ValueError``.
+    model's parameters and statistics, the optimizer's state): a call with other tensors raises ``ValueError``.
     A capture or replay that fails raises; nothing falls back to the
     eager step.  A replay runs the captured kernels without their
     wrappers, so the kernels' launch counters count what the host issued
@@ -310,7 +318,7 @@ def make_train_step(
     *,
     apply_fn: Callable,
     loss_fn: Callable,
-    optimizer: FusedOptimizer,
+    optimizer: Union[FusedOptimizer, Transform],
     op: str = Average,
     compression=None,
     has_batch_stats: bool = False,
@@ -342,9 +350,14 @@ def make_train_step(
       ``compression`` (default: ``HVD_COMPRESSION``; the stateless
       ``none`` / ``bf16`` casts are ported); the returned loss is
       averaged across ranks.
-    * ``fused_optimizer`` (default ``HVD_FUSED_OPTIMIZER``, on) routes
-      the update through the flat fused kernel instead of the per-leaf
-      traversal; both share one flat state.
+    * ``optimizer``: a :class:`FusedOptimizer` (``fused_sgd`` /
+      ``fused_adam``) or a transform of ``optim.transforms`` (``sgd``,
+      ``adam``, ``adamw``), which always runs per leaf.
+    * ``fused_optimizer`` (default ``HVD_FUSED_OPTIMIZER``, on) routes a
+      fused optimizer's update through the flat fused kernel instead of
+      the per-leaf traversal; both share one flat state.  Set with a
+      transform, it is logged and the per-leaf path kept, as the
+      reference does.
     * ``remat_policy`` (default ``HVD_REMAT_POLICY``): ``none``, ``full``
       (the backward recomputes the whole forward) or ``dots`` (it keeps
       the matrix products' outputs and recomputes the rest).
@@ -364,13 +377,19 @@ def make_train_step(
                      two_level=two_level, autotune=autotune,
                      profile_guided=profile_guided, profile=profile,
                      donate=donate, op=op)
-    if not isinstance(optimizer, FusedOptimizer):
+    fusable = isinstance(optimizer, FusedOptimizer)
+    if not fusable and not isinstance(optimizer, Transform):
         raise TypeError(
             "the port's train step takes a FusedOptimizer (fused_sgd / "
-            f"fused_adam), got {type(optimizer).__name__}")
+            "fused_adam) or a transform of optim.transforms (sgd / adam / "
+            f"adamw), got {type(optimizer).__name__}")
     if fused_optimizer is None:
         fused_optimizer = env_util.get_bool(env_util.HVD_FUSED_OPTIMIZER,
-                                            True)
+                                            fusable)
+    if fused_optimizer and not fusable:
+        log.info("HVD_FUSED_OPTIMIZER is on but the optimizer is not a "
+                 "FusedOptimizer — keeping the per-leaf path")
+        fused_optimizer = False
     remat = _resolve_remat(remat_policy)
     if loss_fetch_steps is None:
         loss_fetch_steps = env_util.get_int(
@@ -437,7 +456,8 @@ def broadcast_parameters(tree: Dict[str, torch.Tensor],
             collectives.broadcast_(t, root_rank)
 
 
-def init_train_state(model: nn.Module, optimizer: FusedOptimizer, *,
+def init_train_state(model: nn.Module,
+                     optimizer: Union[FusedOptimizer, Transform], *,
                      has_batch_stats: bool = False, compression=None,
                      device=None) -> TrainState:
     """The state of ``model`` on this rank's device: every rank builds

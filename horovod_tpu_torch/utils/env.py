@@ -26,6 +26,7 @@ HVD_COORDINATOR_ADDR = "HVD_COORDINATOR_ADDR"
 HVD_NUM_PROCESSES = "HVD_NUM_PROCESSES"
 HVD_PROCESS_ID = "HVD_PROCESS_ID"
 HVD_LOCAL_SIZE = "HVD_LOCAL_SIZE"                      # processes (cards) per host; default: the world
+HVD_START_TIMEOUT = "HVD_START_TIMEOUT"                # seconds a rank waits for the others at init
 
 # -- knobs of features still to be ported: refused when switched on ----------
 HVD_COMPRESSION = "HVD_COMPRESSION"
@@ -38,6 +39,7 @@ HVD_REMAT_POLICY = "HVD_REMAT_POLICY"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # 64 MiB, reference common.h:69
 FUSION_BUFFER_ATOMIC_UNIT = 64                     # reference common.h:94
+DEFAULT_START_TIMEOUT_SECONDS = 60.0               # rendezvous bound (core.init)
 DEFAULT_LOSS_FETCH_STEPS = 16                      # trailing loss-fetch cadence (training.py)
 
 

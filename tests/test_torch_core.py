@@ -4,7 +4,9 @@ the launcher's identity env, and for a 4-process world with 2 per host
 against the reference's SPMD rank math on a 4-device (cross 2, local 2)
 mesh."""
 
+import datetime
 import json
+import time
 
 import jax
 import numpy as np
@@ -113,6 +115,38 @@ def test_local_cross_layout_matches_reference_mesh(tmp_path):
         assert (lay["rank"], lay["local_rank"], lay["cross_rank"]) == \
             tuple(int(v) for v in ref[r]), json.dumps(got)
         assert (lay["size"], lay["local_size"], lay["cross_size"]) == sizes
+
+
+def test_failed_rank_ends_the_job_with_every_rank_output(tmp_path):
+    """A rank that fails ends the job at once: launch kills the rank
+    still waiting in init and reports both ranks' output."""
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError) as err:
+        launch("fail", 2, tmp_path)
+    assert time.monotonic() - t0 < 30
+    msg = str(err.value)
+    assert "planted failure of rank 1" in msg
+    assert "--- rank 0 ---" in msg and "--- rank 1 ---" in msg
+
+
+def test_rendezvous_is_bounded(monkeypatch):
+    """Rank 0 of a world of 2 whose rank 1 never comes raises after
+    HVD_START_TIMEOUT seconds instead of waiting for it."""
+    import torch.distributed as dist
+
+    server = dist.TCPStore("localhost", 0, 2, is_master=True,
+                           wait_for_workers=False, multi_tenant=True,
+                           timeout=datetime.timedelta(seconds=5))
+    for k, v in {"HVD_COORDINATOR_ADDR": f"localhost:{server.port}",
+                 "HVD_NUM_PROCESSES": "2", "HVD_PROCESS_ID": "0",
+                 "HVD_START_TIMEOUT": "1"}.items():
+        monkeypatch.setenv(k, v)
+    core.shutdown()
+    t0 = time.monotonic()
+    with pytest.raises(dist.DistError):
+        core.init(device="cpu")
+    assert time.monotonic() - t0 < 15
+    assert not core.is_initialized()
 
 
 def test_reinit_keeps_the_world_and_retires_what_was_built(port_cpu_world):

@@ -41,6 +41,7 @@ for m in pkgutil.walk_packages(horovod_tpu_torch.__path__, "horovod_tpu_torch.")
     importlib.import_module(m.name)
 import horovod_tpu_torch.examples.synthetic_benchmark
 import horovod_tpu_torch.examples.gpt_synthetic_benchmark
+import horovod_tpu_torch.examples.bert_synthetic_benchmark
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -52,7 +53,13 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.ops.flash_attention",
               "horovod_tpu_torch.ops.elementwise",
               "horovod_tpu_torch.ops.conv_bn",
-              "horovod_tpu_torch.examples.gpt_synthetic_benchmark"):
+              "horovod_tpu_torch.examples.gpt_synthetic_benchmark",
+              "horovod_tpu_torch.examples.bert_synthetic_benchmark",
+              "horovod_tpu_torch.examples.synthetic_benchmark",
+              "horovod_tpu_torch.models.vgg",
+              "horovod_tpu_torch.models.inception",
+              "horovod_tpu_torch.models.vit",
+              "horovod_tpu_torch.optim.transforms"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 

@@ -2,58 +2,115 @@
 per rank on a gloo group over localhost, identity from the same HVD_*
 environment a launcher sets.
 
-``launch(task, nproc, workdir)`` starts ``nproc`` copies of this file,
-waits for them (with a timeout) and returns their exit codes; each rank
-writes ``<workdir>/<task>.<rank>.npz``.  Inputs the task needs are read
-from ``<workdir>/inputs.npz``.
+``launch(task, nproc, workdir)`` starts ``nproc`` copies of this file and
+waits for them; each rank writes ``<workdir>/<task>.<rank>.npz``.  Inputs
+the task needs are read from ``<workdir>/inputs.npz``.
+
+The job's rendezvous cannot be another job's: rank 0 binds a free port
+itself (port 0) and hands it to the other ranks in
+``<workdir>/<task>.port``, so no port is freed and taken again in between
+(tests running side by side once met at one port that way).  When a rank
+fails or the job outlives its time, every rank is killed and the
+assertion holds all their output.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
-import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+#: seconds a rank waits for rank 0's port file (core.init then waits
+#: HVD_START_TIMEOUT, 60 by default, for the other ranks)
+START_TIMEOUT = 60.0
 
 
 def launch(task: str, nproc: int, workdir, local_size: int = None,
            timeout: float = 120.0):
+    """Runs the job; returns the ranks' exit codes (all 0) and outputs.
+    Raises ``AssertionError`` with every rank's output when a rank exits
+    non-zero or the job is not done within ``timeout`` seconds, after
+    killing the ranks still running."""
+    workdir = Path(workdir)
     env = dict(os.environ)
     env.update({
         "PYTHONPATH": str(REPO) + os.pathsep + env.get("PYTHONPATH", ""),
-        "HVD_COORDINATOR_ADDR": f"localhost:{_free_port()}",
         "HVD_NUM_PROCESSES": str(nproc),
         "OMP_NUM_THREADS": "1",
     })
+    env.pop("HVD_COORDINATOR_ADDR", None)
     if local_size is not None:
         env["HVD_LOCAL_SIZE"] = str(local_size)
+    (workdir / f"{task}.port").unlink(missing_ok=True)
+    logs = [workdir / f"{task}.{r}.log" for r in range(nproc)]
     procs = []
     for r in range(nproc):
-        procs.append(subprocess.Popen(
-            [sys.executable, __file__, task, str(workdir)],
-            env={**env, "HVD_PROCESS_ID": str(r)}, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs = []
+        with open(logs[r], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, task, str(workdir)],
+                env={**env, "HVD_PROCESS_ID": str(r)}, stdout=out,
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
+    deadline = time.monotonic() + timeout
+    failed = None
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll()]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"not done after {timeout} s"
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
-    return [p.returncode for p in procs], outs
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    outs = [log.read_text() for log in logs]
+    if failed or any(rcs):
+        raise AssertionError(
+            f"{task} job of {nproc} ranks: {failed or 'a rank failed'}; "
+            f"exit codes {rcs}\n" + "\n".join(
+                f"--- rank {r} ---\n{out}" for r, out in enumerate(outs)))
+    return rcs, outs
+
+
+def _rendezvous(workdir: Path, task: str):
+    """Points HVD_COORDINATOR_ADDR at rank 0's port.  Rank 0 serves the
+    job's store on a port the system picks and writes it to the port
+    file (core.init joins this server); the others wait for the file.
+    Returns rank 0's store, which must outlive the job."""
+    import torch.distributed as dist
+
+    rank, size = int(os.environ["HVD_PROCESS_ID"]), \
+        int(os.environ["HVD_NUM_PROCESSES"])
+    path = workdir / f"{task}.port"
+    store = None
+    if rank == 0:
+        store = dist.TCPStore(
+            "localhost", 0, size, is_master=True, wait_for_workers=False,
+            multi_tenant=True,
+            timeout=datetime.timedelta(seconds=START_TIMEOUT))
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(str(store.port))
+        tmp.rename(path)
+    else:
+        deadline = time.monotonic() + START_TIMEOUT
+        while not path.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"rank {rank}: no {path.name} from rank "
+                                   f"0 after {START_TIMEOUT} s")
+            time.sleep(0.02)
+    os.environ["HVD_COORDINATOR_ADDR"] = f"localhost:{path.read_text()}"
+    return store
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +283,25 @@ def _task_collectives(workdir: Path):
     return out
 
 
-TASKS = {"core": _task_core, "fusion": _task_fusion,
+def _task_fail(workdir: Path):
+    """Rank 1 fails before it joins; rank 0 waits for it in init."""
+    import horovod_tpu_torch as htt
+
+    if os.environ["HVD_PROCESS_ID"] == "1":
+        raise RuntimeError("planted failure of rank 1")
+    htt.init(device="cpu")
+    return {}
+
+
+TASKS = {"core": _task_core, "fail": _task_fail, "fusion": _task_fusion,
          "train_mlp": _task_train_mlp, "collectives": _task_collectives}
 
 
 def main():
     task, workdir = sys.argv[1], Path(sys.argv[2])
+    store = _rendezvous(workdir, task)
     out = TASKS[task](workdir)
+    del store
     rank = os.environ["HVD_PROCESS_ID"]
     np.savez(workdir / f"{task}.{rank}.npz", **out)
 
