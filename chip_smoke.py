@@ -137,6 +137,35 @@ Phases, each printing one JSON line:
    eager rates, peak memory, and MFU over ``FlopCounterMode``'s count of
    one forward and backward on the card.
 
+19. wire — the wire tier at world size 1 over NCCL on tensors shaped
+   like ResNet-50's 161 gradient leaves: what the card's torch and NCCL
+   do with a float8 SUM (the route), then for bf16, int8, fp8 e4m3 and
+   fp8 e5m2 (where the card reduces them) error feedback through
+   ``fused_allreduce`` eagerly and inside one captured graph, bit for
+   bit against the port's CPU result on the same seeded inputs (q, the
+   output, the new residual), one MAX all-reduce a call for a
+   quantizer's scales; Adasum and ``hierarchical`` give their input and
+   ``two_level`` counts its trivial-topology fallback.  Nothing across
+   cards is shown (run after collectives).
+20. ef_main_path — the main path with ``--compression int8`` (error
+   feedback), and fp8 e4m3 where the card reduces it: the main path's
+   checks, per step one all_reduce per bucket, one MAX and one for the
+   loss, a residual of one finite, nonzero leaf a parameter, one guard
+   read every EF_GUARD_STEPS calls; img/s beside the main path's (run
+   after main path).
+21. frontend_main_path — a narrow ResNet-18 of the reference's
+   plain-torch bench model in float64, 2 steps through
+   ``horovod_tpu_torch.torch.DistributedOptimizer`` on the card against
+   plain ``torch.optim.SGD`` on the CPU (frontend_parity); then
+   ``examples.pytorch_synthetic_benchmark.run`` at the reference's
+   defaults (ResNet-50, batch 32, float32, eager) plain and with
+   ``--fp16-allreduce``: one gradient all_reduce a parameter a step, a
+   finite loss, img/s, 2 more steps traced (run after ef_main_path).
+22. bert_adasum — BERT-base, ``--attn pallas --adasum``, graphed, the
+   warm-up, the capture and 2 replays: K2-K4 12 a step, the loss's
+   all_reduce alone, and the final loss bit-equal to the same run
+   without ``--adasum`` (run after bert_main_path).
+
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
 on the card and on the CPU as in parity, and bert_tiny (flash attention
@@ -1219,26 +1248,42 @@ def _k1(kernels, rule: str) -> dict:
 
 class AllReduceCounter:
     """Counts ``dist.all_reduce`` calls while active, apart: those made
-    eagerly and those recorded into a CUDA graph's capture."""
+    eagerly and those recorded into a CUDA graph's capture, in all
+    (``eager``, ``captured``) and by op (``counts``: ``"sum.eager"``,
+    ``"max.captured"``, ...)."""
 
     def __enter__(self):
         import torch.distributed as dist
 
-        self.eager = self.captured = 0
+        self.counts = {}
         self._dist, self._call = dist, dist.all_reduce
 
-        def counting(*args, **kwargs):
-            if torch.cuda.is_current_stream_capturing():
-                self.captured += 1
-            else:
-                self.eager += 1
-            return self._call(*args, **kwargs)
+        def counting(tensor, op=dist.ReduceOp.SUM, *args, **kwargs):
+            kind = "max" if op == dist.ReduceOp.MAX else (
+                "sum" if op == dist.ReduceOp.SUM else str(op))
+            where = "captured" if torch.cuda.is_current_stream_capturing() \
+                else "eager"
+            key = f"{kind}.{where}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self._call(tensor, op, *args, **kwargs)
 
         dist.all_reduce = counting
         return self
 
     def __exit__(self, *exc):
         self._dist.all_reduce = self._call
+
+    def _total(self, where: str) -> int:
+        return sum(n for k, n in self.counts.items()
+                   if k.endswith("." + where))
+
+    @property
+    def eager(self) -> int:
+        return self._total("eager")
+
+    @property
+    def captured(self) -> int:
+        return self._total("captured")
 
     def check(self, what: str, calls: dict, per_step: int,
               k: int = 1) -> dict:
@@ -1254,6 +1299,20 @@ class AllReduceCounter:
             fail(f"{what}: all_reduce calls {got} over {calls}, want "
                  f"{want} ({per_step} a step)")
         return got
+
+    def check_ops(self, what: str, calls: dict, per_step: dict) -> dict:
+        """As :meth:`check`, by op: ``per_step`` is ``{"sum": n, "max":
+        m}``."""
+        want = {}
+        for kind, n in per_step.items():
+            for where, c in (("eager", calls["eager"]),
+                             ("captured", calls["capture"])):
+                if n * c:
+                    want[f"{kind}.{where}"] = n * c
+        if self.counts != want:
+            fail(f"{what}: all_reduce calls {self.counts} over {calls}, "
+                 f"want {want} ({per_step} a step)")
+        return dict(self.counts)
 
 
 def issued_steps(calls: dict, k: int = 1) -> int:
@@ -2531,16 +2590,18 @@ def step_trace(k1: int = 1, flash: int = 0, variants=None) -> dict:
 PROFILE_MARGIN_S = 0.05
 
 
-def profiled(fn):
+def profiled(fn, cpu: bool = True):
     """``fn()`` under torch.profiler, from an idle card and with
     PROFILE_MARGIN_S of idle time on either side, the card synchronized
     before the profiler stops: its result, its wall ms and the device
-    kernels' ``(start_us, end_us, name)`` spans."""
+    kernels' ``(start_us, end_us, name)`` spans.  ``cpu=False`` records
+    the device's activity alone (an eager step's thousands of host ops
+    would slow it under the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu +
+                 [ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
@@ -2743,6 +2804,452 @@ def phase_rules(htt, kernels):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the wire tier and the Horovod torch frontend (world size 1 on the card)
+# ---------------------------------------------------------------------------
+#: the wire phase's compressors
+WIRE_COMPRESSORS = ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")
+#: the guard's cadence in the error-feedback main path (calls a read)
+EF_GUARD_STEPS = 5
+
+
+def fp8_wire_route() -> dict:
+    """What this card's torch and NCCL do with a float8 SUM all-reduce at
+    world size 1: ``reduced`` (right), ``wrong`` or ``refused`` (torch's
+    or NCCL's error, checked before anything is sent)."""
+    import torch.distributed as dist
+
+    route = {"nccl": ".".join(map(str, torch.cuda.nccl.version())),
+             "torch": torch.__version__}
+    for name, dtype in (("fp8_e4m3", torch.float8_e4m3fn),
+                        ("fp8_e5m2", torch.float8_e5m2)):
+        t = torch.full((16,), 1.5, device="cuda").to(dtype)
+        try:
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as e:
+            route[name] = "refused: " + str(e).strip().splitlines()[0][:240]
+            continue
+        route[name] = "reduced" if torch.equal(
+            t.float(), torch.full((16,), 1.5, device="cuda")) else \
+            f"wrong: {t.float()[:4].tolist()}"
+    return route
+
+
+def _resnet50_leaves(seed: int, device) -> list:
+    """Random float32 tensors shaped like ResNet-50's 161 gradient leaves
+    (made on the CPU from ``seed``, then moved)."""
+    from horovod_tpu_torch.convert import canonical_params
+    from horovod_tpu_torch.models import ResNet50
+
+    with torch.device("meta"):
+        shapes = [p.shape for p in canonical_params(ResNet50()).values()]
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn(s, generator=gen) * 1e-2).to(device)
+            for s in shapes]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bytes (float8 has no equality of
+    its own)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _cpu_wire(comp, grads, residuals):
+    """The port's CPU result of one error-feedback reduction at world size
+    1, by its own functions (gloo reduces no float8, so not through the
+    collective): each leaf's q, output and new residual."""
+    from horovod_tpu_torch.ops import compression as C
+
+    xs = [g + r for g, r in zip(grads, residuals)]
+    maxima = C.local_max_abs(xs) if C.is_scaled(comp) else None
+    out = []
+    for i, x in enumerate(xs):
+        q, ctx = C.compress_with(comp, x, 1, max_abs=None if maxima is None
+                                 else maxima[i])
+        red = C.average_(q.clone(), 1)
+        out.append((q, comp.decompress(red, ctx),
+                    x - comp.decompress(q, ctx)))
+    return out
+
+
+def phase_wire(htt, card) -> dict:
+    """The wire tier at world size 1 over NCCL, on tensors shaped like
+    ResNet-50's 161 gradient leaves: for each compressor, error feedback
+    through ``fused_allreduce`` eagerly and inside one captured graph,
+    held bit for bit against the port's CPU result on the same seeded
+    inputs (q, the output and the new residual), with one MAX all-reduce
+    a call for a quantizer's scales; then Adasum, hierarchical and
+    two-level at world size 1.  Nothing across cards is shown."""
+    from horovod_tpu_torch.ops import compression as C
+    from horovod_tpu_torch.parallel import hierarchical
+
+    route = fp8_wire_route()
+    grads_cpu, res_cpu = _resnet50_leaves(11, "cpu"), _resnet50_leaves(12,
+                                                                       "cpu")
+    fresh_cpu = _resnet50_leaves(13, "cpu"), _resnet50_leaves(14, "cpu")
+    grads, res = [t.cuda() for t in grads_cpu], [t.cuda() for t in res_cpu]
+    fresh = [[t.cuda() for t in ts] for ts in fresh_cpu]
+    buckets = {}
+    results = {}
+    for name in WIRE_COMPRESSORS:
+        comp = C.Compression.lookup(name)
+        if name.startswith("fp8") and route[name] != "reduced":
+            try:
+                htt.fused_allreduce(grads, compression=C.ErrorFeedback(comp),
+                                    residuals=res)
+            except RuntimeError as e:
+                results[name] = {"route": route[name],
+                                 "raised": str(e).splitlines()[0][:200]}
+                continue
+            fail(f"wire: {name} was reduced, though the probe found "
+                 f"{route[name]}")
+        ef = C.ErrorFeedback(comp)
+        want = _cpu_wire(comp, grads_cpu, res_cpu)
+        # q on the card, by the same functions, bit for bit
+        xs = [g + r for g, r in zip(grads, res)]
+        maxima = C.local_max_abs(xs) if C.is_scaled(comp) else None
+        q_bad = 0
+        for i, x in enumerate(xs):
+            q, _ = C.compress_with(comp, x, 1, max_abs=None if maxima is None
+                                   else maxima[i])
+            q_bad += int(not same_bits(q.cpu(), want[i][0]))
+        with AllReduceCounter() as calls:
+            out, new_res = htt.fused_allreduce(grads, compression=ef,
+                                               residuals=res)
+        torch.cuda.synchronize()
+        n_buckets = calls.counts.get("sum.eager", 0)
+        buckets[name] = n_buckets
+        want_calls = {"sum.eager": n_buckets,
+                      **({"max.eager": 1} if C.is_scaled(comp) else {})}
+        if calls.counts != want_calls or n_buckets < 1:
+            fail(f"wire: {name} all_reduce calls {calls.counts}, want "
+                 f"{want_calls}")
+        out_err = max((o.cpu() - w[1]).abs().max().item()
+                       for o, w in zip(out, want))
+        res_err = max((r.cpu() - w[2]).abs().max().item()
+                      for r, w in zip(new_res, want))
+        if q_bad or out_err or res_err:
+            fail(f"wire: {name} against the CPU: {q_bad} leaves' q differ, "
+                 f"output {out_err}, residual {res_err}")
+        # captured: one graph; replayed on fresh inputs it must give the
+        # eager call's numbers on them
+        static_g = [g.clone() for g in grads]
+        static_r = [r.clone() for r in res]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            htt.fused_allreduce(static_g, compression=ef, residuals=static_r)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with AllReduceCounter() as captured:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                g_out, g_res = htt.fused_allreduce(
+                    static_g, compression=ef, residuals=static_r)
+        want_captured = {k.replace("eager", "captured"): v
+                         for k, v in want_calls.items()}
+        if captured.counts != want_captured:
+            fail(f"wire: {name} captured all_reduce calls {captured.counts}"
+                 f", want {want_captured}")
+        for dst, src in zip(static_g + static_r, fresh[0] + fresh[1]):
+            dst.copy_(src)
+        graph.replay()
+        e_out, e_res = htt.fused_allreduce(fresh[0], compression=ef,
+                                           residuals=fresh[1])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g_out + g_res,
+                                                     e_out + e_res)):
+            fail(f"wire: {name}: the replayed graph differs from the eager "
+                 "call on the same inputs")
+        del graph
+        results[name] = {"route": "nccl", "buckets": n_buckets,
+                         "allreduce_calls": calls.counts,
+                         "captured_allreduce_calls": captured.counts,
+                         "q_leaves_differing": q_bad,
+                         "max_abs_err_output": out_err,
+                         "max_abs_err_residual": res_err,
+                         "graph_equals_eager": True}
+    # Adasum, hierarchical and two-level at world size 1
+    x = torch.randn(1001, device="cuda")
+    before = hierarchical.FALLBACKS["two_level"]
+    adasum = htt.allreduce(x, op=htt.Adasum)
+    hier = htt.allreduce(x, hierarchical=True)
+    two = htt.allreduce(x, two_level=True, compression=C.Compression.int8)
+    fallbacks = hierarchical.FALLBACKS["two_level"] - before
+    two_err = (two - x).abs().max().item()
+    if not (torch.equal(adasum, x) and torch.equal(hier, x)) or \
+            fallbacks != 1 or two_err > x.abs().max().item() / 127:
+        fail(f"wire: at world size 1 Adasum / hierarchical / two-level "
+             f"gave {adasum[:3]}, {hier[:3]}, two-level error {two_err} "
+             f"with {fallbacks} fallbacks")
+    emit({"phase": "wire", "world_size": htt.size(),
+          "leaves": len(grads), "elements": sum(g.numel() for g in grads),
+          "fp8_route": route, "compressors": results,
+          "adasum_returns_input": True, "hierarchical_returns_input": True,
+          "two_level_fallbacks": fallbacks,
+          "tolerance": "bit-equal (q, output, residual; graph vs eager)",
+          "note": "world size 1 over NCCL: nothing across cards is shown",
+          "card": card})
+    return route
+
+
+def _residual_check(what, step, state, calls: int) -> dict:
+    """The error-feedback state after ``calls`` calls of ``step``: one
+    residual leaf a parameter, finite, not all zero, and one guard read
+    every EF_GUARD_STEPS calls."""
+    res = state.residual
+    if sorted(res) != sorted(state.params):
+        fail(f"{what}: residual leaves {len(res)} for "
+             f"{len(state.params)} parameters")
+    finite = all(bool(torch.isfinite(r).all()) for r in res.values())
+    nonzero = any(bool(r.any()) for r in res.values())
+    if not (finite and nonzero):
+        fail(f"{what}: residual finite {finite}, nonzero {nonzero}")
+    if step.guard["reads"] != calls // EF_GUARD_STEPS or step.guard["trips"]:
+        fail(f"{what}: guard {step.guard} after {calls} calls, want "
+             f"{calls // EF_GUARD_STEPS} reads and no trip")
+    return {"residual_leaves": len(res), "guard": dict(step.guard)}
+
+
+def phase_ef_main_path(kernels, flops_mod, card, default_img_sec,
+                       fp8_route) -> dict:
+    """``examples.synthetic_benchmark.run`` as the main path (ResNet-50,
+    224x224, batch 128, bf16, fused momentum, graphed) with
+    ``--compression int8`` (error feedback, the default), and again with
+    fp8 e4m3 when the card reduces it: a finite loss, K1 momentum once a
+    step issued and traced, per step one all_reduce per (1-byte) bucket,
+    one MAX for the scales and one for the loss, a residual of one leaf a
+    parameter that is finite and nonzero, one guard read every
+    EF_GUARD_STEPS calls; img/s beside the main path's."""
+    import os
+
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import ResNet50
+
+    base_argv = ["--model", "ResNet50", "--image-size", "224",
+                 "--batch-size", "128", "--dtype", "bfloat16",
+                 "--fused-optimizer", "--num-warmup-batches", "2",
+                 "--num-batches-per-iter", "5", "--num-iters", "3"]
+    steps = 2 + 5 * 3
+    wires = ["int8"] + (["fp8"] if fp8_route["fp8_e4m3"] == "reduced"
+                        else [])
+    out = {}
+    saved = os.environ.get("HVD_COMPRESSION_GUARD_STEPS")
+    os.environ["HVD_COMPRESSION_GUARD_STEPS"] = str(EF_GUARD_STEPS)
+    try:
+        for wire in wires:
+            with torch.device("meta"):
+                from horovod_tpu_torch.convert import canonical_params
+                from horovod_tpu_torch.ops.fusion import FusionPlan
+
+                leaves = [p.to(torch.int8) for p in canonical_params(
+                    ResNet50()).values()]
+            buckets = FusionPlan(leaves).num_buckets()
+            what = f"ef_main_path {wire}"
+            trace = main_path_trace(what, kernels, step_trace())
+
+            def then(step, state, x, y, trace=trace, what=what):
+                traced = trace(step, state, x, y)
+                return {**traced, **_residual_check(
+                    what, step, state, sum(step.calls.values()))}
+
+            reset_counts(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            with AllReduceCounter() as calls:
+                t0 = time.perf_counter()
+                result = sb.run(sb.parse_args(base_argv + [
+                    "--compression", wire]), then=then)
+                wall = time.perf_counter() - t0
+            if not math.isfinite(result["final_loss"]):
+                fail(f"{what}: final loss {result['final_loss']}")
+            check_graphed(what, result["step_calls"], steps)
+            host_steps = issued_steps(result["step_calls"])
+            k1 = kernels.launch_totals(kernels.fused_update_launches)
+            if k1 != {"sgd": 0, "momentum": host_steps, "adam": 0}:
+                fail(f"{what}: K1 launches issued "
+                     f"{kernels.fused_update_launches}")
+            allreduce = calls.check_ops(what, result["step_calls"],
+                                        {"sum": buckets + 1, "max": 1})
+            traced = result["then"]
+            out[wire] = result["img_sec_per_chip"]
+            emit({"phase": "ef_main_path", "model": "ResNet50",
+                  "image_size": 224, "batch_per_chip": 128,
+                  "dtype": "bfloat16", "optimizer": "fused momentum (K1)",
+                  "compression": f"ErrorFeedback({wire})",
+                  "world_size": result["size"], "steps": steps,
+                  "k1_launches_issued": _k1(kernels, "momentum"),
+                  "fusion_buckets": buckets, "allreduce_calls": allreduce,
+                  "trace": traced,
+                  "img_sec_per_chip": result["img_sec_per_chip"],
+                  "img_sec_conf": result["conf"],
+                  "main_path_img_sec_per_chip": default_img_sec,
+                  "step_calls": result["step_calls"],
+                  "mfu": flops_mod.image_model_mfu(
+                      result["img_sec_per_chip"]),
+                  "final_loss": result["final_loss"],
+                  "max_memory_allocated_bytes":
+                      torch.cuda.max_memory_allocated(),
+                  "wall_s": wall, "card": card})
+    finally:
+        if saved is None:
+            os.environ.pop("HVD_COMPRESSION_GUARD_STEPS", None)
+        else:
+            os.environ["HVD_COMPRESSION_GUARD_STEPS"] = saved
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_benchmark(on: bool):
+    """cuDNN's benchmark mode set to ``on`` inside, restored after."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+#: the frontend's traced steps (eager: no graph to replay)
+FRONTEND_TRACED_STEPS = 2
+
+
+def phase_frontend_main_path(htt, card):
+    """The Horovod torch frontend.  First a narrow ResNet-18 (the
+    reference bench's plain-torch model, width 8, 64x64, batch 8) in
+    float64, 2 steps through ``DistributedOptimizer`` on the card and 2
+    through plain ``torch.optim.SGD`` on the CPU, TF32 off, at the parity
+    limits.  Then ``examples.pytorch_synthetic_benchmark.run`` at the
+    reference's defaults (ResNet-50, batch 32, 224x224, float32, eager):
+    a finite loss, one gradient all_reduce a parameter a step, img/s,
+    and 2 more steps traced (device time, idle share); then with
+    ``--fp16-allreduce``."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as pb
+
+    with no_tf32():
+        torch.manual_seed(3)
+        base = pb.make_model("resnet18", 10, width=8).double()
+        gen = torch.Generator().manual_seed(4)
+        x = torch.rand((8, 3, 64, 64), generator=gen, dtype=torch.float64)
+        y = torch.randint(0, 10, (8,), generator=gen)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = copy.deepcopy(base).to(dev)
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            if dev == "cuda":
+                opt = hvd_torch.DistributedOptimizer(
+                    opt, named_parameters=model.named_parameters())
+            losses = []
+            for _ in range(2):
+                opt.zero_grad()
+                loss = F.cross_entropy(model(x.to(dev)), y.to(dev))
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            runs[dev] = (losses, {k: v.detach().cpu() for k, v in
+                                  model.state_dict().items()
+                                  if v.is_floating_point()})
+    parity = check_card_cpu("frontend parity", runs)
+    emit({"phase": "frontend_parity",
+          "model": "pytorch_synthetic_benchmark resnet18 (width 8) 64x64 "
+                   "b8, float64", "steps": 2, **parity,
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL},
+          "tf32": False})
+
+    with torch.device("meta"):
+        n_grads = sum(p.requires_grad for p in pb.make_model(
+            "resnet50", 1000).parameters())
+    args = pb.parse_args([])
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+
+    def trace(step):
+        _, wall_ms, spans = profiled(
+            lambda: [step() for _ in range(FRONTEND_TRACED_STEPS)],
+            cpu=False)
+        return {"steps": FRONTEND_TRACED_STEPS, "wall_ms": wall_ms,
+                **device_breakdown(spans, FRONTEND_TRACED_STEPS)}
+
+    rates = {}
+    for extra in ([], ["--fp16-allreduce"]):
+        name = "fp16_allreduce" if extra else "plain"
+        torch.cuda.reset_peak_memory_stats()
+        # torch's cuDNN defaults, as the reference's harness runs (the
+        # image benches before it turned cuDNN's benchmark mode on)
+        with cudnn_benchmark(False), AllReduceCounter() as calls:
+            t0 = time.perf_counter()
+            result = pb.run(pb.parse_args(extra), then=trace)
+            wall = time.perf_counter() - t0
+        done = steps + FRONTEND_TRACED_STEPS
+        if not math.isfinite(result["final_loss"]) or \
+                (calls.eager, calls.captured) != (done * n_grads, 0):
+            fail(f"frontend_main_path {name}: loss {result['final_loss']}, "
+                 f"all_reduce calls {calls.eager} eager / {calls.captured} "
+                 f"captured, want {done * n_grads} ({n_grads} a step)")
+        rates[name] = result["img_sec_per_proc"]
+        emit({"phase": "frontend_main_path", "run": name,
+              "model": "resnet50", "batch_per_chip": args.batch_size,
+              "image_size": args.image_size, "dtype": "float32",
+              "optimizer": "hvd.DistributedOptimizer(SGD(0.01 * size, "
+                           "momentum=0.9))",
+              "compression": "fp16 (bf16)" if extra else "none",
+              "world_size": htt.size(), "steps": steps,
+              "allreduce_calls_per_step": n_grads,
+              "img_sec_per_chip": result["img_sec_per_proc"],
+              "trace": result["then"], "final_loss": result["final_loss"],
+              "max_memory_allocated_bytes":
+                  torch.cuda.max_memory_allocated(),
+              "wall_s": wall, "card": card})
+    return rates
+
+
+#: BERT-base with --adasum: 1 warm-up (eager), the capture, 2 replays
+BERT_ADASUM_ARGV = ["--attn", "pallas", "--num-warmup-batches", "2",
+                    "--num-batches-per-iter", "2", "--num-iters", "1"]
+
+
+def phase_bert_adasum(htt, kernels, card):
+    """``examples.bert_synthetic_benchmark.run`` at full size with
+    ``--attn pallas --adasum``, graphed, cut to the warm-up and capture
+    and 2 replays: K2-K4 12 a step each (issued and traced), one
+    all_reduce a step (the loss: Adasum at world size 1 exchanges
+    nothing), and the final loss bit-equal to the same run without
+    ``--adasum`` from the same seeds."""
+    from horovod_tpu_torch.examples import bert_synthetic_benchmark as bb
+
+    layers, steps = 12, 4
+    reset_counts(kernels)
+    with AllReduceCounter() as calls:
+        t0 = time.perf_counter()
+        ada = bb.run(bb.parse_args(BERT_ADASUM_ARGV + ["--adasum"]),
+                     then=main_path_trace("bert_adasum", kernels,
+                                          step_trace(k1=0, flash=layers)))
+        wall = time.perf_counter() - t0
+    check_graphed("bert_adasum", ada["step_calls"], steps)
+    host_steps = issued_steps(ada["step_calls"])
+    flash = dict(kernels.flash_launches)
+    if flash != flash_counts(kernels, GPT_BF16_FLASH, layers * host_steps):
+        fail(f"bert_adasum: K2-K4 launches issued {flash}")
+    allreduce = calls.check("bert_adasum", ada["step_calls"], 1)
+    base = bb.run(bb.parse_args(BERT_ADASUM_ARGV))
+    if ada["final_loss"] != base["final_loss"] or \
+            not math.isfinite(ada["final_loss"]):
+        fail(f"bert_adasum: final loss {ada['final_loss']!r}, the default "
+             f"run's {base['final_loss']!r} (want bit-equal)")
+    emit({"phase": "bert_adasum", "model": "bert_base", "attn": "pallas",
+          "op": "Adasum", "world_size": htt.size(), "steps": steps,
+          "step_calls": ada["step_calls"], "allreduce_calls": allreduce,
+          "k2_k4_launches_issued": {k: v for k, v in flash.items() if v},
+          "trace": ada["then"], "final_loss": ada["final_loss"],
+          "default_final_loss": base["final_loss"], "bit_equal": True,
+          "sent_sec_per_chip": ada["sent_sec_per_chip"],
+          "default_sent_sec_per_chip": base["sent_sec_per_chip"],
+          "wall_s": wall, "card": card})
+
+
 #: where the kernels line's launches come from
 LAUNCHES_NOTE = (
     f"counted by name in the CUPTI trace of the last {TRACED_CALLS} "
@@ -2839,9 +3346,12 @@ def main() -> None:
     phase_graph_parity(htt, kernels)
     phase_registry_parity(htt, kernels)
     phase_collectives(htt)
+    fp8_route = phase_wire(htt, card)
     k1_launches = {}
     k1_launches["momentum"], default_img_sec = phase_main_path(
         kernels, flops_mod, card)
+    phase_ef_main_path(kernels, flops_mod, card, default_img_sec, fp8_route)
+    phase_frontend_main_path(htt, card)
     phase_profile(htt, kernels)
     results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                       default_img_sec))
@@ -2861,6 +3371,7 @@ def main() -> None:
     bert_trace = phase_bert_main_path(htt, kernels, card)
     for key in ("K2", "K3", "K4"):
         results[key]["bert"]["launches"] = bert_trace["launches"][key]
+    phase_bert_adasum(htt, kernels, card)
     registry = phase_registry_main_path(htt, kernels, flops_mod, card)
     results["momentum"]["vgg16"]["launches"] = \
         registry["VGG16"]["k1"]["momentum"]["float32"]

@@ -22,9 +22,19 @@ from .ops.collectives import (  # noqa: F401
     ProcessSet, allgather, allgatherv, allreduce, allreduce_gradients,
     alltoall, broadcast, grouped_allreduce, reducescatter,
 )
-from .ops.compression import Compression  # noqa: F401
+from .ops.compression import Compression, ErrorFeedback  # noqa: F401
 from .ops.fusion import (  # noqa: F401
     FusionPlan, allreduce_pytree, fused_allreduce, tree_leaf_names,
+)
+from .ops.sparse import (  # noqa: F401
+    IndexedSlices, allreduce_indexed_slices, embedding_grad_as_slices,
+)
+from .parallel.hierarchical import two_level_allreduce  # noqa: F401
+from .eager import allgather_object, broadcast_object  # noqa: F401
+from .elastic.join import join, join_allreduce  # noqa: F401
+from .optim.distributed import (  # noqa: F401
+    DistributedGradientTape, DistributedOptimizer, broadcast_optimizer_state,
+    broadcast_parameters, broadcast_variables,
 )
 from .optim.fused_update import (  # noqa: F401
     FusedOptimizer, FusedOptState, fused_adam, fused_sgd,

@@ -22,9 +22,10 @@ reference:
   leaf by leaf.
 
 ``--attn pallas`` runs non-causal flash attention, the kernels K2-K4;
-``--attn xla`` the encoder's materialized attention.  Sequence
-parallelism (``--seq-parallel ring|ulysses``, ROADMAP queue 1 item 9) and
-Adasum (``--adasum``, item 7) are not ported yet and raise.
+``--attn xla`` the encoder's materialized attention.  ``--adasum``
+reduces each gradient with ``allreduce(op=Adasum)`` inside the step, as
+the reference's bench does.  Sequence parallelism (``--seq-parallel
+ring|ulysses``, ROADMAP queue 1 item 9) is not ported yet and raises.
 
 On a card the step is the compiled one (the first warm-up call eager,
 the second captures ``--num-in-graph-steps`` steps into a CUDA graph,
@@ -139,10 +140,6 @@ def _refuse_unported(args) -> None:
             f"--seq-parallel {args.seq_parallel} is not ported yet: ring "
             "and Ulysses attention land with sequence parallelism "
             "(ROADMAP queue 1, item 9)")
-    if args.adasum:
-        raise NotImplementedError(
-            "--adasum is not ported yet: Adasum reduction lands with "
-            "ROADMAP queue 1, item 7")
 
 
 def run(args, eager: bool = False,
@@ -171,6 +168,7 @@ def run(args, eager: bool = False,
             * 0.02).to(core.device())
     step = make_train_step(apply_fn=mlm_apply(model, head),
                            loss_fn=masked_mlm_loss, optimizer=opt,
+                           op=core.Adasum if args.adasum else core.Average,
                            in_graph_steps=args.num_in_graph_steps)
     run_step = step.eager if eager else step
 
@@ -184,7 +182,8 @@ def run(args, eager: bool = False,
             print(s, flush=True)
 
     log(f"Model: bert-{args.model}  seq {args.seq_len}  attn {args.attn}  "
-        f"sp {args.seq_parallel}  device {core.device()}")
+        f"sp {args.seq_parallel}  adasum {args.adasum}  "
+        f"device {core.device()}")
     # Reading the loss waits for the whole chain of steps queued before it.
     for _ in range(max(args.num_warmup_batches, 1)):
         state, loss = run_step(state, x, y)

@@ -3,7 +3,8 @@
 Trains a model of the image registry (``models.MODELS``: the ResNets,
 VGG, Inception V3, the ViTs) data-parallel on one synthetic batch and
 reports images per second, with the reference's CLI for the flags this
-slice supports plus ``--device``.  As in the reference,
+slice supports (``--compression``, ``--adasum`` and ``--hierarchical``
+among them) plus ``--device``.  As in the reference,
 ``--fused-optimizer`` trains with ``fused_sgd(0.01, momentum=0.9)``, the
 flat kernel K1, and without it with ``sgd(0.01, momentum=0.9)`` (optax's,
 ``optim/transforms.py``) leaf by leaf; the ResNet kernel options
@@ -31,10 +32,12 @@ import torch.nn.functional as F
 
 from .. import core
 from ..models import BATCH_STATS_FREE, MODELS
-from ..ops.compression import Compression
+from ..ops.compression import Compression, ErrorFeedback
+from ..ops.compression import from_env as compression_from_env
 from ..optim.fused_update import fused_sgd
 from ..optim.transforms import sgd
 from ..training import init_train_state, make_train_step, shard_batch
+from ..utils import env as env_util
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -46,6 +49,12 @@ def parse_args(argv=None):
     )
     parser.add_argument("--fp16-allreduce", action="store_true", default=False,
                         help="use bf16 compression during allreduce")
+    parser.add_argument("--compression", type=str, default=None,
+                        choices=["none", "bf16", "fp16", "int8", "fp8",
+                                 "fp8_e5m2"],
+                        help="gradient wire format (quantized formats "
+                             "carry the error-feedback residual; "
+                             "default: the HVD_COMPRESSION env knob)")
     parser.add_argument("--model", type=str, default="ResNet50",
                         choices=sorted(MODELS), help="model to benchmark")
     parser.add_argument("--batch-size", type=int, default=32,
@@ -60,6 +69,10 @@ def parse_args(argv=None):
                         help="optimizer steps per call of the step")
     parser.add_argument("--num-iters", type=int, default=10,
                         help="number of benchmark iterations")
+    parser.add_argument("--adasum", action="store_true", default=False,
+                        help="use Adasum reduction")
+    parser.add_argument("--hierarchical", action="store_true", default=False,
+                        help="use the two-level (local / cross) allreduce")
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=sorted(_DTYPES),
                         help="model compute dtype (params stay float32)")
@@ -137,18 +150,32 @@ def run(args, eager: bool = False,
     target = torch.randint(0, args.num_classes, (global_batch,),
                            generator=gen, device=device)
 
+    if args.compression:
+        compression = Compression.lookup(
+            args.compression, error_feedback=env_util.get_bool(
+                env_util.HVD_COMPRESSION_ERROR_FEEDBACK, True))
+    elif args.fp16_allreduce:
+        compression = Compression.fp16
+    else:
+        compression = None  # make_train_step reads HVD_COMPRESSION
     step = make_train_step(
         apply_fn=model,
         loss_fn=F.cross_entropy,
         optimizer=opt,
-        op=core.Average,
-        compression=Compression.fp16 if args.fp16_allreduce else None,
+        op=core.Adasum if args.adasum else core.Average,
+        compression=compression,
         has_batch_stats=has_batch_stats,
+        hierarchical=args.hierarchical,
         in_graph_steps=args.num_in_graph_steps,
         fused_optimizer=args.fused_optimizer,
         loss_fetch_steps=args.loss_fetch_steps,
     )
-    state = init_train_state(model, opt, has_batch_stats=has_batch_stats)
+    effective = compression if compression is not None \
+        else compression_from_env()
+    state = init_train_state(
+        model, opt, has_batch_stats=has_batch_stats,
+        compression=effective if isinstance(effective, ErrorFeedback)
+        else None)
     run_step = step.eager if eager else step
     x = shard_batch(data)
     y = shard_batch(target)

@@ -4,7 +4,7 @@
 The reference emits each collective over its device mesh inside an SPMD
 region; here every rank is a process and each function is one
 ``torch.distributed`` call on the job's group, or on a
-:class:`ProcessSet`'s group: NCCL for CUDA tensors, gloo for CPU tensors
+:class:`ProcessSet`'s group (Adasum: a few, ``ops/adasum.py``): NCCL for CUDA tensors, gloo for CPU tensors
 (a mixed ``"cpu:gloo,cuda:nccl"`` backend serves both).  Each function
 leaves its input unchanged and returns a new tensor.  None of them reads
 a value back to the host, so they can be captured into a CUDA graph.
@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 from .. import core
 from ..core import Adasum, Average, Max, Min, Sum
-from .compression import Compression
+from .compression import Compression, average_, check_wire, compress_with
 
 _REDUCE_OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
                Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
@@ -32,10 +32,13 @@ _REDUCE_OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
 
 def reduce_op(op: str):
     """The ``torch.distributed`` op for a Horovod op name (Average sums,
-    then the caller divides by the group size)."""
+    then the caller divides by the group size).  Adasum is no
+    ``torch.distributed`` op: :func:`allreduce` runs it tensor by tensor
+    (``ops/adasum.py``)."""
     if op == Adasum:
-        raise NotImplementedError(
-            "Adasum is not ported yet (it comes with the wire-tier slice)")
+        raise ValueError(
+            "Adasum is not a bucketed reduction: reduce each tensor with "
+            "allreduce(op=Adasum)")
     try:
         return _REDUCE_OPS[op]
     except KeyError:
@@ -102,29 +105,53 @@ def allreduce(tensor: torch.Tensor, *, op: str = Average,
               hierarchical: bool = False,
               two_level: bool = False) -> torch.Tensor:
     """Every rank of the group gets the reduction of its ranks'
-    ``tensor`` (``op``: Average, Sum, Min or Max), scaled by
+    ``tensor`` (``op``: Average, Sum, Adasum, Min or Max), scaled by
     ``prescale_factor`` before the wire cast and by ``postscale_factor``
-    after the reduction, as in the reference."""
+    after the reduction, as in the reference.  ``compression`` compresses
+    for the group's size (a quantizer's scale is one MAX all-reduce over
+    the group).  ``hierarchical`` takes the two-level local / cross
+    decomposition (``parallel/hierarchical.py``), ``two_level`` the one
+    with ``compression`` on the cross stage only."""
     del name  # the reference's tensor name; NCCL calls carry none
-    if hierarchical:
-        raise NotImplementedError(
-            "hierarchical allreduce is not ported yet (it comes with the "
-            "wire-tier slice)")
-    if two_level:
-        raise NotImplementedError(
-            "two_level allreduce is not ported yet (it comes with the "
-            "wire-tier slice)")
-    dist_op = reduce_op(op)
+    if two_level and op in (Average, Sum, Adasum):
+        if process_set is not None:
+            raise ValueError(
+                "two-level allreduce over a process subset is unsupported")
+        from ..parallel.hierarchical import two_level_allreduce
+
+        t = tensor * prescale_factor if prescale_factor != 1.0 else tensor
+        out = two_level_allreduce(t, op=op, compression=compression)
+        return out * postscale_factor if postscale_factor != 1.0 else out
+    if hierarchical and op in (Min, Max):
+        raise ValueError("hierarchical allreduce supports Sum/Average/Adasum")
+    if op != Adasum:
+        dist_op = reduce_op(op)
+    if hierarchical and process_set is not None:
+        raise ValueError(
+            "hierarchical allreduce over a process subset is unsupported")
     member, group, group_size = group_of(process_set)
     if not member:
         return tensor.clone()
+    # prescale before the wire cast: scaling an int8 / fp8 payload would
+    # promote its type and move the quantization grid
     if prescale_factor != 1.0:
         tensor = tensor * prescale_factor
-    out, ctx = compression.compress(tensor)
-    out = out.clone()
-    dist.all_reduce(out, op=dist_op, group=group)
-    if op == Average:
-        out = out / group_size
+    out, ctx = compress_with(compression, tensor, group_size, group=group)
+    check_wire(out.dtype, out.device)
+    if op == Adasum:
+        from .adasum import adasum_allreduce
+
+        out = adasum_allreduce(out, process_set=process_set,
+                               hierarchical=hierarchical)
+    elif hierarchical:
+        from ..parallel.hierarchical import hierarchical_allreduce
+
+        out = hierarchical_allreduce(out, op=op)
+    else:
+        out = out.clone()
+        dist.all_reduce(out, op=dist_op, group=group)
+        if op == Average:
+            out = average_(out, group_size)
     if postscale_factor != 1.0:
         out = out * postscale_factor
     return compression.decompress(out, ctx)

@@ -3,9 +3,11 @@
 The port of ``horovod_tpu/ops/fusion.py``, back on the reference
 Horovod's own GPU design: each bucket of same-dtype tensors is packed
 into one flat contiguous buffer, reduced with ONE ``all_reduce`` over
-NCCL, and handed back as views of the reduced buffer.  Each bucket's call
-runs inside an NVTX range named after its tensors, which is what the
-fork's per-tensor NCCL tagging shows in a profiler.
+NCCL, and handed back as views of the reduced buffer.  Each bucket's
+call runs inside an NVTX range named after its tensors, which is what
+the fork's per-tensor NCCL tagging shows in a profiler.  With a
+quantizer, the scales of every tensor of the call come from one MAX
+all-reduce, and error feedback carries each rank's residual.
 
 :class:`FusionPlan` is pure logic and gives the reference's bucket
 lists exactly for the same leaves, threshold or explicit plan.
@@ -23,7 +25,11 @@ from ..core import Average
 from ..utils import env as env_util
 from ..utils.tree import tree_flatten, tree_leaf_names, tree_unflatten
 from .collectives import ProcessSet, group_of, reduce_op
-from .compression import Compression
+from .compression import (
+    Compression, _compressible, _reduce_max_, average_, check_wire,
+    compress_with, inner, is_scaled, local_max_abs,
+)
+from .sparse import allreduce_indexed_slices, is_indexed_slices, to_dense
 
 __all__ = ["FusionPlan", "tree_leaf_names", "fused_allreduce",
            "allreduce_pytree"]
@@ -155,23 +161,53 @@ def _nvtx_range(flat: torch.Tensor, names: Sequence[str]):
     return torch.cuda.nvtx.range(label)
 
 
+def _global_maxima(xs: List[torch.Tensor], comps, group, group_size: int):
+    """``{i: global max |xs[i]|}`` for every tensor a scaled quantizer
+    compresses.  The reference takes one ``pmax`` per tensor; here the
+    local maxima are stacked and reduced in ONE MAX all-reduce.  A max is
+    taken elementwise, so each tensor's factor is bit-identical to what
+    its own all-reduce would give."""
+    scaled = [i for i, (x, c) in enumerate(zip(xs, comps))
+              if is_scaled(c) and _compressible(x)
+              and inner(c).keeps_levels(group_size)]
+    if not scaled:
+        return {}
+    maxima = _reduce_max_(local_max_abs([xs[i] for i in scaled]), group)
+    return {i: maxima[j] for j, i in enumerate(scaled)}
+
+
 def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
                     compression=Compression.none,
                     process_set: Optional[ProcessSet] = None,
                     threshold_bytes: Optional[int] = None,
                     plan: Optional[FusionPlan] = None,
-                    names: Optional[Sequence[str]] = None
-                    ) -> List[torch.Tensor]:
+                    names: Optional[Sequence[str]] = None,
+                    residuals: Optional[List[torch.Tensor]] = None):
     """Allreduce a list of tensors with static bucketing; returns the
     list in the input order.  Inputs are not modified: each bucket is
     packed into a fresh flat buffer (``torch.cat``), reduced in place
     there, and the outputs are views of it.  ``names`` label the NVTX
     ranges.  Over a ``process_set``, the set's ranks reduce among
-    themselves and a rank outside it gets copies of its inputs."""
+    themselves and a rank outside it gets copies of its inputs.
+
+    Each tensor is compressed with ``compress_for(t, group_size)``, the
+    group being the process set's where one is given, so a quantizer
+    leaves the headroom of the group's sum; a plan's per-bucket
+    compression names override ``compression`` for their members.
+
+    ``residuals`` (aligned with ``tensors``) turns on error feedback:
+    each float tensor reduces ``x = t + r``, and the call returns
+    ``(outputs, new_residuals)`` with ``r' = x - decompress(compress(x))``
+    (what the wire dropped, carried to the next step)."""
     dist_op = reduce_op(op)
+    if residuals is not None and len(residuals) != len(tensors):
+        raise ValueError(
+            f"error-feedback residual list has {len(residuals)} entries "
+            f"for {len(tensors)} tensors")
     member, group, group_size = group_of(process_set)
     if not member:
-        return [t.clone() for t in tensors]
+        out = [t.clone() for t in tensors]
+        return (out, list(residuals)) if residuals is not None else out
     names = list(names) if names is not None \
         else [str(i) for i in range(len(tensors))]
     comps = [compression] * len(tensors)
@@ -183,9 +219,21 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
                 comp = Compression.lookup(name)
                 for i in bucket:
                     comps[i] = comp
+
+    ef = [residuals is not None and _compressible(t) for t in tensors]
+    xs = [t + residuals[i].to(t.dtype) if ef[i] else t
+          for i, t in enumerate(tensors)]
+    maxima = _global_maxima(xs, comps, group, group_size)
     compressed, ctxs = [], []
-    for t, comp in zip(tensors, comps):
-        c, ctx = comp.compress(t)
+    new_res = list(residuals) if residuals is not None else None
+    for i, (x, comp) in enumerate(zip(xs, comps)):
+        c, ctx = compress_with(comp, x, group_size, max_abs=maxima.get(i))
+        check_wire(c.dtype, c.device)
+        if ef[i]:
+            # this rank's dequantized contribution to the sum; what the
+            # wire dropped goes to the next step
+            new_res[i] = (x - comp.decompress(c, ctx)).to(
+                residuals[i].dtype)
         compressed.append(c)
         ctxs.append(ctx)
 
@@ -204,32 +252,76 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
         with _nvtx_range(flat, [names[i] for i in bucket]):
             dist.all_reduce(flat, op=dist_op, group=group)
         if op == Average:
-            flat.div_(group_size)
+            flat = average_(flat, group_size)
         offset = 0
         for i in bucket:
             n = compressed[i].numel()
             piece = flat[offset:offset + n].view(compressed[i].shape)
             out[i] = comps[i].decompress(piece, ctxs[i])
             offset += n
+    if new_res is not None:
+        return out, new_res
     return out
 
 
 def allreduce_pytree(tree, *, op: str = Average,
                      compression=Compression.none,
+                     process_set: Optional[ProcessSet] = None,
                      threshold_bytes: Optional[int] = None,
+                     sparse_as_dense: bool = False,
                      named_buckets: Optional[Sequence[Sequence[str]]] = None,
                      bucket_compression:
-                     Optional[Sequence[Optional[str]]] = None):
+                     Optional[Sequence[Optional[str]]] = None,
+                     residual=None):
     """Fused allreduce over every tensor of a (nested) dict of tensors,
     leaves in the reference's order.  ``named_buckets`` applies an
     explicit fusion plan by leaf name (see
-    :meth:`FusionPlan.from_named_buckets`)."""
+    :meth:`FusionPlan.from_named_buckets`).
+
+    :class:`~horovod_tpu_torch.ops.sparse.IndexedSlices` leaves take the
+    sparse allgather path unless ``sparse_as_dense`` densifies them
+    first.  ``residual`` (a tree shaped like ``tree``) turns on error
+    feedback: the call returns ``(reduced, new_residual)``; a sparse
+    leaf's residual is left untouched (the allgather is exact)."""
     leaves, treedef = tree_flatten(tree)
     names = tree_leaf_names(tree)
+    res_leaves = None
+    if residual is not None:
+        res_leaves = tree_flatten(residual)[0]
+        if len(res_leaves) != len(leaves):
+            raise ValueError(
+                "error-feedback residual tree does not match the gradient "
+                f"tree ({len(res_leaves)} vs {len(leaves)} leaves) — "
+                "initialize it with ErrorFeedback.init_state")
+    out: List[Any] = [None] * len(leaves)
+    res_out = list(res_leaves) if res_leaves is not None else []
+    dense_idx = []
+    for i, leaf in enumerate(leaves):
+        if is_indexed_slices(leaf):
+            if sparse_as_dense:
+                leaves[i] = to_dense(leaf)
+            else:
+                out[i] = allreduce_indexed_slices(leaf, op=op,
+                                                  process_set=process_set)
+                continue
+        dense_idx.append(i)
+    dense = [leaves[i] for i in dense_idx]
+    dense_names = [names[i] for i in dense_idx]
     plan = FusionPlan.from_named_buckets(
-        leaves, names, named_buckets,
+        dense, dense_names, named_buckets,
         bucket_compression=bucket_compression) if named_buckets else None
-    reduced = fused_allreduce(leaves, op=op, compression=compression,
-                              threshold_bytes=threshold_bytes, plan=plan,
-                              names=names)
-    return tree_unflatten(treedef, reduced)
+    reduced = fused_allreduce(
+        dense, op=op, compression=compression, process_set=process_set,
+        threshold_bytes=threshold_bytes, plan=plan, names=dense_names,
+        residuals=[res_leaves[i] for i in dense_idx]
+        if res_leaves is not None else None)
+    if res_leaves is not None:
+        reduced, new_res = reduced
+        for i, r in zip(dense_idx, new_res):
+            res_out[i] = r
+    for i, r in zip(dense_idx, reduced):
+        out[i] = r
+    result = tree_unflatten(treedef, out)
+    if residual is not None:
+        return result, tree_unflatten(treedef, res_out)
+    return result

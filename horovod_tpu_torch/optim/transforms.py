@@ -18,6 +18,11 @@ from the same pieces, in the same order and with the same expressions:
   ``add_decayed_weights`` (``u + wd·p`` on every leaf, optax's
   ``mask=None``), then the scale.
 
+A callable learning rate is a schedule of the step count
+(``scale_by_schedule``), evaluated on the device from an int32 device
+count, as ``callbacks.LearningRateWarmupCallback.as_optax_schedule``
+gives one.
+
 The states are optax's (``TraceState``, ``ScaleByAdamState``,
 ``EmptyState`` and a tuple for a chain) with one difference: ``update``
 writes the new moments and count into the state's own tensors, in place,
@@ -142,8 +147,35 @@ def add_decayed_weights(weight_decay: float = 0.0) -> Transform:
     return Transform(lambda params: EmptyState(), update)
 
 
-def scale_by_learning_rate(learning_rate: float) -> Transform:
-    """optax ``scale_by_learning_rate``: ``(−lr)·u``."""
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor  # int32 scalar, on the parameters' device
+
+
+def scale_by_schedule(step_size_fn: Callable) -> Transform:
+    """optax ``scale_by_schedule``: ``step_size_fn(count)·u``, the
+    schedule evaluated on the device from the int32 device count (so a
+    captured graph sees each step's value), then the count advanced."""
+    def init(params):
+        return ScaleByScheduleState(count=torch.zeros(
+            (), dtype=torch.int32, device=_device_of(params)))
+
+    def update(updates, state, params=None):
+        del params
+        with torch.no_grad():
+            step_size = torch.as_tensor(step_size_fn(state.count))
+            new = _map(lambda g: step_size.to(g.dtype) * g, updates)
+            state.count.add_(1)
+        return new, state
+
+    return Transform(init, update)
+
+
+def scale_by_learning_rate(learning_rate) -> Transform:
+    """optax ``scale_by_learning_rate``: ``(−lr)·u``; a callable
+    ``learning_rate`` is a schedule of the step count
+    (:func:`scale_by_schedule` of ``−lr(count)``)."""
+    if callable(learning_rate):
+        return scale_by_schedule(lambda count: -1 * learning_rate(count))
     step_size = -1 * learning_rate
 
     def update(updates, state, params=None):
@@ -168,21 +200,21 @@ def chain(*transforms: Transform) -> Transform:
     return Transform(init, update)
 
 
-def sgd(learning_rate: float, momentum: float = None) -> Transform:
+def sgd(learning_rate, momentum: float = None) -> Transform:
     """optax ``sgd(learning_rate, momentum)``."""
     if momentum is None:
         return scale_by_learning_rate(learning_rate)
     return chain(trace(momentum), scale_by_learning_rate(learning_rate))
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, eps_root: float = 0.0) -> Transform:
     """optax ``adam``."""
     return chain(scale_by_adam(b1, b2, eps, eps_root),
                  scale_by_learning_rate(learning_rate))
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, eps_root: float = 0.0,
           weight_decay: float = 1e-4) -> Transform:
     """optax ``adamw`` with ``mask=None``: the decay on every leaf."""

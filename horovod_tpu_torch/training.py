@@ -19,14 +19,21 @@ tensors of the :class:`TrainState`.
 The reference compiles ``in_graph_steps`` steps into one XLA program.
 On a CUDA device the port captures them into one CUDA graph
 (:class:`_CompiledStep`): the first call runs eagerly (it loads the
-kernels, warms the NCCL communicator and lets cuDNN choose), the second
-captures the ``k`` steps — forward, backward, the bucketed all-reduce,
+kernels, warms the NCCL communicators and lets cuDNN choose), the second
+captures the ``k`` steps — forward, backward, the gradient reduction,
 the loss all-reduce and the update — and replays the graph, and every
 later call replays it.  On the CPU the step is the eager loop.
 ``step.eager`` is the same step, never captured.
 
-Knobs whose slice has not landed yet (error-feedback compression,
-``two_level``, ``hierarchical``, ``autotune``, ``profile_guided``,
+The gradient reduction is the reference's: the fused buckets
+(``ops/fusion.py``) with any compressor, and with error feedback the
+residual carried in ``TrainState.residual`` and updated in place;
+``op=Adasum``, ``hierarchical`` and ``two_level`` leaf by leaf.  The
+error-feedback guard reads the residual's norm once every
+``HVD_COMPRESSION_GUARD_STEPS`` calls, after the call, and on divergence
+rebuilds the step without compression (captured again).
+
+Knobs whose slice has not landed yet (``autotune``, ``profile_guided``,
 ``profile``, ``donate=False``, and their ``HVD_*`` environment defaults)
 raise ``NotImplementedError``; none is silently ignored.
 """
@@ -41,10 +48,17 @@ from torch import nn
 
 from . import core
 from .convert import canonical_batch_stats, canonical_params
-from .core import Average
+from .core import Adasum, Average
 from .ops import collectives
-from .ops.compression import Compression, from_env as _compression_from_env
+from .ops.compression import (
+    Compression, ErrorFeedback, ErrorFeedbackGuard, residual_norm,
+    from_env as _compression_from_env,
+)
 from .ops.fusion import allreduce_pytree
+from .parallel.hierarchical import (
+    hierarchical_allreduce, two_level_allreduce, use_two_level_default,
+)
+from .optim.distributed import broadcast_parameters
 from .optim.fused_update import FusedOptimizer, apply_updates
 from .optim.transforms import Transform
 from .utils import env as env_util
@@ -59,7 +73,8 @@ class TrainState(NamedTuple):
     opt_state: Any
     model_state: Dict[str, torch.Tensor]  # BatchNorm statistics, or {}
     step: int
-    #: error-feedback residual; always empty until compression lands
+    #: the error-feedback residual, shaped like ``params`` (``()`` without
+    #: error feedback); the step updates its tensors in place
     residual: Any = ()
 
 
@@ -187,11 +202,13 @@ def _remat_wrap(fn: Callable, policy: Optional[str],
 # ---------------------------------------------------------------------------
 def _state_tensors(state: TrainState) -> List[torch.Tensor]:
     """The tensors a captured step reads and writes in place: the
-    parameters, the statistics and every tensor of the optimizer's state
+    parameters, the statistics, every tensor of the optimizer's state
     (a fused optimizer's flat buffers, count and bias corrections, or a
-    transform's moments and count)."""
+    transform's moments and count) and the error-feedback residual."""
     return [*state.params.values(), *state.model_state.values(),
-            *tree_flatten(state.opt_state)[0]]
+            *(t for t in tree_flatten(state.opt_state)[0]
+              if torch.is_tensor(t)),
+            *tree_flatten(state.residual)[0]]
 
 
 class _CompiledStep:
@@ -210,13 +227,17 @@ class _CompiledStep:
     (the capture once) and not the replays.  ``calls`` counts the calls
     by kind."""
 
-    def __init__(self, entry: Callable, k: int):
+    def __init__(self, entry: Callable, k: int,
+                 calls: Optional[Dict[str, int]] = None):
         self.entry = entry
         self.k = k
-        self.calls = {"eager": 0, "capture": 0, "replay": 0}
+        self.calls = calls if calls is not None \
+            else {"eager": 0, "capture": 0, "replay": 0}
         self.epoch = core.epoch() if core.is_initialized() else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: tuple = ()
+        #: whether this step ran eagerly once (the next call captures)
+        self.warm = False
         self.bound: List[int] = []
         self.loss: Optional[torch.Tensor] = None
 
@@ -233,6 +254,7 @@ class _CompiledStep:
     def eager(self, state: TrainState, x, y):
         self.check_world()
         self.calls["eager"] += 1
+        self.warm = True
         return self.entry(state, x, y)
 
     def __call__(self, state: TrainState, x, y):
@@ -242,7 +264,7 @@ class _CompiledStep:
         device = next(iter(state.params.values())).device
         if device.type != "cuda":
             return self.eager(state, x, y)
-        if not self.calls["eager"]:
+        if not self.warm:
             return self._warm_up(state, x, y)
         return self._capture(state, x, y)
 
@@ -290,13 +312,7 @@ def _not_ported(knob: str) -> NotImplementedError:
         "slice of horovod_tpu_torch)")
 
 
-def _refuse_unported(*, compression, hierarchical, two_level, autotune,
-                     profile_guided, profile, donate, op):
-    if hierarchical:
-        raise _not_ported("hierarchical allreduce")
-    if two_level or (two_level is None and env_util.get_bool(
-            env_util.HVD_TWO_LEVEL_ALLREDUCE)):
-        raise _not_ported("two_level allreduce")
+def _refuse_unported(*, autotune, profile_guided, profile, donate):
     if autotune or (autotune is None
                     and env_util.get_bool(env_util.HVD_AUTOTUNE)):
         raise _not_ported("autotune")
@@ -309,9 +325,10 @@ def _refuse_unported(*, compression, hierarchical, two_level, autotune,
     if not donate:
         raise _not_ported("donate=False (the port updates the state in "
                           "place)")
-    if compression not in (Compression.none, Compression.bf16):
-        raise _not_ported(f"compression {compression!r}")
-    collectives.reduce_op(op)  # Adasum raises here
+
+
+def _per_leaf(fn: Callable, grads: Dict[str, torch.Tensor]):
+    return {k: fn(g) for k, g in grads.items()}
 
 
 def make_train_step(
@@ -346,10 +363,23 @@ def make_train_step(
       :func:`init_train_state`; it is accepted here for the reference's
       signature.
     * ``loss_fn(logits, labels) -> scalar`` (per-rank mean).
-    * gradients are bucket-fused and allreduced with ``op`` /
-      ``compression`` (default: ``HVD_COMPRESSION``; the stateless
-      ``none`` / ``bf16`` casts are ported); the returned loss is
-      averaged across ranks.
+    * gradients are bucket-fused and allreduced with ``op`` (Average,
+      Sum; Adasum leaf by leaf, ``ops/adasum.py``) and ``compression``
+      (default: ``HVD_COMPRESSION`` / ``HVD_COMPRESSION_ERROR_FEEDBACK``:
+      none, bf16, int8, fp8 e4m3 / e5m2); the returned loss is averaged
+      across ranks.  An :class:`ErrorFeedback` compression carries the
+      residual in ``TrainState.residual`` (made by
+      ``init_train_state(..., compression=...)``, or on the first call
+      when ``in_graph_steps`` is 1), on the fused path only.  Every
+      ``HVD_COMPRESSION_GUARD_STEPS`` calls (25) the residual's norm is
+      read once; when it diverges the step is rebuilt without
+      compression (logged, ``step.guard["trips"]``), the residual left
+      as it was.
+    * ``hierarchical`` reduces each gradient with the two-level
+      local / cross all-reduce (no compression, as the reference);
+      ``two_level`` (default ``HVD_TWO_LEVEL_ALLREDUCE``) with
+      ``compression`` on the cross stage only
+      (``parallel/hierarchical.py``).
     * ``optimizer``: a :class:`FusedOptimizer` (``fused_sgd`` /
       ``fused_adam``) or a transform of ``optim.transforms`` (``sgd``,
       ``adam``, ``adamw``), which always runs per leaf.
@@ -373,10 +403,22 @@ def make_train_step(
     del has_batch_stats, autotune_log_file
     if compression is None:
         compression = _compression_from_env()
-    _refuse_unported(compression=compression, hierarchical=hierarchical,
-                     two_level=two_level, autotune=autotune,
-                     profile_guided=profile_guided, profile=profile,
-                     donate=donate, op=op)
+    if two_level is None:
+        two_level = use_two_level_default()
+    _refuse_unported(autotune=autotune, profile_guided=profile_guided,
+                     profile=profile, donate=donate)
+    if op != Adasum:
+        collectives.reduce_op(op)  # an unknown op raises here
+    # error feedback threads the residual on the fused path only; the
+    # leaf-by-leaf two-level path gives the inner compressor, the
+    # hierarchical one none (as in the reference)
+    ef = isinstance(compression, ErrorFeedback) and not hierarchical \
+        and not two_level
+    if ef and op == Adasum:
+        raise ValueError(
+            "error-feedback compression composes with Sum/Average "
+            "allreduce, not Adasum (the scale-invariant merge is not "
+            "linear in the residual)")
     fusable = isinstance(optimizer, FusedOptimizer)
     if not fusable and not isinstance(optimizer, Transform):
         raise TypeError(
@@ -395,6 +437,7 @@ def make_train_step(
         loss_fetch_steps = env_util.get_int(
             env_util.HVD_LOSS_FETCH_STEPS, env_util.DEFAULT_LOSS_FETCH_STEPS)
     fetcher = TrailingLossFetcher(loss_fetch_steps)
+    k = max(in_graph_steps, 1)
 
     def _compute_loss(x, y):
         return loss_fn(apply_fn(x), y)
@@ -404,10 +447,6 @@ def make_train_step(
             else []
 
     compute_loss = _remat_wrap(_compute_loss, remat, _module_buffers)
-
-    def _reduce_grads(grads):
-        return allreduce_pytree(grads, op=op, compression=compression,
-                                threshold_bytes=threshold_bytes)
 
     def _apply_update(state: TrainState, grads) -> TrainState:
         if fused_optimizer:
@@ -421,39 +460,105 @@ def make_train_step(
         return TrainState(params, opt_state, state.model_state,
                           state.step + 1, state.residual)
 
-    def per_rank_step(state: TrainState, x, y):
-        loss = compute_loss(x, y)
-        names = list(state.params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [state.params[k] for k in names])))
-        grads = _reduce_grads(grads)
-        loss = collectives.allreduce(loss.detach(), op=Average)
-        return _apply_update(state, grads), loss
+    def build(comp, ef_on: bool) -> _CompiledStep:
+        """The compiled step reducing with ``comp`` (error feedback when
+        ``ef_on``)."""
+        def _reduce_grads(grads, residual):
+            if two_level:
+                return _per_leaf(lambda g: two_level_allreduce(
+                    g, op=op, compression=comp), grads)
+            if hierarchical:
+                return _per_leaf(lambda g: hierarchical_allreduce(
+                    g, op=op), grads)
+            if op == Adasum:
+                return _per_leaf(lambda g: collectives.allreduce(
+                    g, op=Adasum, compression=comp), grads)
+            if not ef_on:
+                return allreduce_pytree(grads, op=op, compression=comp,
+                                        threshold_bytes=threshold_bytes)
+            grads, new = allreduce_pytree(
+                grads, op=op, compression=comp,
+                threshold_bytes=threshold_bytes, residual=residual)
+            with torch.no_grad():  # in place: a captured graph is bound
+                for r, n in zip(tree_flatten(residual)[0],
+                                tree_flatten(new)[0]):
+                    r.copy_(n)
+            return grads
 
-    compiled = _CompiledStep(scan_steps(per_rank_step, in_graph_steps),
-                             max(in_graph_steps, 1))
+        def per_rank_step(state: TrainState, x, y):
+            loss = compute_loss(x, y)
+            names = list(state.params)
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [state.params[n] for n in names])))
+            grads = _reduce_grads(grads, state.residual)
+            loss = collectives.allreduce(loss.detach(), op=Average)
+            return _apply_update(state, grads), loss
 
-    def fetching(run: Callable) -> Callable:
+        entry = scan_steps(per_rank_step, in_graph_steps)
+
+        def with_residual(state: TrainState, x, y):
+            if ef_on and not tree_flatten(state.residual)[0]:
+                if k > 1:
+                    raise ValueError(
+                        "error-feedback compression with in_graph_steps > "
+                        "1 needs an initialized residual — build the "
+                        "state with init_train_state(..., compression=...)")
+                state = state._replace(
+                    residual=ErrorFeedback.init_state(state.params))
+            return entry(state, x, y)
+
+        return _CompiledStep(with_residual, k, calls)
+
+    calls = {"eager": 0, "capture": 0, "replay": 0}
+    box = {"compiled": build(compression, ef), "ef": ef, "calls": 0,
+           "guard": None}
+    guard_steps = env_util.get_int(env_util.HVD_COMPRESSION_GUARD_STEPS,
+                                   env_util.DEFAULT_COMPRESSION_GUARD_STEPS)
+    #: the guard's reads of the residual norm, its trips, the last norm
+    guard = {"reads": 0, "trips": 0, "norm": None}
+
+    def _maybe_guard(state: TrainState) -> None:
+        """Every ``guard_steps`` calls with error feedback on: one read of
+        the residual's norm (one sync, after the call); a divergence
+        rebuilds the step without compression."""
+        if not box["ef"] or guard_steps <= 0:
+            return
+        box["calls"] += 1
+        if box["calls"] % guard_steps:
+            return
+        norm = residual_norm(state.residual)
+        guard["reads"] += 1
+        guard["norm"] = norm
+        if box["guard"] is None:
+            box["guard"] = ErrorFeedbackGuard()
+        if not box["guard"].observe(norm):
+            return
+        guard["trips"] += 1
+        log.warning(
+            "error-feedback residual norm %.3g diverged past %gx its "
+            "baseline — falling back to uncompressed allreduce; the "
+            "residual stays as it was in TrainState.residual", norm,
+            box["guard"].factor)
+        box["ef"] = False
+        box["compiled"] = build(Compression.none, False)
+
+    def fetching(eager: bool) -> Callable:
         def call(state: TrainState, x, y):
-            state, loss = run(state, x, y)
+            compiled = box["compiled"]
+            state, loss = (compiled.eager if eager else compiled)(
+                state, x, y)
             fetcher.push(loss)
+            _maybe_guard(state)
             return state, loss
 
         return call
 
-    step = fetching(compiled)
-    step.eager = fetching(compiled.eager)
-    step.calls = compiled.calls
+    step = fetching(False)
+    step.eager = fetching(True)
+    step.calls = calls
     step.loss_fetcher = fetcher
+    step.guard = guard
     return step
-
-
-def broadcast_parameters(tree: Dict[str, torch.Tensor],
-                         root_rank: int = 0) -> None:
-    """``root_rank``'s values into every rank's tensors, in place."""
-    with torch.no_grad():
-        for t in tree.values():
-            collectives.broadcast_(t, root_rank)
 
 
 def init_train_state(model: nn.Module,
@@ -465,16 +570,18 @@ def init_train_state(model: nn.Module,
     statistics (``broadcast_parameters``).  Moves ``model`` to ``device``
     (default :func:`core.device`) and into train mode.  A torch module
     knows its shapes, so the reference's ``sample_input`` is not
-    needed."""
-    if compression not in (None, Compression.none, Compression.bf16):
-        raise _not_ported(f"compression {compression!r}")
+    needed.  Pass the ``compression`` the step uses: an
+    :class:`ErrorFeedback` gets its zero residual here (needed for
+    ``in_graph_steps > 1``)."""
     model.to(device if device is not None else core.device()).train()
     params = canonical_params(model)
     model_state = canonical_batch_stats(model) if has_batch_stats else {}
     broadcast_parameters(params)
     broadcast_parameters(model_state)
+    residual = ErrorFeedback.init_state(params) \
+        if isinstance(compression, ErrorFeedback) else ()
     return TrainState(params=params, opt_state=optimizer.init(params),
-                      model_state=model_state, step=0, residual=())
+                      model_state=model_state, step=0, residual=residual)
 
 
 def shard_batch(batch: torch.Tensor) -> torch.Tensor:

@@ -27,11 +27,14 @@ HVD_NUM_PROCESSES = "HVD_NUM_PROCESSES"
 HVD_PROCESS_ID = "HVD_PROCESS_ID"
 HVD_LOCAL_SIZE = "HVD_LOCAL_SIZE"                      # processes (cards) per host; default: the world
 HVD_START_TIMEOUT = "HVD_START_TIMEOUT"                # seconds a rank waits for the others at init
+HVD_COMPRESSION = "HVD_COMPRESSION"                    # none|bf16|int8|fp8|fp8_e5m2 wire format
+HVD_COMPRESSION_ERROR_FEEDBACK = "HVD_COMPRESSION_ERROR_FEEDBACK"  # 0 drops the residual carry (default 1)
+HVD_COMPRESSION_GUARD_STEPS = "HVD_COMPRESSION_GUARD_STEPS"  # residual-norm check cadence (default 25; 0 off)
+HVD_COMPRESSION_GUARD_FACTOR = "HVD_COMPRESSION_GUARD_FACTOR"  # divergence = norm > factor x baseline (default 10)
+HVD_TWO_LEVEL_ALLREDUCE = "HVD_TWO_LEVEL_ALLREDUCE"    # 1 = compressed two-level gradient path
+HVD_HIERARCHICAL_ALLREDUCE = "HVD_HIERARCHICAL_ALLREDUCE"  # 1 = the two-level allreduce by default
 
 # -- knobs of features still to be ported: refused when switched on ----------
-HVD_COMPRESSION = "HVD_COMPRESSION"
-HVD_COMPRESSION_ERROR_FEEDBACK = "HVD_COMPRESSION_ERROR_FEEDBACK"
-HVD_TWO_LEVEL_ALLREDUCE = "HVD_TWO_LEVEL_ALLREDUCE"
 HVD_AUTOTUNE = "HVD_AUTOTUNE"
 HVD_AUTOTUNE_PROFILE_GUIDED = "HVD_AUTOTUNE_PROFILE_GUIDED"
 HVD_PROFILE = "HVD_PROFILE"
@@ -41,6 +44,8 @@ DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # 64 MiB, reference common.h:
 FUSION_BUFFER_ATOMIC_UNIT = 64                     # reference common.h:94
 DEFAULT_START_TIMEOUT_SECONDS = 60.0               # rendezvous bound (core.init)
 DEFAULT_LOSS_FETCH_STEPS = 16                      # trailing loss-fetch cadence (training.py)
+DEFAULT_COMPRESSION_GUARD_STEPS = 25               # error-feedback residual-norm check cadence
+DEFAULT_COMPRESSION_GUARD_FACTOR = 10.0            # residual divergence threshold (x baseline)
 
 
 def get_int(name: str, default: int) -> int:

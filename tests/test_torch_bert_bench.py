@@ -211,8 +211,30 @@ def test_bert_benchmark_defaults_are_the_references():
 @pytest.mark.parametrize("argv,item", [
     (["--seq-parallel", "ring"], "item 9"),
     (["--seq-parallel", "ulysses"], "item 9"),
-    (["--adasum"], "item 7"),
 ])
 def test_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         bb.run(bb.parse_args(argv + ["--device", "cpu"]))
+
+
+def test_adasum_runs_in_the_step_and_is_the_identity_at_one_rank(
+        monkeypatch):
+    """``--adasum`` reduces each gradient with ``allreduce(op=Adasum)``
+    in the step (as the reference's bench); at one rank that is the
+    identity, so the losses equal the default run's bit for bit."""
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--model", "tiny", "--batch-size", "2", "--seq-len", "64",
+            "--attn", "pallas", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "1", "--num-iters", "2",
+            "--device", "cpu"]
+    losses = []
+    for extra in (["--adasum"], []):
+        core.shutdown()
+        try:
+            out = bb.run(bb.parse_args(argv + extra))
+        finally:
+            core.shutdown()
+        assert np.isfinite(out["final_loss"])
+        losses.append(out["final_loss"])
+    assert losses[0] == losses[1]

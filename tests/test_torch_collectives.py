@@ -8,7 +8,9 @@ module.  Each case holds every rank's result against the reference's
 same collective on a 4-device CPU mesh, from the same per-rank inputs:
 float32 sums in another order, so to 1e-6 (rtol and atol); moves and
 gathers exactly.  A rank outside the process set gets its input back
-(the port's rule; the reference leaves that value undefined).
+(the port's rule; the reference leaves that value undefined).  At one
+rank, the reductions the wire tier adds (Adasum, hierarchical,
+two-level, compression) against the input and the reference.
 """
 
 import jax
@@ -162,13 +164,75 @@ def test_allgatherv_row_counts_and_padding(port_results):
             np.testing.assert_array_equal(gathered[src, n:], 0)
 
 
-def test_hierarchical_and_two_level_raise():
+@pytest.fixture()
+def port_cpu_world(monkeypatch):
+    from horovod_tpu_torch import core
+
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID",
+              "HVD_LOCAL_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    core.shutdown()
+    core.init(device="cpu")
+    yield
+    core.shutdown()
+
+
+@pytest.mark.parametrize("kw", [
+    {"op": "Adasum"}, {"hierarchical": True}, {"two_level": True},
+    {"op": "Adasum", "hierarchical": True},
+    {"op": "Sum", "two_level": True, "prescale_factor": 2.0},
+])
+def test_one_rank_adasum_hierarchical_and_two_level(port_cpu_world, kw):
+    """The reductions the wire tier adds, at one rank: the input back
+    (scaled); across 4 ranks, tests/test_torch_wire.py."""
     import torch
 
     from horovod_tpu_torch.ops import collectives
 
-    for kw in ({"hierarchical": True}, {"two_level": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            collectives.allreduce(torch.ones(2), **kw)
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        collectives.allreduce(torch.ones(2), op="Adasum")
+    x = torch.randn(5)
+    out = collectives.allreduce(x, **kw)
+    np.testing.assert_array_equal(out.numpy(),
+                                  (x * kw.get("prescale_factor", 1)).numpy())
+
+
+@pytest.mark.parametrize("name", ["int8", "ef_int8", "bf16"])
+def test_one_rank_compressed_allreduce_matches_reference(port_cpu_world,
+                                                         name):
+    """``allreduce`` compresses with ``compress_for`` over its group: at
+    one rank the full range, as the reference's on a 1-device mesh."""
+    import torch
+
+    from horovod_tpu.ops.compression import Compression as RefCompression
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.ops.compression import Compression
+
+    x = np.random.default_rng(6).normal(size=(9,)).astype(np.float32)
+    hvd.shutdown()
+    hvd.init(devices=jax.devices("cpu")[:1])
+    try:
+        @hvd.spmd
+        def run(a):
+            return hvd.allreduce(a[0], compression=RefCompression.lookup(
+                name))[None]
+
+        want = np.asarray(hvd.get_per_rank(run(x[None]))[0])
+    finally:
+        hvd.shutdown()
+    got = collectives.allreduce(torch.from_numpy(x),
+                                compression=Compression.lookup(name))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def test_adasum_is_no_bucketed_op_and_hierarchical_min_max_raise(
+        port_cpu_world):
+    import torch
+
+    from horovod_tpu_torch.ops import collectives
+
+    with pytest.raises(ValueError, match="allreduce\\(op=Adasum\\)"):
+        collectives.reduce_op("Adasum")
+    with pytest.raises(ValueError, match="Sum/Average/Adasum"):
+        collectives.allreduce(torch.ones(2), op="Max", hierarchical=True)
+    with pytest.raises(ValueError, match="process subset"):
+        collectives.allreduce(torch.ones(2), two_level=True,
+                              process_set=collectives.ProcessSet([0]))

@@ -42,6 +42,7 @@ for m in pkgutil.walk_packages(horovod_tpu_torch.__path__, "horovod_tpu_torch.")
 import horovod_tpu_torch.examples.synthetic_benchmark
 import horovod_tpu_torch.examples.gpt_synthetic_benchmark
 import horovod_tpu_torch.examples.bert_synthetic_benchmark
+import horovod_tpu_torch.examples.pytorch_synthetic_benchmark
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -59,7 +60,16 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.models.vgg",
               "horovod_tpu_torch.models.inception",
               "horovod_tpu_torch.models.vit",
-              "horovod_tpu_torch.optim.transforms"):
+              "horovod_tpu_torch.optim.transforms",
+              "horovod_tpu_torch.ops.adasum",
+              "horovod_tpu_torch.ops.sparse",
+              "horovod_tpu_torch.parallel.hierarchical",
+              "horovod_tpu_torch.optim.distributed",
+              "horovod_tpu_torch.eager",
+              "horovod_tpu_torch.elastic.join",
+              "horovod_tpu_torch.callbacks",
+              "horovod_tpu_torch.torch",
+              "horovod_tpu_torch.examples.pytorch_synthetic_benchmark"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -250,3 +260,27 @@ def test_library_is_rebuilt_when_a_header_changes(tmp_path, monkeypatch):
     assert not kernels._stale()
     os.utime(src / "hopper.cuh", (3000, 3000))
     assert kernels._stale()
+
+
+def test_frontend_benchmark_without_cuda_raises(monkeypatch):
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as pb
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    core.shutdown()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pb.run(pb.parse_args(["--model", "smallconv"]))
+    assert not core.is_initialized()
+
+
+def test_frontend_subpackage_imports_the_top_level_torch():
+    """Inside ``horovod_tpu_torch/torch/`` ``import torch`` is PyTorch
+    (absolute imports), and nothing imports the subpackage relatively
+    as ``torch``."""
+    import horovod_tpu_torch.torch as frontend
+
+    assert frontend.torch is torch
+    for f in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert not any(a.name == "torch" for a in node.names), f

@@ -18,8 +18,15 @@ relative precision of their own.
   that rounding into differences as large as the update itself.
 * MLP on 2 gloo processes against the reference on a 2-device mesh with
   the same global batch.
-* the synthetic benchmark's ``run`` on the CPU, and the knobs this slice
-  refuses.
+* the synthetic benchmark's ``run`` on the CPU, and the knobs still
+  refused (autotune, profile-guided tuning, the profiler, donate=False).
+* the wire tier in the step, world 1: int8 and bf16 compression with
+  and without error feedback against the reference's step (losses and
+  parameter changes to 1e-5, the residual to 1e-7 absolute: it is the
+  difference of two nearly equal float32 numbers), the guard's reads
+  and trip, the residual made on the first call, and Adasum,
+  hierarchical and two-level reduction equal to the default step bit
+  for bit at one rank (4 ranks: ``tests/test_torch_wire.py``).
 """
 
 import jax
@@ -45,6 +52,7 @@ from horovod_tpu_torch.convert import (
 )
 from horovod_tpu_torch.models import MLP, ResNet18, ResNet50
 from horovod_tpu_torch.optim.fused_update import fused_sgd
+from horovod_tpu_torch.utils.tree import tree_flatten
 from torch_dist_worker import launch
 
 STEPS = 3
@@ -303,16 +311,10 @@ def test_trailing_loss_fetcher_reads_one_cadence_behind():
 
 
 @pytest.mark.parametrize("kw,env", [
-    ({"hierarchical": True}, {}),
-    ({"two_level": True}, {}),
-    ({}, {"HVD_TWO_LEVEL_ALLREDUCE": "1"}),
     ({"autotune": True}, {}),
     ({"profile_guided": True}, {}),
     ({}, {"HVD_PROFILE": "1"}),
     ({"donate": False}, {}),
-    ({"compression": "int8"}, {}),
-    ({}, {"HVD_COMPRESSION": "bf16"}),       # error feedback by default
-    ({"op": "Adasum"}, {}),
 ])
 def test_unported_knobs_raise(monkeypatch, kw, env):
     for k, v in env.items():
@@ -436,3 +438,211 @@ def test_cpu_step_runs_eagerly_and_counts_its_calls(port_cpu_world):
     assert all(torch.equal(a, b) for a, b in zip(l0, l1))
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
 
+
+
+# ---------------------------------------------------------------------------
+# the wire tier in the step (the 4-rank forms: tests/test_torch_wire.py)
+# ---------------------------------------------------------------------------
+def _reference_compressed_run(model, variables, x, y, name, steps=STEPS):
+    """The reference's make_train_step with the compression ``name`` on a
+    1-device mesh (an error-feedback state gets its zero residual);
+    returns (losses, params, residual) as flat numpy dicts."""
+    from horovod_tpu.ops.compression import Compression as RefCompression
+
+    hvd.shutdown()
+    hvd.init(devices=jax.devices("cpu")[:1])
+    try:
+        opt = ref_fu.fused_sgd(0.1, momentum=0.9)
+        step = ref_training.make_train_step(
+            apply_fn=lambda v, a, train=True: model.apply(v, a),
+            loss_fn=_ref_loss, optimizer=opt, loss_fetch_steps=0,
+            compression=RefCompression.lookup(name))
+        params = variables["params"]
+        state = ref_training.TrainState(
+            params=params, opt_state=opt.init(params), model_state={},
+            step=jnp.zeros((), jnp.int32),
+            residual=jax.tree_util.tree_map(jnp.zeros_like, params)
+            if name.startswith("ef_") else ())
+        state = jax.device_put(state, NamedSharding(hvd.core.mesh(), P()))
+        xs, ys = ref_training.shard_batch(x), ref_training.shard_batch(y)
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, xs, ys)
+            losses.append(float(jax.device_get(loss)))
+        res = flatten_flax(jax.tree_util.tree_map(np.asarray, state.residual)) \
+            if name.startswith("ef_") else {}
+        return np.asarray(losses), flatten_flax(state.params), res
+    finally:
+        hvd.shutdown()
+
+
+def _port_compressed(name, **kw):
+    from horovod_tpu_torch.ops.compression import Compression
+
+    _, variables, x, y = _mlp_problem()
+    model = MLP(12, (16, 6))
+    load_flax_variables(model, variables["params"])
+    opt = fused_sgd(0.1, momentum=0.9)
+    comp = Compression.lookup(name)
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=opt, compression=comp,
+                                    loss_fetch_steps=0, **kw)
+    state = training.init_train_state(model, opt, compression=comp)
+    return step, state, torch.from_numpy(x), torch.from_numpy(y).long()
+
+
+@pytest.mark.parametrize("name", ["ef_int8", "int8", "ef_bf16", "bf16"])
+def test_compressed_mlp_trajectory_matches_reference(port_cpu_world, name):
+    ref, variables, x, y = _mlp_problem()
+    want_l, want_p, want_r = _reference_compressed_run(ref, variables, x, y,
+                                                       name)
+    step, state, xt, yt = _port_compressed(name)
+    losses = []
+    for _ in range(STEPS):
+        state, loss = step(state, xt, yt)
+        losses.append(loss.item())
+    params0 = flatten_flax(variables["params"])
+    got_p = export_flax_variables(state.params, canonical_layouts(
+        MLP(12, (16, 6))))
+    _assert_trajectories_match((np.asarray(losses), got_p, {}),
+                               (want_l, want_p, {}), params0, 1e-5)
+    if want_r:
+        got_r = export_flax_variables(state.residual, canonical_layouts(
+            MLP(12, (16, 6))))
+        # the residual is x - dq(q(x)), two nearly equal float32 numbers:
+        # it carries the absolute rounding of the gradient x (|x| < 1,
+        # ulp 6e-8), not a precision relative to itself
+        assert sorted(got_r) == sorted(want_r)
+        for k in want_r:
+            np.testing.assert_allclose(got_r[k], want_r[k], rtol=0,
+                                       atol=1e-7, err_msg=k)
+
+
+def test_guard_reads_once_a_window_and_trips_to_uncompressed(
+        port_cpu_world, monkeypatch):
+    """One residual-norm read every HVD_COMPRESSION_GUARD_STEPS calls; an
+    injected blow-up trips the guard, the step is rebuilt without
+    compression (counted, and training goes on) and the residual stays
+    as it was."""
+    monkeypatch.setenv("HVD_COMPRESSION_GUARD_STEPS", "2")
+    step, state, xt, yt = _port_compressed("ef_int8")
+    for _ in range(7):
+        state, _ = step(state, xt, yt)
+    assert step.guard["reads"] == 3 and step.guard["trips"] == 0
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():         # a residual 1e7 times any gradient
+        for r in state.residual.values():
+            r.copy_(torch.randn(r.shape, generator=gen) * 1e7)
+    state, loss = step(state, xt, yt)
+    assert step.guard["trips"] == 1 and step.guard["reads"] == 4
+    frozen = {k: v.clone() for k, v in state.residual.items()}
+    for _ in range(6):
+        state, loss = step(state, xt, yt)
+    assert np.isfinite(loss.item()) and step.guard["reads"] == 4
+    assert all(torch.equal(state.residual[k], frozen[k]) for k in frozen)
+
+
+def test_error_feedback_needs_a_residual_for_several_steps_a_call(
+        port_cpu_world):
+    from horovod_tpu_torch.ops.compression import Compression
+
+    _, variables, x, y = _mlp_problem()
+    model = MLP(12, (16, 6))
+    opt = fused_sgd(0.1)
+    step = training.make_train_step(
+        apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+        compression=Compression.lookup("ef_int8"), in_graph_steps=2)
+    state = training.init_train_state(model, opt)      # no residual
+    with pytest.raises(ValueError, match="initialized residual"):
+        step(state, torch.from_numpy(x), torch.from_numpy(y).long())
+    with pytest.raises(ValueError, match="not Adasum"):
+        training.make_train_step(
+            apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+            compression=Compression.lookup("ef_int8"), op="Adasum")
+
+
+def test_residual_made_on_the_first_call(port_cpu_world, monkeypatch):
+    """``HVD_COMPRESSION=bf16`` is error feedback by default: a state
+    made without it gets its residual on the first call."""
+    monkeypatch.setenv("HVD_COMPRESSION", "bf16")
+    _, variables, x, y = _mlp_problem()
+    model = MLP(12, (16, 6))
+    opt = fused_sgd(0.1)
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=opt)
+    state = training.init_train_state(model, opt)
+    assert state.residual == ()
+    state, _ = step(state, torch.from_numpy(x), torch.from_numpy(y).long())
+    assert sorted(state.residual) == sorted(state.params)
+    assert any(r.abs().sum() > 0 for r in state.residual.values())
+
+
+@pytest.mark.parametrize("kw,env", [
+    ({"op": "Adasum"}, {}),
+    ({"hierarchical": True}, {}),
+    ({"two_level": True}, {}),
+    ({}, {"HVD_TWO_LEVEL_ALLREDUCE": "1"}),
+])
+def test_one_rank_reductions_equal_the_default(port_cpu_world, monkeypatch,
+                                               kw, env):
+    """At one rank Adasum is the identity, and the hierarchical and
+    two-level reductions fall back to the flat one: the trajectory is
+    the default step's, bit for bit."""
+    from horovod_tpu_torch.parallel import hierarchical
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    runs = []
+    for extra in (kw, {"two_level": False}):
+        _, variables, x, y = _mlp_problem()
+        model = MLP(12, (16, 6))
+        load_flax_variables(model, variables["params"])
+        opt = fused_sgd(0.1, momentum=0.9)
+        step = training.make_train_step(apply_fn=model,
+                                        loss_fn=F.cross_entropy,
+                                        optimizer=opt, **extra)
+        state = training.init_train_state(model, opt)
+        before = hierarchical.FALLBACKS["two_level"]
+        for _ in range(2):
+            state, loss = step(state, torch.from_numpy(x),
+                               torch.from_numpy(y).long())
+        runs.append((loss, dict(state.params),
+                     hierarchical.FALLBACKS["two_level"] - before))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[1][1])
+    two_level = kw.get("two_level") or env
+    assert runs[0][2] == (2 * 4 if two_level else 0)   # 4 leaves, 2 steps
+    assert runs[1][2] == 0
+
+
+def test_float8_wire_is_refused_on_the_cpu(port_cpu_world):
+    step, state, xt, yt = _port_compressed("fp8_e4m3")
+    with pytest.raises(RuntimeError, match="gloo cannot reduce"):
+        step(state, xt, yt)
+
+
+@pytest.mark.parametrize("argv", [["--compression", "int8"],
+                                  ["--compression", "bf16"], ["--adasum"],
+                                  ["--hierarchical"]])
+def test_synthetic_benchmark_wire_flags_on_cpu(monkeypatch, argv):
+    """The reference's bench flags of the wire tier, at one rank on the
+    CPU: a finite loss, and with a quantizer the error-feedback residual
+    made by init_train_state."""
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID",
+              "HVD_COMPRESSION", "HVD_COMPRESSION_ERROR_FEEDBACK"):
+        monkeypatch.delenv(k, raising=False)
+    core.shutdown()
+    try:
+        out = sb.run(sb.parse_args([
+            "--model", "ResNet18", "--image-size", "32", "--batch-size", "2",
+            "--num-classes", "10", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "1", "--num-iters", "1",
+            "--fused-optimizer", "--device", "cpu"] + argv),
+            then=lambda step, state, x, y: len(
+                tree_flatten(state.residual)[0]))
+    finally:
+        core.shutdown()
+    assert np.isfinite(out["final_loss"])
+    assert out["then"] == (62 if "--compression" in argv else 0)
