@@ -166,6 +166,37 @@ Phases, each printing one JSON line:
    all_reduce alone, and the final loss bit-equal to the same run
    without ``--adasum`` (run after bert_main_path).
 
+23. ring_kernels — K5, the flash ring's hops (K2 unnormalized at global
+   offsets, K3 and K4 against the ring's global lse), on the card: the
+   ring of 4 virtual ranks driven in lockstep through the ring's own hop
+   functions (``parallel/ring_attention.ring_lockstep``: where the
+   distributed ring sends, the held shards and their dk/dv roll) at
+   GPT-2 small's attention (b 4, h 12, s 1024, d 64, bf16, shards of
+   256) causal and not, and in float32 at shards of 136; every virtual
+   rank's output and dq/dk/dv against the same hops through the plain
+   versions at the plan's kv tile (``FLASH_BF16_*``, float32
+   elementwise) and against ``flash_attention`` over the whole sequence
+   (``RING_FULL_*``); 16 launches of each of K2-K4 a ring on the
+   mainloop ``flash_plan`` names; every causal hop on a wholly future
+   shard alone: l and dq exactly 0, o finite; the ring with a hop-local
+   lse, and again with a dropped hop, planted in its hop calls must miss
+   the whole-sequence limits.  Then one hop of each timed at the shard
+   shape and the whole ring's forward and backward
+   beside flash_attention's (timed only).
+24. model_parallel — ``ParallelMLP`` through ``shard_tp_params``, the
+   pipeline (S = 1, 4 microbatches) and ``moe_apply`` (ep = 1, 4
+   experts), one SGD step each on the card with groups of one against
+   the same on the CPU, float32, TF32 off, at the parity limits.
+25. gpt_sp_main_path — the GPT bench at its defaults with
+   ``--seq-parallel ring`` (K2 unnormalized, K3, K4: 12 each a step, on
+   TMA + wgmma, issued and traced) and ``--seq-parallel ulysses`` (K2
+   normalized), world size 1 over NCCL, graphed, as gpt_main_path; the
+   final losses against that run's within ``GPT_BF16_LOSS_RTOL``, the
+   seq/s beside its (run after gpt_main_path).
+26. bert_sp_main_path — BERT-base with ``--attn pallas --seq-parallel
+   ring``, cut as bert_adasum, full depth: the same checks, non-causal,
+   the loss against bert_adasum's run without either (run after it).
+
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
 on the card and on the CPU as in parity, and bert_tiny (flash attention
@@ -188,6 +219,9 @@ non-zero before the last line.
 and prints no last line: the quick check of a change to K2-K4.
 ``--variants-only`` runs the device and build phases and phases 9-13,
 then a kernels line of K6-K10, and prints no last line.
+``--model-parallel-only`` runs the device and build phases, phases 23
+and 24, gpt_main_path, 25, bert_adasum and 26, then a kernels line of
+K5, and prints no last line.
 """
 
 import contextlib
@@ -383,18 +417,19 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
+def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3,
+            sleep: int = SLEEP_CYCLES) -> float:
     """Median device time of ``fn`` over ``runs`` calls, each between two
-    CUDA events.  The card is held busy while the host queues the events
-    and the call, so the host's time to launch the call (a wrapper's
-    checks, its ctypes arguments) is not counted."""
+    CUDA events.  The card is held busy (``sleep`` cycles) while the host
+    queues the events and the call, so the host's time to launch the call
+    (a wrapper's checks, its ctypes arguments) is not counted."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         start.record()
         fn()
         end.record()
@@ -2208,7 +2243,7 @@ def phase_gpt_main_path(htt, kernels, card):
           "step_calls": result["step_calls"],
           "mfu": result["mfu"], "final_loss": result["final_loss"],
           "max_memory_allocated_bytes": peak, "wall_s": wall, "card": card})
-    return flash, traced
+    return flash, traced, result
 
 
 def counted_train_flops(model, size: int, batch: int) -> float:
@@ -3248,6 +3283,501 @@ def phase_bert_adasum(htt, kernels, card):
           "sent_sec_per_chip": ada["sent_sec_per_chip"],
           "default_sent_sec_per_chip": base["sent_sec_per_chip"],
           "wall_s": wall, "card": card})
+    return base
+
+
+# ---------------------------------------------------------------------------
+# model parallelism: K5 (the flash ring's hops), the sequence-parallel main
+# paths, tensor / pipeline / expert parallelism on the card
+# ---------------------------------------------------------------------------
+#: the ring's virtual ranks on one card: GPT-2 small's attention (b 4,
+#: h 12, s 1024, d 64) in shards of 256
+RING_RANKS = 4
+#: the float32 ring case: shards of 136 keys (ragged against the 64-row
+#: tiles), b 2, h 3, d 64
+RING_F32_SHAPE = (2, RING_RANKS * 136, 3, 64)
+#: per K5 call: (the K2-K4 launch kind it runs, the ring building block it
+#: replaces)
+RING_HOPS = {
+    "K5 mha_partial": ("fwd", "horovod_tpu/ops/flash_attention.py:442"),
+    "K5 mha_bwd_dq": ("bwd_dq", "horovod_tpu/ops/flash_attention.py:455"),
+    "K5 mha_bwd_dkv": ("bwd_dkv", "horovod_tpu/ops/flash_attention.py:466"),
+}
+#: the bf16 ring against flash_attention over the whole sequence, row by
+#: row in norm (largest, mean).  The ring rounds each hop's p to bf16
+#: against that hop's running max, the whole-sequence kernel against the
+#: sequence's, and sums dq, dk, dv over the hops in float32 before one
+#: bf16 rounding where the kernel sums them in one pass, so a share of
+#: the terms round apart and the bf16 outputs flip by an ulp (2^-8 of a
+#: row) in many elements, where against the plain hops at the kernel's
+#: own tile few do (FLASH_BF16_*).  An H100 run read 7.6e-3 for
+#: the largest row (dq's, a row of few large terms) and 2.3e-3 for the
+#: mean (o's); the limits are two ulps and one: 2^-6 and 2^-8.  Each
+#: case also runs the ring with each of RING_FAULTS planted in its hop
+#: calls and fails unless the same comparison catches it.
+RING_FULL_ROW_LIMIT, RING_FULL_MEAN_LIMIT = 2 ** -6, 2 ** -8
+#: faults the whole-sequence comparison must catch (``_faulty_hop_ops``)
+RING_FAULTS = ("hop_local_lse", "dropped_hop")
+#: a ring's whole forward and backward on one card issues more host work
+#: than SLEEP_CYCLES covers: 16 hops and their merges, 48 kernels
+RING_SLEEP_CYCLES = 40_000_000
+
+
+def _ring_shards(t, r, seq):
+    return t[:, r * seq:(r + 1) * seq].transpose(1, 2)
+
+
+def _ring_errors(got, want, dtype, seq, limits=None):
+    """Every virtual rank's block of out, dq, dk and dv against ``want``'s
+    (bf16 row by row in norm, to ``limits`` = (largest, mean) or
+    FLASH_BF16_*; float32 elementwise).  Returns the max abs error, the
+    worst (max, mean) row error per output (bf16) and the blocks that
+    miss their limit, as ``(output, virtual rank, what)``."""
+    worst, rows, misses = 0.0, {}, []
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        g, w = g.to(dtype).float(), w.to(dtype).float()
+        for r in range(RING_RANKS):
+            gb_, wb = g[:, r * seq:(r + 1) * seq], w[:, r * seq:(r + 1) * seq]
+            if not torch.isfinite(gb_).all():
+                misses.append((name, r, "non-finite"))
+                continue
+            err = (gb_ - wb).abs().max().item()
+            worst = max(worst, err)
+            if dtype == torch.bfloat16:
+                top, mean = row_rel_err(gb_, wb)
+                prev = rows.get(name, (0.0, 0.0))
+                rows[name] = (max(prev[0], top), max(prev[1], mean))
+                row_limit, mean_limit = limits or (
+                    FLASH_BF16_ROW_LIMIT[name], FLASH_BF16_MEAN_LIMIT)
+                ok = top <= row_limit and mean <= mean_limit
+                how = f"row error max {top}, mean {mean}"
+            else:
+                ok = torch.allclose(gb_, wb, *FLASH_TOL[torch.float32])
+                how = f"max abs {err}"
+            if not ok:
+                misses.append((name, r, how))
+    return worst, rows, misses
+
+
+def _ring_compare(what, got, want, dtype, seq, limits=None
+                  ) -> Tuple[float, dict]:
+    """:func:`_ring_errors`, failing on any block that misses its limit;
+    returns the max abs error and the row errors."""
+    worst, rows, misses = _ring_errors(got, want, dtype, seq, limits)
+    if misses:
+        name, r, how = misses[0]
+        fail(f"ring_kernels: {name} of virtual rank {r} disagrees ({what}): "
+             f"{how}; {len(misses)} blocks miss")
+    return worst, rows
+
+
+def _faulty_hop_ops(ra, fa, fault: str, seq: int):
+    """The ring's hop calls on the kernels with one fault planted, for
+    ``ring_lockstep``'s ``ops``: ``hop_local_lse`` hands K3 and K4 the
+    hop's own lse (from K2 on that hop) in place of the ring's global
+    one; ``dropped_hop`` returns the empty partial (o 0, m ``NEG_INF``,
+    l 0) for the kv shard one rank back, so every rank's hop 1 merges
+    nothing."""
+    ops = ra.HOP_KERNELS
+    if fault == "hop_local_lse":
+        def hop_lse(q, k, v, q_off, kv_off, kw):
+            _, m, l = ops.partial(q, k, v, q_off, kv_off, **kw)
+            return (m + torch.log(l.clamp_min(1e-30))).contiguous()
+
+        def bwd_dq(q, k, v, do, lse, delta, q_off, kv_off, **kw):
+            return ops.bwd_dq(q, k, v, do, hop_lse(q, k, v, q_off, kv_off,
+                                                   kw), delta, q_off,
+                              kv_off, **kw)
+
+        def bwd_dkv(q, k, v, do, lse, delta, q_off, kv_off, **kw):
+            return ops.bwd_dkv(q, k, v, do, hop_lse(q, k, v, q_off, kv_off,
+                                                    kw), delta, q_off,
+                               kv_off, **kw)
+
+        return ra.HopOps(ops.partial, bwd_dq, bwd_dkv)
+    if fault != "dropped_hop":
+        raise ValueError(fault)
+
+    def partial(q, k, v, q_off, kv_off, **kw):
+        o, m, l = ops.partial(q, k, v, q_off, kv_off, **kw)
+        if (q_off - kv_off) // seq % RING_RANKS == 1:
+            return (torch.zeros_like(o), torch.full_like(m, fa.NEG_INF),
+                    torch.zeros_like(l))
+        return o, m, l
+
+    return ra.HopOps(partial, ops.bwd_dq, ops.bwd_dkv)
+
+
+def _ring_case(kernels, fa, ra, shape, dtype, causal, seed) -> dict:
+    """The flash ring of RING_RANKS virtual ranks in lockstep
+    (``ring_attention.ring_lockstep``, the distributed ring's own hop
+    functions) on the kernels, against (i) the same hops through the
+    plain versions at the plan's kv tile and (ii) ``flash_attention``
+    over the whole sequence; the launches by mainloop; with ``causal``,
+    every hop whose kv shard is wholly in its queries' future alone: l
+    and dq exactly 0, o finite."""
+    b, s, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    seq, n = s // RING_RANKS, RING_RANKS
+    loop = "wgmma" if dtype == torch.bfloat16 else "f32"
+    kv_tile = kernels.flash_plan_for("fwd", *(_ring_shards(t, 0, seq)
+                                             for t in (q, k, v))).kv_tile
+    case = f"{tuple(shape)} {dtype} causal={causal}"
+    before = dict(kernels.flash_launches)
+    got = _on_card(f"ring_kernels: the ring at {case}",
+                   lambda: ra.ring_lockstep(q, k, v, do, n, causal=causal))
+    took = {key: c - before[key] for key, c in kernels.flash_launches.items()
+            if c != before[key]}
+    want = {f"{kind}.{loop}": n * n for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    if took != want:
+        fail(f"ring_kernels: the ring at {case} launched {took}, want {want}")
+    plain = ra.ring_lockstep(q, k, v, do, n, causal=causal,
+                             ops=ra.plain_hop_ops(kv_tile))
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qq, kk, vv, causal=causal)
+    out.backward(do)
+    full = (out.detach(), qq.grad, kk.grad, vv.grad)
+    err_plain, rows_plain = _ring_compare(f"{case} against the plain hops",
+                                          got, plain, dtype, seq)
+    full_limits = (RING_FULL_ROW_LIMIT, RING_FULL_MEAN_LIMIT)
+    err_full, rows_full = _ring_compare(
+        f"{case} against flash_attention over the whole sequence", got,
+        full, dtype, seq, full_limits)
+    faults = {}
+    for fault in RING_FAULTS:
+        bad = ra.ring_lockstep(q, k, v, do, n, causal=causal,
+                               ops=_faulty_hop_ops(ra, fa, fault, seq))
+        _, rows_bad, misses = _ring_errors(bad, full, dtype, seq,
+                                           full_limits)
+        if not misses:
+            fail(f"ring_kernels: the ring with a {fault} planted passes "
+                 f"the comparison with flash_attention ({case}): the "
+                 f"limits cannot see that fault")
+        faults[fault] = {"row_rel_err_vs_flash_attention": rows_bad,
+                         "blocks_missing_the_limit": len(misses)}
+    future = 0
+    if causal:
+        scale = 1.0 / math.sqrt(d)
+        stats = torch.zeros((b, h, seq, 1), device="cuda")
+        for r in range(n):
+            for owner in range(r + 1, n):
+                qs, ks, vs, ds = (_ring_shards(t, i, seq) for t, i in
+                                  ((q, r), (k, owner), (v, owner), (do, r)))
+                po, _, pl = ra.HOP_KERNELS.partial(
+                    qs, ks, vs, r * seq, owner * seq, causal=True,
+                    scale=scale)
+                dq = ra.HOP_KERNELS.bwd_dq(qs, ks, vs, ds, stats, stats,
+                                           r * seq, owner * seq, causal=True,
+                                           scale=scale)
+                if pl.abs().max().item() != 0.0 or \
+                        dq.abs().max().item() != 0.0 or \
+                        not torch.isfinite(po).all():
+                    fail(f"ring_kernels: the future shard {owner} of "
+                         f"virtual rank {r} gave l or dq != 0 or o "
+                         f"non-finite ({case})")
+                future += 1
+    return {"shape_bshd": list(shape), "dtype": str(dtype).split(".")[-1],
+            "causal": causal, "virtual_ranks": n, "shard": seq,
+            "launches_by_mainloop": took, "kv_tile_of_plain": kv_tile,
+            "max_abs_err_vs_plain_hops": err_plain,
+            "max_abs_err_vs_flash_attention": err_full,
+            "row_rel_err_vs_plain_hops": rows_plain,
+            "row_rel_err_vs_flash_attention": rows_full,
+            "planted_faults_vs_flash_attention": faults,
+            "future_hops_checked": future}
+
+
+def _ring_hop_timing(kernels, fa, ra, flops_mod) -> dict:
+    """One hop of each of K2 (unnormalized), K3 and K4 at the shard shape
+    of GPT-2 small's ring of RING_RANKS (b 4, h 12, s 256, d 64, bf16,
+    the model's layout), a kv shard wholly in the past of its queries
+    (the hop with the most work, every pair seen), beside the same hop
+    through the plain versions and the bound; then the whole ring's
+    forward and backward in lockstep beside ``flash_attention``'s over
+    the whole sequence.  Timed only."""
+    b, h, s, d = GPT_ATTN_SHAPE
+    seq = s // RING_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shard = (b, seq, h, d)
+    q, k, v, do = (torch.randn(shard, device="cuda", generator=gen).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(4))
+    kw = dict(causal=True, scale=1.0 / math.sqrt(d))
+    offs = (seq, 0)          # virtual rank 1 on rank 0's shard
+    kv_tile = kernels.flash_plan_for("fwd", q, k, v).kv_tile
+    plain = ra.plain_hop_ops(kv_tile)
+    o, m, l = plain.partial(q, k, v, *offs, **kw)
+    lse = (m + torch.log(l.clamp_min(1e-30))).contiguous()
+    delta = (do.float() * (o / l.clamp_min(1e-30))).sum(
+        -1, keepdim=True).contiguous()
+    bwd = (q, k, v, do, lse, delta, *offs)
+    calls = {"K5 mha_partial": (
+        lambda: ra.HOP_KERNELS.partial(q, k, v, *offs, **kw),
+        lambda: plain.partial(q, k, v, *offs, **kw)),
+        "K5 mha_bwd_dq": (lambda: ra.HOP_KERNELS.bwd_dq(*bwd, **kw),
+                          lambda: plain.bwd_dq(*bwd, **kw)),
+        "K5 mha_bwd_dkv": (lambda: ra.HOP_KERNELS.bwd_dkv(*bwd, **kw),
+                           lambda: plain.bwd_dkv(*bwd, **kw))}
+    pairs = b * h * seq * seq
+    elems, rows = b * h * seq * d, b * h * seq * 4
+    # (flops, bytes): each input read once, each output written once; K2
+    # unnormalized writes o in float32
+    work = {"K5 mha_partial": (4 * d * pairs, 3 * elems * 2 + elems * 4
+                               + 2 * rows),
+            "K5 mha_bwd_dq": (6 * d * pairs, 4 * elems * 2 + 2 * rows
+                              + elems * 4),
+            "K5 mha_bwd_dkv": (8 * d * pairs, 4 * elems * 2 + 2 * rows
+                               + 2 * elems * 4)}
+    out = {}
+    for key, (kernel_fn, plain_fn) in calls.items():
+        flops, nbytes = work[key]
+        bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                    flops_mod.H100_PEAK_FLOPS)
+        out[key] = {"mainloop": kernels.flash_plan_for(
+            RING_HOPS[key][0], q, k, v, None if key == "K5 mha_partial"
+            else do).mainloop,
+            "hop_shape_bhsd": [b, h, seq, d], "offsets": list(offs),
+            "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+            "ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "library_call": "none: no one library call returns the "
+                            "unnormalized (o, m, l) or one hop's dq, dk, "
+                            "dv at global offsets"}
+    # the whole ring (lockstep, 16 hops each way) and flash_attention at
+    # full length, forward and backward, in the model's layout
+    full = [torch.randn((b, s, h, d), device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(4)]
+    ring_ms = cuda_ms(lambda: ra.ring_lockstep(*full, RING_RANKS,
+                                               causal=True),
+                      sleep=RING_SLEEP_CYCLES)
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in full[:3])
+
+    def whole():
+        fa.flash_attention(qq, kk, vv, causal=True).backward(full[3])
+
+    return out, {"ring_fwd_bwd_ms": ring_ms,
+                 "flash_attention_fwd_bwd_ms": cuda_ms(
+                     whole, sleep=RING_SLEEP_CYCLES)}
+
+
+def phase_ring_kernels(kernels, fa, ra, flops_mod) -> dict:
+    """K5 on the card: the flash ring of RING_RANKS virtual ranks
+    (``ring_lockstep``) at GPT-2 small's attention in bf16, causal and
+    not, and in float32 at shards of 136, each against the plain hops and
+    against whole-sequence ``flash_attention``, n² launches of each of
+    K2-K4 on the mainloop ``flash_plan`` names; then one hop of each
+    timed.  Returns K5's entries for the kernels line."""
+    b, h, s, d = GPT_ATTN_SHAPE
+    cases = [_ring_case(kernels, fa, ra, (b, s, h, d), torch.bfloat16,
+                        causal, 200 + causal) for causal in (True, False)]
+    cases += [_ring_case(kernels, fa, ra, RING_F32_SHAPE, torch.float32,
+                         causal, 210 + causal) for causal in (True, False)]
+    timing, whole = _ring_hop_timing(kernels, fa, ra, flops_mod)
+    worst = max(max(c["max_abs_err_vs_plain_hops"] for c in cases), 0.0)
+    results = {}
+    for key, (kind, replaces) in RING_HOPS.items():
+        results[key] = {
+            "name": f"ring hop: {key.split()[1]} ({kind})", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": worst,
+            "tolerance": {
+                "float32": dict(zip(("rtol", "atol"),
+                                    FLASH_TOL[torch.float32])),
+                "bfloat16_row": FLASH_BF16_ROW_LIMIT["o"],
+                "bfloat16_mean_row": FLASH_BF16_MEAN_LIMIT,
+                "bfloat16_vs_flash_attention": [RING_FULL_ROW_LIMIT,
+                                                RING_FULL_MEAN_LIMIT]},
+            **timing[key], **whole}
+    emit({"phase": "ring_kernels", "cases": cases,
+          "timing": {k: {f: v[f] for f in ("mainloop", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                     for k, v in timing.items()},
+          **whole})
+    return results
+
+
+def _sp_run(bench, argv, what, kernels, layers, k1, buckets, causal_loops):
+    """One sequence-parallel main path: the bench's ``run`` graphed,
+    traced; checks a finite loss, the graphed calls, K2-K4 ``layers``
+    each a step (issued, on ``causal_loops``' mainloop keys, and in the
+    trace), K1 ``k1`` a step and one all_reduce a bucket plus the loss's
+    a step.  Returns the result."""
+    args = bench.parse_args(argv)
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+    reset_counts(kernels)
+    with AllReduceCounter() as calls:
+        result = bench.run(args, then=main_path_trace(
+            what, kernels, step_trace(k1=k1, flash=layers)))
+    flash = dict(kernels.flash_launches)
+    if not math.isfinite(result["final_loss"]):
+        fail(f"{what}: final loss {result['final_loss']}")
+    check_graphed(what, result["step_calls"], steps)
+    host_steps = issued_steps(result["step_calls"])
+    if flash != flash_counts(kernels, causal_loops, layers * host_steps):
+        fail(f"{what}: K2-K4 launches issued {flash}, want "
+             f"{layers * host_steps} each of {causal_loops}")
+    k1_issued = kernels.launch_totals(kernels.fused_update_launches)
+    if sum(k1_issued.values()) != k1 * host_steps:
+        fail(f"{what}: K1 launches issued {k1_issued}")
+    result["allreduce_calls"] = calls.check(what, result["step_calls"],
+                                            buckets + 1)
+    result["k2_k4_launches_issued"] = {k: v for k, v in flash.items() if v}
+    result["steps"] = steps
+    return result
+
+
+def phase_gpt_sp_main_path(htt, kernels, card, none) -> dict:
+    """``examples.gpt_synthetic_benchmark.run`` at its defaults (GPT-2
+    small, batch 4, seq 1024, bf16, fused Adam) with ``--seq-parallel
+    ring`` (K2 unnormalized a hop, K3 and K4: the flash ring of one rank)
+    and then ``--seq-parallel ulysses`` (K2 normalized), world size 1 over
+    NCCL, graphed: the main path's checks, 12 of each of K2-K4 a step on
+    TMA + wgmma, and the final loss against the data-parallel run's
+    (``none``, gpt_main_path's, same seeds and steps) within the bf16 GPT
+    limit.  Returns the ring run's trace."""
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+    from horovod_tpu_torch.models import gpt2_small
+
+    buckets = fusion_buckets(gpt2_small)
+    out = {}
+    for sp in ("ring", "ulysses"):
+        what = f"gpt_sp_main_path --seq-parallel {sp}"
+        res = _sp_run(gb, ["--seq-parallel", sp], what, kernels, 12, 1,
+                      buckets, GPT_BF16_FLASH)
+        rel = abs(res["final_loss"] - none["final_loss"]) / \
+            abs(none["final_loss"])
+        if rel > GPT_BF16_LOSS_RTOL:
+            fail(f"{what}: final loss {res['final_loss']} against the "
+                 f"data-parallel run's {none['final_loss']} ({rel:.3g} "
+                 f"relative, limit {GPT_BF16_LOSS_RTOL})")
+        out[sp] = {"seq_sec_per_chip": res["seq_sec_per_chip"],
+                   "mfu": res["mfu"], "final_loss": res["final_loss"],
+                   "loss_rel_diff_vs_none": rel, "steps": res["steps"],
+                   "step_calls": res["step_calls"],
+                   "k2_k4_launches_issued": res["k2_k4_launches_issued"],
+                   "allreduce_calls": res["allreduce_calls"],
+                   "trace": res["then"]}
+    emit({"phase": "gpt_sp_main_path", "model": "gpt2_small",
+          "batch": 4, "seq_len": 1024, "dtype": "bfloat16",
+          "world_size": htt.size(), "runs": out,
+          "none_seq_sec_per_chip": none["seq_sec_per_chip"],
+          "none_final_loss": none["final_loss"],
+          "loss_rtol": GPT_BF16_LOSS_RTOL, "card": card})
+    return out["ring"]["trace"]
+
+
+def phase_bert_sp_main_path(htt, kernels, card, base) -> None:
+    """The BERT bench at full size with ``--attn pallas --seq-parallel
+    ring`` (non-causal flash ring of one rank), cut as bert_adasum (the
+    warm-up, the capture, 2 replays) so the script stays inside its
+    time: the main path's checks, 12 of each of K2-K4 a step on TMA +
+    wgmma, no K1, and the final loss against the same cut without
+    sequence parallelism (``base``, bert_adasum's default run) within the
+    bf16 limit."""
+    from horovod_tpu_torch.examples import bert_synthetic_benchmark as bb
+    from horovod_tpu_torch.models import bert_base
+
+    what = "bert_sp_main_path --seq-parallel ring"
+    res = _sp_run(bb, BERT_ADASUM_ARGV + ["--seq-parallel", "ring"], what,
+                  kernels, 12, 0, fusion_buckets(bert_base), GPT_BF16_FLASH)
+    rel = abs(res["final_loss"] - base["final_loss"]) / \
+        abs(base["final_loss"])
+    if rel > GPT_BF16_LOSS_RTOL:
+        fail(f"{what}: final loss {res['final_loss']} against "
+             f"{base['final_loss']} ({rel:.3g} relative)")
+    emit({"phase": "bert_sp_main_path", "model": "bert_base",
+          "attn": "pallas", "seq_parallel": "ring", "batch": 8,
+          "seq_len": 512, "world_size": htt.size(), "steps": res["steps"],
+          "cut": "the warm-up (eager), the capture, 2 replays: full depth",
+          "step_calls": res["step_calls"],
+          "k2_k4_launches_issued": res["k2_k4_launches_issued"],
+          "allreduce_calls": res["allreduce_calls"], "trace": res["then"],
+          "sent_sec_per_chip": res["sent_sec_per_chip"],
+          "none_sent_sec_per_chip": base["sent_sec_per_chip"],
+          "final_loss": res["final_loss"],
+          "none_final_loss": base["final_loss"],
+          "loss_rel_diff_vs_none": rel, "card": card})
+
+
+def _model_parallel_step(device) -> dict:
+    """One SGD step (0.1) each of a ParallelMLP through shard_tp_params
+    (tp = 1), a pipeline of one stage over 4 microbatches and a MoE layer
+    of 4 experts on one rank (ep = 1), every group the world of one, from
+    weights drawn on the CPU: the losses, outputs and new parameters."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.convert import canonical_params
+    from horovod_tpu_torch.parallel import moe, pipeline
+    from horovod_tpu_torch.parallel import tensor_parallel as tp
+
+    world = dist.group.WORLD
+    gen = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    out = {}
+    mlp = tp.ParallelMLP(16, 64, 8, dtype=torch.float32, axis=world,
+                         generator=gen).to(device)
+    x, y = rnd(4, 16), rnd(4, 8)
+    params = canonical_params(mlp)
+    pred = mlp(x)
+    loss = torch.mean((pred - y) ** 2)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    out["tp/loss"], out["tp/out"] = loss, pred
+    for (k, p), g in zip(params.items(), grads):
+        out[f"tp/{k}"] = p - 0.1 * g
+    stage = {"w": rnd(8, 8, scale=0.5).requires_grad_(),
+             "b": rnd(8, scale=0.1).requires_grad_()}
+    xs, ts = rnd(4, 2, 8), rnd(4, 2, 8)
+    pout = pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p[
+        "b"]), stage, xs, axis=world)
+    loss = torch.mean((pout - ts) ** 2)
+    grads = torch.autograd.grad(loss, list(stage.values()))
+    out["pp/loss"], out["pp/out"] = loss, pout
+    for (k, p), g in zip(stage.items(), grads):
+        out[f"pp/{k}"] = p - 0.1 * g
+    experts = {"w": rnd(4, 8, 16, scale=0.5).requires_grad_(),
+               "v": rnd(4, 16, 8, scale=0.5).requires_grad_()}
+    router = rnd(8, 4).requires_grad_()
+    xt, tt = rnd(16, 8), rnd(16, 8)
+    mout = moe.moe_apply(lambda p, t: torch.tanh(t @ p["w"]) @ p["v"],
+                         experts, xt, router, capacity=8, axis=world)
+    loss = torch.mean((mout - tt) ** 2)
+    leaves = {**experts, "router": router}
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    out["ep/loss"], out["ep/out"] = loss, mout
+    for (k, p), g in zip(leaves.items(), grads):
+        out[f"ep/{k}"] = p - 0.1 * g
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def phase_model_parallel(htt) -> None:
+    """Tensor, pipeline and expert parallelism on the card with groups of
+    one (``_model_parallel_step``) against the same on the CPU, float32
+    with TF32 off, at the card-vs-CPU parity limits."""
+    with no_tf32():
+        card = _model_parallel_step("cuda")
+    cpu = _model_parallel_step("cpu")
+    errs = {}
+    for k, want in cpu.items():
+        got = card[k]
+        errs[k] = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got, want, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+            fail(f"model_parallel: {k} on the card is {errs[k]} off the "
+                 f"CPU's")
+    emit({"phase": "model_parallel", "world_size": htt.size(),
+          "cases": {"tp": "ParallelMLP 16-64-8 through shard_tp_params, "
+                          "tp = 1", "pp": "pipeline_apply, S = 1, M = 4",
+                    "ep": "moe_apply, ep = 1, 4 experts, capacity 8"},
+          "losses": {k: cpu[k].item() for k in cpu if k.endswith("/loss")},
+          "max_abs_err": errs,
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL}})
 
 
 #: where the kernels line's launches come from
@@ -3258,7 +3788,8 @@ LAUNCHES_NOTE = (
     "on the variants path (K8 in its eval forward of one batch); K1 sgd "
     "in one replay of the rules phase; the 'bert' entries of K2-K4 on "
     "BERT-base (--attn pallas), the 'vgg16' entry of K1 momentum on "
-    "VGG-16")
+    "VGG-16; K5's three entries (the flash ring's hops: K2 unnormalized, "
+    "K3, K4) on GPT-2 small with --seq-parallel ring at world size 1")
 
 #: the counters of K8-K10
 CONV_COUNTERS = ("bn_relu", "stats", "plain")
@@ -3291,6 +3822,22 @@ def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
     return results
 
 
+def run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
+                              card) -> dict:
+    """The phases of K5 and model parallelism alone (with the GPT main
+    path and the BERT cut they are compared with): K5's entries,
+    launches from the ring's main path."""
+    results = phase_ring_kernels(kernels, fa, ra, flops_mod)
+    phase_model_parallel(htt)
+    _, _, gpt_none = phase_gpt_main_path(htt, kernels, card)
+    ring_trace = phase_gpt_sp_main_path(htt, kernels, card, gpt_none)
+    for key, k in zip(RING_HOPS, ("K2", "K3", "K4")):
+        results[key]["launches"] = ring_trace["launches"][k]
+    phase_bert_sp_main_path(htt, kernels, card,
+                            phase_bert_adasum(htt, kernels, card))
+    return results
+
+
 def main() -> None:
     import argparse
 
@@ -3300,6 +3847,11 @@ def main() -> None:
     ap.add_argument("--variants-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K6-K10 (elementwise_kernels to variants_profile)")
+    ap.add_argument("--model-parallel-only", action="store_true",
+                    help="run the device and build phases and those of "
+                         "K5 and model parallelism (ring_kernels, "
+                         "model_parallel, gpt_main_path, gpt_sp_main_path, "
+                         "bert_adasum, bert_sp_main_path)")
     cli = ap.parse_args()
     flash_only, variants_only = cli.flash_only, cli.variants_only
     if not torch.cuda.is_available():
@@ -3310,6 +3862,7 @@ def main() -> None:
     from horovod_tpu_torch.ops import elementwise as ew
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.optim import fused_update as fu
+    from horovod_tpu_torch.parallel import ring_attention as ra
     from horovod_tpu_torch.utils import flops as flops_mod
 
     card = nvidia_smi_line()
@@ -3338,14 +3891,23 @@ def main() -> None:
               "launches": LAUNCHES_NOTE})
         htt.shutdown()
         return
+    if cli.model_parallel_only:
+        results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
+                                            card)
+        emit({"kernels": [results[k] for k in RING_HOPS],
+              "launches": LAUNCHES_NOTE})
+        htt.shutdown()
+        return
     results = phase_kernels(fu, flops_mod)
     results.update(phase_flash_kernels(kernels, fa, flops_mod))
+    results.update(phase_ring_kernels(kernels, fa, ra, flops_mod))
     phase_parity(htt)
     phase_gpt_parity(htt, kernels)
     phase_gpt_bf16(kernels, fa)
     phase_graph_parity(htt, kernels)
     phase_registry_parity(htt, kernels)
     phase_collectives(htt)
+    phase_model_parallel(htt)
     fp8_route = phase_wire(htt, card)
     k1_launches = {}
     k1_launches["momentum"], default_img_sec = phase_main_path(
@@ -3356,7 +3918,7 @@ def main() -> None:
     results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                       default_img_sec))
     k1_launches.update(phase_rules(htt, kernels))
-    flash, gpt_trace = phase_gpt_main_path(htt, kernels, card)
+    flash, gpt_trace, gpt_none = phase_gpt_main_path(htt, kernels, card)
     k1_launches["adam"] = gpt_trace["k1"]["adam"]
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]
@@ -3368,17 +3930,22 @@ def main() -> None:
             k.split(".")[1]: v for k, v in flash.items()
             if k.startswith(counter + ".")}
     phase_gpt_profile(htt, kernels)
+    ring_trace = phase_gpt_sp_main_path(htt, kernels, card, gpt_none)
+    for key, k in zip(RING_HOPS, ("K2", "K3", "K4")):
+        results[key]["launches"] = ring_trace["launches"][k]
     bert_trace = phase_bert_main_path(htt, kernels, card)
     for key in ("K2", "K3", "K4"):
         results[key]["bert"]["launches"] = bert_trace["launches"][key]
-    phase_bert_adasum(htt, kernels, card)
+    phase_bert_sp_main_path(htt, kernels, card,
+                            phase_bert_adasum(htt, kernels, card))
     registry = phase_registry_main_path(htt, kernels, flops_mod, card)
     results["momentum"]["vgg16"]["launches"] = \
         registry["VGG16"]["k1"]["momentum"]["float32"]
     htt.shutdown()
 
     emit({"kernels": [results[r] for r in ("momentum", "sgd", "adam", "K2",
-                                           "K3", "K4", *VARIANT_KEYS)],
+                                           "K3", "K4", *RING_HOPS,
+                                           *VARIANT_KEYS)],
           "launches": LAUNCHES_NOTE, "card": card,
           "seconds": time.perf_counter() - T_START})
     print(card, flush=True)

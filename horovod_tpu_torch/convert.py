@@ -37,13 +37,19 @@ optimizer buffers all follow it, so the port's bucket lists equal the
 reference's, and its flat moment buffers equal the reference's once each
 leaf takes its layout (:func:`fused_opt_state_from_flax`).
 
+The model-parallel layers (``parallel/``) have converters of their own:
+:func:`parallel_mlp_params_from_flax` (a ``ParallelMLP``, whole or one
+rank's tensor-parallel shard), :func:`pipeline_params_from_flax` (a
+pipeline's stacked stages) and :func:`moe_params_from_flax` (a MoE
+layer's stacked experts, or one rank's, and its router).
+
 Arrays cross as numpy: nothing here imports the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -271,3 +277,59 @@ def fused_opt_state_from_flax(count, mu: Mapping, nu: Mapping,
         count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                            device=device),
         mu=convert(mu), nu=nu, bc=bc_buffers(nu))
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel layers (parallel/)
+# ---------------------------------------------------------------------------
+def _flat(params: Mapping) -> Dict[str, np.ndarray]:
+    """A nested or flat (``"a/b"``-keyed) dict of arrays, flat."""
+    if all(not isinstance(v, Mapping) for v in params.values()):
+        return {k: np.asarray(v) for k, v in params.items()}
+    return flatten_flax(params)
+
+
+def parallel_mlp_params_from_flax(params: Mapping, *, rank: int = 0,
+                                  size: int = 1) -> Dict[str, torch.Tensor]:
+    """The reference ``ParallelMLP``'s flax parameters as the port's,
+    under its canonical names (``up/kernel`` ...): each kernel ``[in,
+    out]`` → ``[out, in]``, then, with ``size > 1``, rank ``rank``'s
+    tensor-parallel shard by ``TP_MLP_RULES`` (the whole MLP by
+    default)."""
+    from .parallel.tensor_parallel import TP_MLP_RULES, shard_leaf, spec_for
+
+    flat = _flat(params)
+    if set(flat) != set(TP_MLP_RULES):
+        raise ValueError(f"not a ParallelMLP's parameters: {sorted(flat)}")
+    return {name: shard_leaf(torch.from_numpy(np.array(to_torch_layout(a))),
+                             spec_for(name, TP_MLP_RULES, "tp"), rank, size)
+            for name, a in flat.items()}
+
+
+def pipeline_params_from_flax(stages) -> Dict[str, torch.Tensor]:
+    """A pipeline's stage parameters (the reference's per-stage dicts, or
+    their ``stack_stage_params`` result) as the port's stacked tensors,
+    ``[S, ...]`` a leaf.  The stages' arrays are the stage function's own
+    operands (``x @ w``), so their layouts carry over unchanged."""
+    if isinstance(stages, Mapping):
+        return {k: torch.from_numpy(np.array(v))
+                for k, v in _flat(stages).items()}
+    return {k: torch.from_numpy(np.stack([np.asarray(s[k]) for s in stages]))
+            for k in stages[0]}
+
+
+def moe_params_from_flax(params: Mapping, *, rank: Optional[int] = None,
+                         ep: int = 1) -> Dict[str, object]:
+    """A MoE layer's ``{"experts": {leaf: [E, ...]}, "router": [d, E]}``
+    (the reference drive's layout) as torch tensors; with ``rank``, the
+    experts are that rank's ``E / ep`` only (``moe_apply``'s
+    ``expert_params``), the router stays whole.  The arrays are the
+    expert function's own operands, so their layouts carry over."""
+    experts = {k: np.asarray(v) for k, v in params["experts"].items()}
+    if rank is not None:
+        per = next(iter(experts.values())).shape[0] // ep
+        experts = {k: v[rank * per:(rank + 1) * per]
+                   for k, v in experts.items()}
+    return {"experts": {k: torch.from_numpy(np.array(v))
+                        for k, v in experts.items()},
+            "router": torch.from_numpy(np.array(params["router"]))}

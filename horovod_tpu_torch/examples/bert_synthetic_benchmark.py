@@ -24,8 +24,13 @@ reference:
 ``--attn pallas`` runs non-causal flash attention, the kernels K2-K4;
 ``--attn xla`` the encoder's materialized attention.  ``--adasum``
 reduces each gradient with ``allreduce(op=Adasum)`` inside the step, as
-the reference's bench does.  Sequence parallelism (``--seq-parallel
-ring|ulysses``, ROADMAP queue 1 item 9) is not ported yet and raises.
+the reference's bench does.  ``--seq-parallel ring|ulysses`` shards the
+sequence over the world, every rank holding all ``batch · size``
+sentences, and attends with ``ring_attention`` or ``ulysses_attention``
+(``parallel/``; the flash kernels per hop with ``--attn pallas``),
+non-causal.  As in the reference the encoder is called on each shard as
+it is, so its positions restart at 0 in every shard, and each rank's
+masked loss is its own shard's, averaged over the ranks.
 
 On a card the step is the compiled one (the first warm-up call eager,
 the second captures ``--num-in-graph-steps`` steps into a CUDA graph,
@@ -49,7 +54,10 @@ from .. import core
 from ..models.bert import bert_base, bert_tiny
 from ..ops.flash_attention import flash_attention
 from ..optim.transforms import adamw
-from ..training import init_train_state, make_train_step, shard_batch
+from ..parallel.ring_attention import ring_attention, ulysses_attention
+from ..training import (
+    init_train_state, make_train_step, shard_batch, shard_sequence,
+)
 from ..utils.flops import param_count, transformer_mfu
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -128,18 +136,25 @@ def mlm_apply(model, head: torch.Tensor) -> Callable:
     return apply
 
 
+def mlm_head(hidden: int, vocab: int, device) -> torch.Tensor:
+    """The fixed float32 MLM head ``[hidden, vocab]``, normal with stddev
+    0.02, from a torch generator seeded with 1."""
+    return (torch.randn(hidden, vocab,
+                        generator=torch.Generator().manual_seed(1))
+            * 0.02).to(device)
+
+
 def _attention_fn(args):
+    impl = "flash" if args.attn == "pallas" else "xla"
+    if args.seq_parallel == "ring":
+        return lambda q, k, v, mask: ring_attention(q, k, v, causal=False,
+                                                    impl=impl)
+    if args.seq_parallel == "ulysses":
+        return lambda q, k, v, mask: ulysses_attention(
+            q, k, v, causal=False, impl=impl)
     if args.attn == "pallas":
         return lambda q, k, v, mask: flash_attention(q, k, v, causal=False)
     return None  # the encoder's materialized attention
-
-
-def _refuse_unported(args) -> None:
-    if args.seq_parallel != "none":
-        raise NotImplementedError(
-            f"--seq-parallel {args.seq_parallel} is not ported yet: ring "
-            "and Ulysses attention land with sequence parallelism "
-            "(ROADMAP queue 1, item 9)")
 
 
 def run(args, eager: bool = False,
@@ -150,7 +165,6 @@ def run(args, eager: bool = False,
     step that was timed, its state and its inputs (``chip_smoke.py``
     traces more calls with it); what it returns is the result's
     ``"then"``."""
-    _refuse_unported(args)
     core.init(device=args.device)
     factory = bert_tiny if args.model == "tiny" else bert_base
     # initialized on the device, from a generator there seeded with 0
@@ -163,9 +177,7 @@ def run(args, eager: bool = False,
     vocab = model.vocab_size
     opt = adamw(1e-4)
     state = init_train_state(model, opt)
-    head = (torch.randn(model.hidden_dim, vocab,
-                        generator=torch.Generator().manual_seed(1))
-            * 0.02).to(core.device())
+    head = mlm_head(model.hidden_dim, vocab, core.device())
     step = make_train_step(apply_fn=mlm_apply(model, head),
                            loss_fn=masked_mlm_loss, optimizer=opt,
                            op=core.Adasum if args.adasum else core.Average,
@@ -174,8 +186,11 @@ def run(args, eager: bool = False,
 
     n = args.batch_size * core.size()
     inputs, tokens, mask = mlm_batch(n, args.seq_len, vocab, args.mask_prob)
-    x = shard_batch(torch.from_numpy(inputs[:n]).long())
-    y = shard_batch(mlm_targets(tokens[:n], mask[:n]))
+    # the batch sharded over the world, or (sequence parallel) the
+    # sequence, every rank holding all n sentences
+    shard = shard_batch if args.seq_parallel == "none" else shard_sequence
+    x = shard(torch.from_numpy(inputs[:n]).long())
+    y = shard(mlm_targets(tokens[:n], mask[:n]))
 
     def log(s):
         if core.rank() == 0:

@@ -12,8 +12,18 @@ the weights come from a generator on the device seeded with 0.
   attention through the hand-written kernels K2-K4.
 * ``--attn torch`` (the reference's ``xla``): the materialized
   ``softmax_attention``.
-* ``--seq-parallel ring|ulysses`` lands with sequence parallelism and
-  raises here.
+* ``--seq-parallel ring|ulysses``: the reference's sequence
+  parallelism.  The sequence is sharded over the world and the batch
+  (``--batch-size`` sequences, the reference's draw) replicated; the
+  model sees global positions (``seq_offset``), attention is
+  ``ring_attention`` or ``ulysses_attention`` (``parallel/``, the flash
+  kernels per hop with ``--attn flash``), and the loss is the shifted LM
+  loss within each shard, the ``n - 1`` predictions across shard
+  boundaries dropped as the reference drops them, averaged over the
+  ranks with the gradients.  As the reference's sequence-parallel step
+  it runs one optimizer step a call (``--num-in-graph-steps`` applies
+  to the data-parallel path only), and the rate counts ``--batch-size``
+  sequences for the whole world.
 
 The optimizer differs from the reference's.  The reference trains with
 ``optax.adam(1e-4)``; the port's trainer takes a ``FusedOptimizer``, so
@@ -42,7 +52,10 @@ from .. import core
 from ..models.gpt import gpt2_small, gpt_tiny, next_token_loss
 from ..ops.flash_attention import softmax_attention
 from ..optim.fused_update import fused_adam
-from ..training import init_train_state, make_train_step, shard_batch
+from ..parallel.ring_attention import ring_attention, ulysses_attention
+from ..training import (
+    init_train_state, make_train_step, shard_batch, shard_sequence,
+)
 from ..utils.flops import param_count, transformer_mfu
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -77,6 +90,13 @@ def parse_args(argv=None):
 
 
 def _attention_fn(args):
+    impl = "flash" if args.attn == "flash" else "xla"
+    if args.seq_parallel == "ring":
+        return lambda q, k, v, m: ring_attention(q, k, v, causal=True,
+                                                 impl=impl)
+    if args.seq_parallel == "ulysses":
+        return lambda q, k, v, m: ulysses_attention(q, k, v, causal=True,
+                                                    impl=impl)
     if args.attn == "flash":
         return None  # the model's default: causal flash attention
     return lambda q, k, v, m: softmax_attention(q, k, v, causal=True)
@@ -90,11 +110,6 @@ def run(args, eager: bool = False,
     step that was timed, its state and its inputs (``chip_smoke.py``
     traces more calls with it); what it returns is the result's
     ``"then"``."""
-    if args.seq_parallel != "none":
-        raise NotImplementedError(
-            f"--seq-parallel {args.seq_parallel} is not ported yet: ring "
-            "and Ulysses attention land with slice 4 (sequence "
-            "parallelism) of horovod_tpu_torch")
     core.init(device=args.device)
     factory = gpt2_small if args.model == "gpt2" else gpt_tiny
     # initialized on the device, from a generator there seeded with 0
@@ -105,15 +120,22 @@ def run(args, eager: bool = False,
                         generator=torch.Generator(
                             device=core.device()).manual_seed(0))
     opt = fused_adam(1e-4)
-    step = make_train_step(apply_fn=model, loss_fn=next_token_loss,
-                           optimizer=opt,
-                           in_graph_steps=args.num_in_graph_steps)
+    rng = np.random.default_rng(0)
+    if args.seq_parallel == "none":
+        apply_fn, k = model, max(args.num_in_graph_steps, 1)
+        ids = shard_batch(torch.from_numpy(rng.integers(
+            0, 1000, size=(args.batch_size * core.size(), args.seq_len))))
+        n_batches = args.batch_size * core.size()
+    else:
+        ids = shard_sequence(torch.from_numpy(rng.integers(
+            0, 1000, size=(args.batch_size, args.seq_len))))
+        off = core.rank() * ids.shape[1]
+        apply_fn, k = (lambda x: model(x, seq_offset=off)), 1
+        n_batches = args.batch_size
+    step = make_train_step(apply_fn=apply_fn, loss_fn=next_token_loss,
+                           optimizer=opt, in_graph_steps=k)
     state = init_train_state(model, opt)
     run_step = step.eager if eager else step
-    rng = np.random.default_rng(0)
-    ids = shard_batch(torch.from_numpy(rng.integers(
-        0, 1000, size=(args.batch_size * core.size(), args.seq_len))))
-    n_batches = args.batch_size * core.size()
 
     def log(s):
         if core.rank() == 0:
@@ -127,7 +149,6 @@ def run(args, eager: bool = False,
     loss.item()
 
     rates = []
-    k = max(args.num_in_graph_steps, 1)
     for _ in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):

@@ -593,3 +593,16 @@ def shard_batch(batch: torch.Tensor) -> torch.Tensor:
                          f"by the world size {n}")
     b = batch.shape[0] // n
     return batch[r * b:(r + 1) * b].to(core.device(), non_blocking=True)
+
+
+def shard_sequence(batch: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the sequence (dim 1) of a batch that every
+    rank holds whole, on its device: rank ``r`` takes positions ``[r·s,
+    (r+1)·s)`` with ``s = batch.shape[1] // size`` (the reference's
+    ``P(None, AXIS)`` placement, sequence parallelism's)."""
+    n, r = core.size(), core.rank()
+    if batch.shape[1] % n:
+        raise ValueError(f"sequence {batch.shape[1]} is not divisible by "
+                         f"the world size {n}")
+    s = batch.shape[1] // n
+    return batch[:, r * s:(r + 1) * s].to(core.device(), non_blocking=True)

@@ -212,9 +212,26 @@ def test_bert_benchmark_defaults_are_the_references():
     (["--seq-parallel", "ring"], "item 9"),
     (["--seq-parallel", "ulysses"], "item 9"),
 ])
-def test_unported_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        bb.run(bb.parse_args(argv + ["--device", "cpu"]))
+def test_unported_options_raise(argv, item, monkeypatch):
+    """``--seq-parallel`` raised until ROADMAP queue 1 ``item`` (sequence
+    parallelism) was ported; now it runs, and at world size 1 (the ring's
+    one hop and Ulysses' exchanges the identity) its final loss equals
+    the data-parallel run's to float32 rounding, on the flash path."""
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    base = ["--model", "tiny", "--batch-size", "2", "--seq-len", "64",
+            "--attn", "pallas", "--num-warmup-batches", "1",
+            "--num-batches-per-iter", "1", "--num-iters", "1",
+            "--dtype", "float32", "--device", "cpu"]
+    losses = []
+    for extra in (argv, []):
+        core.shutdown()
+        try:
+            losses.append(bb.run(bb.parse_args(base + extra))["final_loss"])
+        finally:
+            core.shutdown()
+    assert np.isfinite(losses[0]), item
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-6)
 
 
 def test_adasum_runs_in_the_step_and_is_the_identity_at_one_rank(

@@ -504,8 +504,25 @@ def test_gpt_benchmark_defaults_are_the_references():
 
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
-def test_gpt_benchmark_sequence_parallel_raises(mode):
+def test_gpt_benchmark_sequence_parallel_raises(mode, monkeypatch):
+    """``--seq-parallel`` raised until sequence parallelism was ported;
+    now it runs, and at world size 1 (the whole sequence on one rank, the
+    ring's one hop and Ulysses' exchanges the identity) its final loss
+    equals the data-parallel run's to float32 rounding."""
     from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
 
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        gb.run(gb.parse_args(["--seq-parallel", mode, "--device", "cpu"]))
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    argv = ["--model", "tiny", "--batch-size", "2", "--seq-len", "64",
+            "--num-warmup-batches", "1", "--num-batches-per-iter", "1",
+            "--num-iters", "1", "--dtype", "float32", "--device", "cpu"]
+    losses = []
+    for sp in (mode, "none"):
+        core.shutdown()
+        try:
+            losses.append(gb.run(gb.parse_args(
+                argv + ["--seq-parallel", sp]))["final_loss"])
+        finally:
+            core.shutdown()
+    assert np.isfinite(losses[0])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-6)

@@ -43,6 +43,7 @@ import horovod_tpu_torch.examples.synthetic_benchmark
 import horovod_tpu_torch.examples.gpt_synthetic_benchmark
 import horovod_tpu_torch.examples.bert_synthetic_benchmark
 import horovod_tpu_torch.examples.pytorch_synthetic_benchmark
+import horovod_tpu_torch.examples.multichip_drives
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -69,7 +70,13 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.elastic.join",
               "horovod_tpu_torch.callbacks",
               "horovod_tpu_torch.torch",
-              "horovod_tpu_torch.examples.pytorch_synthetic_benchmark"):
+              "horovod_tpu_torch.examples.pytorch_synthetic_benchmark",
+              "horovod_tpu_torch.parallel.mesh",
+              "horovod_tpu_torch.parallel.ring_attention",
+              "horovod_tpu_torch.parallel.tensor_parallel",
+              "horovod_tpu_torch.parallel.pipeline",
+              "horovod_tpu_torch.parallel.moe",
+              "horovod_tpu_torch.examples.multichip_drives"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 

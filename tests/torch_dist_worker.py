@@ -532,6 +532,376 @@ def _frontend_training(hvd_torch, rank: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# model parallelism (parallel/): ring and Ulysses attention, tensor,
+# pipeline and expert parallelism, the reference's drives, the benches'
+# sequence parallelism
+# ---------------------------------------------------------------------------
+#: the ring task's shapes: batch, heads, head dim; the sequence is
+#: RING_LOCAL a rank
+RING_B, RING_H, RING_D, RING_LOCAL = 2, 4, 16, 8
+#: the ring task's forms and impls, each causal and not
+RING_FORMS = ("ring", "ulysses")
+RING_IMPLS = ("xla", "flash")
+
+
+def ring_inputs(world: int, batch: int = RING_B, seed: int = 31) -> dict:
+    """q, k, v and the output cotangent g, ``[batch, RING_LOCAL · world,
+    RING_H, RING_D]`` float32, from one seed."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, RING_LOCAL * world, RING_H, RING_D)
+    return {n: rng.normal(size=shape).astype(np.float32) for n in "qkvg"}
+
+
+def _attend_and_grad(fn, inp: dict, block, **kw) -> dict:
+    """``fn`` on this rank's ``block`` of q, k, v; then the backward of
+    ``sum(out · g)``: the output and dq, dk, dv of the block."""
+    import torch
+
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(inp[n][block]))
+               .requires_grad_() for n in "qkv")
+    out = fn(q, k, v, **kw)
+    (out * torch.from_numpy(np.ascontiguousarray(inp["g"][block]))
+     ).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+
+
+def _task_ring(workdir: Path):
+    """Every form, impl and masking over the world, each rank one block
+    of the sequence; then causal ring attention on a (dp, sp) = (2, 2)
+    mesh over ``sp``, each dp row its half of the batch."""
+    import torch
+
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.parallel import ring_attention as ra
+    from horovod_tpu_torch.parallel.mesh import make_mesh, use_mesh
+
+    htt.init(device="cpu")
+    r, n = htt.rank(), htt.size()
+    out = {}
+    inp = ring_inputs(n)
+    seq = slice(r * RING_LOCAL, (r + 1) * RING_LOCAL)
+    for form in RING_FORMS:
+        fn = getattr(ra, f"{form}_attention")
+        for impl in RING_IMPLS:
+            for causal in (False, True):
+                got = _attend_and_grad(fn, inp, (slice(None), seq),
+                                       causal=causal, impl=impl)
+                for k, v in got.items():
+                    out[f"{form}/{impl}/{int(causal)}/{k}"] = v
+    x = torch.zeros(1, RING_LOCAL, 3, RING_D)
+    out["ulysses_heads_error"] = np.asarray(_raises(
+        lambda: ra.ulysses_attention(x, x, x), ValueError, "heads 3"))
+    inp = ring_inputs(2, batch=4, seed=32)
+    mesh = make_mesh((2, 2), ("dp", "sp"))
+    row, col = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    block = (slice(2 * row, 2 * row + 2),
+             slice(col * RING_LOCAL, (col + 1) * RING_LOCAL))
+    with use_mesh(mesh):
+        for impl in RING_IMPLS:
+            got = _attend_and_grad(ra.ring_attention, inp, block,
+                                   causal=True, impl=impl, axis="sp")
+            for k, v in got.items():
+                out[f"dp_sp/{impl}/{k}"] = v
+    htt.shutdown()
+    return out
+
+
+#: the tp task's MLP: in, hidden, out; batch; steps; SGD step size
+TP_IN, TP_HIDDEN, TP_OUT, TP_BATCH, TP_STEPS, TP_LR = 16, 32, 8, 4, 3, 0.1
+
+
+def tp_inputs() -> dict:
+    rng = np.random.default_rng(41)
+    return {"x": rng.normal(size=(TP_BATCH, TP_IN)).astype(np.float32),
+            "y": rng.normal(size=(TP_BATCH, TP_OUT)).astype(np.float32),
+            "full": rng.normal(size=(TP_BATCH, 8)).astype(np.float32),
+            "w": rng.normal(size=(TP_BATCH, 8)).astype(np.float32)}
+
+
+def _train_parallel_mlp(flax_params: dict, x, y, dp_axis) -> dict:
+    """TP_STEPS SGD steps of a float32 ParallelMLP over ``tp`` from the
+    reference's weights on the rows ``x``, ``y``, the mean squared error's
+    gradients averaged over ``dp_axis`` (None: no data parallelism).
+    Returns the losses (averaged likewise) and this rank's shards."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.convert import (
+        canonical_params, parallel_mlp_params_from_flax,
+    )
+    from horovod_tpu_torch.parallel.mesh import axis_group
+    from horovod_tpu_torch.parallel.tensor_parallel import ParallelMLP
+
+    def mean(t):
+        if dp_axis is None:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, group=axis_group(dp_axis))
+        return t / dist.get_world_size(axis_group(dp_axis))
+
+    model = ParallelMLP(TP_IN, TP_HIDDEN, TP_OUT, dtype=torch.float32,
+                        axis="tp")
+    tp = axis_group("tp")
+    shards = parallel_mlp_params_from_flax(
+        flax_params, rank=dist.get_rank(tp), size=dist.get_world_size(tp))
+    params = canonical_params(model)
+    with torch.no_grad():
+        for name, t in params.items():
+            t.copy_(shards[name])
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    losses = []
+    for _ in range(TP_STEPS):
+        loss = torch.mean((model(x) - y) ** 2)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        with torch.no_grad():
+            for t, g in zip(params.values(), grads):
+                t -= TP_LR * mean(g)
+        losses.append(mean(loss).item())
+    out = {f"p:{k}": t.detach().numpy() for k, t in params.items()}
+    out["losses"] = np.asarray(losses)
+    return out
+
+
+def _task_tp(workdir: Path):
+    """On a (dp, tp) = (2, 2) mesh: each dp row trains the MLP at tp = 2
+    on the whole batch ("tp"), then the rows split the batch and average
+    their gradients ("dp_tp"); tp_constraint slices and gathers."""
+    import torch
+
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from horovod_tpu_torch.parallel.tensor_parallel import tp_constraint
+
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    flax_params = {k[len("p:"):]: v for k, v in inputs.items()
+                   if k.startswith("p:")}
+    data = tp_inputs()
+    htt.init(device="cpu")
+    mesh = make_mesh((2, 2), ("dp", "tp"))
+    row = mesh.get_local_rank("dp")
+    out = {}
+    with use_mesh(mesh):
+        for k, v in _train_parallel_mlp(flax_params, data["x"], data["y"],
+                                        None).items():
+            out[f"tp/{k}"] = v
+        rows = slice(row * TP_BATCH // 2, (row + 1) * TP_BATCH // 2)
+        for k, v in _train_parallel_mlp(flax_params, data["x"][rows],
+                                        data["y"][rows], "dp").items():
+            out[f"dp_tp/{k}"] = v
+        full = torch.from_numpy(data["full"]).requires_grad_()
+        block = tp_constraint(full, (None, "tp"), axis="tp")
+        back = tp_constraint(block, (), axis="tp", current=(None, "tp"))
+        (back * torch.from_numpy(data["w"])).sum().backward()
+        out["constraint/block"] = block.detach().numpy()
+        out["constraint/back"] = back.detach().numpy()
+        out["constraint/grad"] = full.grad.numpy()
+    htt.shutdown()
+    return out
+
+
+#: the pp task's pipeline: width, stages, microbatches, microbatch rows
+#: (the reference's tests/test_pipeline.py shapes)
+PP_D, PP_STAGES, PP_M, PP_MB = 8, 4, 6, 2
+
+
+def pp_inputs(stages: int = PP_STAGES, rows: int = 1) -> dict:
+    """Per-stage ``w{i}``, ``b{i}``; microbatches ``x`` and cotangents
+    ``g`` for each of ``rows`` pipelines."""
+    rng = np.random.default_rng(51 + stages + rows)
+    out = {}
+    for i in range(stages):
+        out[f"w{i}"] = rng.normal(size=(PP_D, PP_D)).astype(np.float32) * 0.5
+        out[f"b{i}"] = rng.normal(size=(PP_D,)).astype(np.float32) * 0.1
+    for n in ("x", "g"):
+        out[n] = rng.normal(size=(rows, PP_M, PP_MB, PP_D)).astype(
+            np.float32)
+    return out
+
+
+def pp_stage_fn(p, x):
+    """The pipeline tests' stage, ``tanh(x·w + b)`` (numpy or torch)."""
+    mod = np if isinstance(x, np.ndarray) else __import__("torch")
+    return mod.tanh(x @ p["w"] + p["b"])
+
+
+def _run_pipeline(inp: dict, stage: int, row: int) -> dict:
+    """This rank's stage over the pipeline axis: the outputs, and the
+    gradients of ``sum(out · g)`` of its stage parameters and of x."""
+    import torch
+
+    from horovod_tpu_torch.parallel.pipeline import pipeline_apply
+
+    p = {n: torch.from_numpy(inp[f"{n}{stage}"]).requires_grad_()
+         for n in ("w", "b")}
+    x = torch.from_numpy(inp["x"][row]).requires_grad_()
+    out = pipeline_apply(pp_stage_fn, p, x, axis="pp")
+    (out * torch.from_numpy(inp["g"][row])).sum().backward()
+    return {"out": out.detach().numpy(), "dw": p["w"].grad.numpy(),
+            "db": p["b"].grad.numpy(), "dx": x.grad.numpy()}
+
+
+def _task_pp(workdir: Path):
+    """A 4-stage pipeline over the world, then (dp, pp) = (2, 2)."""
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.parallel.mesh import make_mesh, use_mesh
+
+    htt.init(device="cpu")
+    out = {}
+    mesh = make_mesh((PP_STAGES,), ("pp",))
+    with use_mesh(mesh):
+        got = _run_pipeline(pp_inputs(), mesh.get_local_rank("pp"), 0)
+    out.update({f"pp/{k}": v for k, v in got.items()})
+    mesh = make_mesh((2, 2), ("dp", "pp"))
+    with use_mesh(mesh):
+        got = _run_pipeline(pp_inputs(2, 2), mesh.get_local_rank("pp"),
+                            mesh.get_local_rank("dp"))
+    out.update({f"dp_pp/{k}": v for k, v in got.items()})
+    htt.shutdown()
+    return out
+
+
+#: the moe task's layer (the reference's tests/test_moe.py shapes): width,
+#: experts a rank, tokens a rank, and the capacities run
+MOE_D, MOE_PER_RANK, MOE_N_LOCAL, MOE_CAPACITIES = 8, 2, 16, (4, 16)
+
+
+def moe_inputs(ep: int) -> dict:
+    """The experts ``w [E, d, 16]``, ``v [E, 16, d]``, the router ``[d,
+    E]``, every rank's tokens ``x`` and cotangents ``g``."""
+    rng = np.random.default_rng(61)
+    e = ep * MOE_PER_RANK
+    return {
+        "w": rng.normal(size=(e, MOE_D, 16)).astype(np.float32) * 0.5,
+        "v": rng.normal(size=(e, 16, MOE_D)).astype(np.float32) * 0.5,
+        "router": rng.normal(size=(MOE_D, e)).astype(np.float32),
+        "x": rng.normal(size=(ep, MOE_N_LOCAL, MOE_D)).astype(np.float32),
+        "g": rng.normal(size=(ep, MOE_N_LOCAL, MOE_D)).astype(np.float32),
+    }
+
+
+def moe_expert_fn(p, x):
+    """The MoE tests' expert, ``tanh(x·w)·v`` (numpy or torch)."""
+    mod = np if isinstance(x, np.ndarray) else __import__("torch")
+    return mod.tanh(x @ p["w"]) @ p["v"]
+
+
+def _task_moe(workdir: Path):
+    """moe_apply over the world at each capacity: this rank's output and
+    the gradients of ``sum(out · g)`` this rank computes (its experts',
+    the router's, its tokens')."""
+    import torch
+
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.convert import moe_params_from_flax
+    from horovod_tpu_torch.parallel.moe import moe_apply
+
+    htt.init(device="cpu")
+    r, n = htt.rank(), htt.size()
+    inp = moe_inputs(n)
+    out = {}
+    for cap in MOE_CAPACITIES:
+        p = moe_params_from_flax({"experts": {"w": inp["w"], "v": inp["v"]},
+                                  "router": inp["router"]}, rank=r, ep=n)
+        experts = {k: t.requires_grad_() for k, t in p["experts"].items()}
+        router = p["router"].requires_grad_()
+        x = torch.from_numpy(inp["x"][r]).requires_grad_()
+        y = moe_apply(moe_expert_fn, experts, x, router, capacity=cap,
+                      axis=None)
+        (y * torch.from_numpy(inp["g"][r])).sum().backward()
+        out.update({f"{cap}/out": y.detach().numpy(),
+                    f"{cap}/dw": experts["w"].grad.numpy(),
+                    f"{cap}/dv": experts["v"].grad.numpy(),
+                    f"{cap}/drouter": router.grad.numpy(),
+                    f"{cap}/dx": x.grad.numpy()})
+    out["indivisible_error"] = np.asarray(_raises(
+        lambda: moe_apply(moe_expert_fn, experts, x, router[:, :3],
+                          capacity=4, axis=None), ValueError,
+        "not divisible"))
+    htt.shutdown()
+    return out
+
+
+def _task_drives(workdir: Path):
+    """The reference's dp×sp, dp×tp, dp×pp and ep drives (dp×tp from the
+    reference's weights in inputs.npz); with 8 ranks, dp×tp×pp alone."""
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.examples import multichip_drives as drives
+
+    htt.init(device="cpu")
+    if htt.size() == 8:
+        out = {"dp_tp_pp": np.asarray(drives.dp_tp_pp())}
+    else:
+        inputs = dict(np.load(workdir / "inputs.npz"))
+        out = {"dp_sp": np.asarray(drives.dp_sp()),
+               "dp_tp": np.asarray(drives.dp_tp(inputs)),
+               "dp_pp": np.asarray(drives.dp_pp()),
+               "ep": np.asarray(drives.ep())}
+    htt.shutdown()
+    return out
+
+
+#: the sp bench tasks' runs: (bench, --seq-parallel, --attn); the benches
+#: at tiny size, 2 steps, float32
+SP_BENCH_RUNS = (("gpt", "ring", "torch"), ("gpt", "ulysses", "torch"),
+                 ("gpt", "ring", "flash"), ("bert", "ring", "xla"),
+                 ("bert", "ulysses", "xla"), ("bert", "ring", "pallas"))
+SP_BENCH_ARGV = ["--model", "tiny", "--batch-size", "2", "--seq-len", "32",
+                 "--num-warmup-batches", "1", "--num-batches-per-iter", "1",
+                 "--num-iters", "1", "--dtype", "float32", "--device", "cpu"]
+
+
+def _task_sp_bench(workdir: Path, bench: str):
+    """``bench``'s SP_BENCH_RUNS through its ``run``, the model (and
+    BERT's head) loaded from the reference's initial values in
+    inputs.npz (``<bench>:<path>``, ``head``): the final losses."""
+    import torch
+
+    from horovod_tpu_torch import core
+    from horovod_tpu_torch.convert import load_flax_variables
+    from horovod_tpu_torch.examples import bert_synthetic_benchmark as bb
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    mod = gb if bench == "gpt" else bb
+    factory = "gpt_tiny" if bench == "gpt" else "bert_tiny"
+    tiny = getattr(mod, factory)
+
+    def build(**kw):
+        model = tiny(**kw)
+        load_flax_variables(model, nested_flax(inputs, f"{bench}:"))
+        return model
+
+    setattr(mod, factory, build)
+    if bench == "bert":
+        bb.mlm_head = lambda hidden, vocab, device: torch.from_numpy(
+            inputs["head"]).to(device)
+    out = {}
+    for b, sp, attn in SP_BENCH_RUNS:   # one world: init is idempotent
+        if b == bench:
+            res = mod.run(mod.parse_args(SP_BENCH_ARGV + [
+                "--seq-parallel", sp, "--attn", attn]))
+            out[f"{bench}/{sp}/{attn}"] = np.asarray(res["final_loss"])
+    core.shutdown()
+    return out
+
+
+def nested_flax(flat: dict, prefix: str = "") -> dict:
+    """The ``prefix``-keyed entries of ``flat`` (``"a/b"`` paths) as a
+    nested flax dict."""
+    nested: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        node = nested
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return nested
+
+
 def _task_fail(workdir: Path):
     """Rank 1 fails before it joins; rank 0 waits for it in init."""
     import horovod_tpu_torch as htt
@@ -544,7 +914,11 @@ def _task_fail(workdir: Path):
 
 TASKS = {"core": _task_core, "fail": _task_fail, "fusion": _task_fusion,
          "train_mlp": _task_train_mlp, "collectives": _task_collectives,
-         "wire": _task_wire, "train_wire": _task_train_wire}
+         "wire": _task_wire, "train_wire": _task_train_wire,
+         "ring": _task_ring, "tp": _task_tp, "pp": _task_pp,
+         "moe": _task_moe, "drives": _task_drives,
+         "sp_bench_gpt": lambda w: _task_sp_bench(w, "gpt"),
+         "sp_bench_bert": lambda w: _task_sp_bench(w, "bert")}
 
 
 def main():
