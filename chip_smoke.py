@@ -197,6 +197,35 @@ Phases, each printing one JSON line:
    ring``, cut as bert_adasum, full depth: the same checks, non-causal,
    the loss against bert_adasum's run without either (run after it).
 
+27. trace_plane — the GPT bench at its defaults (as gpt_main_path,
+   graphed) with the trace plane on: ``HVD_TRACE_DIR`` set with a window
+   of calls 3-5 (after the capture), ``HVD_PROFILE=1`` over the same
+   window, ``HVD_PROFILE_XLA=1``, the metrics registry on.  Checks: (1)
+   ``comm.json`` is valid JSON from the native writer with one STEP span
+   a call of the window and the writer closed after it; (2)
+   ``compute.json`` holds forward / backward / grad_allreduce /
+   optimizer_update once a profiled step each, K1-K4 issued in them
+   (counted, all on TMA + wgmma), the forward's FLOPs within 5% of the
+   analytic count's third (``transformer_train_flops_per_seq`` × batch ÷
+   3), a finite MFU and host gap; (3) ``metrics.json`` (dumped when the
+   end step closed the timeline): ``hvd_steps_total`` the calls so far ×
+   ``in_graph_steps``, the traced all-reduce inventory the reference's
+   (the loss's, once a recorded program), ``hvd_train_loss`` the last
+   loss; (4) ``dag.gml`` of the step, traced on the card with make_fx,
+   has one node per launch of K1-K4 (``hvd.*`` ops) with edges from
+   their inputs; (5) the window's CUPTI trace (``cuda_trace/``) holds
+   K1-K4 by name and one range per gradient bucket named after its
+   tensors; (6) the run's final loss within GPT_BF16_LOSS_RTOL of
+   gpt_main_path's; (7) the graphed seq/s outside the window within 2%
+   of gpt_main_path's.  Then ``examples.pytorch_synthetic_benchmark.run``
+   at its defaults with ``HVD_TIMELINE`` set, in turns with it unset
+   (off, on, on, off): one ``MESH_ALLREDUCE`` span a step for each of
+   ResNet-50's 161 parameters, named as its ``gradient_name_list.json``
+   names them, and the img/s of both; the profiled window again without
+   the capture (its segments' ms a step); and the host µs of a K2 launch
+   through its wrapper, as the training path calls it and through the
+   op ``hvd::flash_fwd`` (run after gpt_main_path).
+
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
 on the card and on the CPU as in parity, and bert_tiny (flash attention
@@ -221,18 +250,22 @@ and prints no last line: the quick check of a change to K2-K4.
 then a kernels line of K6-K10, and prints no last line.
 ``--model-parallel-only`` runs the device and build phases, phases 23
 and 24, gpt_main_path, 25, bert_adasum and 26, then a kernels line of
-K5, and prints no last line.
+K5, and prints no last line.  ``--trace-plane-only`` runs the device and
+build phases, gpt_main_path and trace_plane (without the frontend's
+untraced rate), and prints no last line.
 """
 
 import contextlib
 import copy
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -2917,8 +2950,8 @@ def phase_wire(htt, card) -> dict:
     inputs (q, the output and the new residual), with one MAX all-reduce
     a call for a quantizer's scales; then Adasum, hierarchical and
     two-level at world size 1.  Nothing across cards is shown."""
+    from horovod_tpu_torch import metrics
     from horovod_tpu_torch.ops import compression as C
-    from horovod_tpu_torch.parallel import hierarchical
 
     route = fp8_wire_route()
     grads_cpu, res_cpu = _resnet50_leaves(11, "cpu"), _resnet50_leaves(12,
@@ -3007,11 +3040,11 @@ def phase_wire(htt, card) -> dict:
                          "graph_equals_eager": True}
     # Adasum, hierarchical and two-level at world size 1
     x = torch.randn(1001, device="cuda")
-    before = hierarchical.FALLBACKS["two_level"]
+    before = metrics.TWO_LEVEL_FALLBACKS.get()
     adasum = htt.allreduce(x, op=htt.Adasum)
     hier = htt.allreduce(x, hierarchical=True)
     two = htt.allreduce(x, two_level=True, compression=C.Compression.int8)
-    fallbacks = hierarchical.FALLBACKS["two_level"] - before
+    fallbacks = metrics.TWO_LEVEL_FALLBACKS.get() - before
     two_err = (two - x).abs().max().item()
     if not (torch.equal(adasum, x) and torch.equal(hier, x)) or \
             fallbacks != 1 or two_err > x.abs().max().item() / 127:
@@ -3057,8 +3090,6 @@ def phase_ef_main_path(kernels, flops_mod, card, default_img_sec,
     one MAX for the scales and one for the loss, a residual of one leaf a
     parameter that is finite and nonzero, one guard read every
     EF_GUARD_STEPS calls; img/s beside the main path's."""
-    import os
-
     from horovod_tpu_torch.examples import synthetic_benchmark as sb
     from horovod_tpu_torch.models import ResNet50
 
@@ -3070,9 +3101,7 @@ def phase_ef_main_path(kernels, flops_mod, card, default_img_sec,
     wires = ["int8"] + (["fp8"] if fp8_route["fp8_e4m3"] == "reduced"
                         else [])
     out = {}
-    saved = os.environ.get("HVD_COMPRESSION_GUARD_STEPS")
-    os.environ["HVD_COMPRESSION_GUARD_STEPS"] = str(EF_GUARD_STEPS)
-    try:
+    with env_vars({"HVD_COMPRESSION_GUARD_STEPS": str(EF_GUARD_STEPS)}):
         for wire in wires:
             with torch.device("meta"):
                 from horovod_tpu_torch.convert import canonical_params
@@ -3126,11 +3155,6 @@ def phase_ef_main_path(kernels, flops_mod, card, default_img_sec,
                   "max_memory_allocated_bytes":
                       torch.cuda.max_memory_allocated(),
                   "wall_s": wall, "card": card})
-    finally:
-        if saved is None:
-            os.environ.pop("HVD_COMPRESSION_GUARD_STEPS", None)
-        else:
-            os.environ["HVD_COMPRESSION_GUARD_STEPS"] = saved
     return out
 
 
@@ -3780,6 +3804,416 @@ def phase_model_parallel(htt) -> None:
           "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL}})
 
 
+# ---------------------------------------------------------------------------
+# the trace plane
+# ---------------------------------------------------------------------------
+#: the trace window of the trace_plane phase: calls 3-5 of the GPT bench,
+#: after its warm-up call (1) and the capture (2); the timeline and the
+#: profiler share it
+TRACE_WINDOW = (3, 5)
+#: where the trace_plane phase writes its trace directories (gitignored)
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace_plane"
+#: K1-K4 by the names of their ops in a make_fx DAG, and the fewest
+#: inputs (in-edges) each node must have: q, k, v (and do, lse, delta);
+#: p and g
+DAG_OPS = {"K1": ("hvd.fused_update", 2), "K2": ("hvd.flash_fwd", 3),
+           "K3": ("hvd.flash_bwd_dq", 6), "K4": ("hvd.flash_bwd_dkv", 6)}
+#: the graphed rate outside the trace window may trail gpt_main_path's by
+#: this share at most
+TRACE_RATE_SHARE = 0.02
+#: the profiled forward's FLOPs against the analytic count's third
+TRACE_FLOPS_SHARE = 0.05
+#: launches timed for a launch's host cost through the op and directly,
+#: in rounds taken in turns (the first round of each is not kept)
+OP_COST_CALLS = 100
+OP_COST_ROUNDS = 6
+
+
+@contextlib.contextmanager
+def env_vars(values: dict):
+    """``values`` set in the environment inside, as they were after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def read_gml(path):
+    """``(nodes, edges)`` of a dag.gml: ``{id: (label, kind)}`` and
+    ``[(source, target)]``."""
+    text = Path(path).read_text()
+    nodes = {int(m.group(1)): (m.group(2), m.group(3)) for m in re.finditer(
+        r'node \[\s*id (\d+)\s*label "([^"]*)"(?:\s*\w+ "[^"]*")*?'
+        r'\s*kind "([^"]*)"', text)}
+    edges = [(int(a), int(b)) for a, b in re.findall(
+        r"edge \[\s*source (\d+)\s*target (\d+)", text)]
+    return nodes, edges
+
+
+def _bucket_labels(factory) -> list:
+    """The range names ``ops/fusion.py`` gives the buckets of the model
+    ``factory()`` builds (on the meta device)."""
+    from horovod_tpu_torch.convert import canonical_params
+    from horovod_tpu_torch.ops import fusion
+
+    with torch.device("meta"):
+        params = canonical_params(factory())
+    names = list(params)
+    labels = []
+    for bucket in fusion.FusionPlan(list(params.values())).buckets:
+        label = "allreduce:" + ",".join(names[i] for i in bucket)
+        if len(label) > fusion._NVTX_NAME_CHARS:
+            label = label[:fusion._NVTX_NAME_CHARS - 3] + "..."
+        labels.append(label)
+    return labels
+
+
+def _op_host_us(kernels, fa) -> dict:
+    """Host µs to issue one K2 launch at GPT-2 small's shape: through its
+    wrapper directly, as the training path calls it (no dispatch mode on:
+    the wrapper after one check) and through the op ``hvd::flash_fwd``
+    (what make_fx and FlopCounterMode see): the median
+    over rounds of OP_COST_CALLS launches, each round queued behind a
+    sleeping kernel so no launch waits for the card."""
+    q, k, v, _ = _flash_inputs(*GPT_ATTN_SHAPE[:3], GPT_ATTN_SHAPE[2],
+                               GPT_ATTN_SHAPE[3], torch.bfloat16, 5)
+    ways = {"direct": lambda: kernels.launch_flash_fwd(
+                q, k, v, causal=True, scale=0.125),
+            "path": lambda: fa._mha_fwd(q, k, v, causal=True, scale=0.125),
+            "op": lambda: torch.ops.hvd.flash_fwd(q, k, v, True, 0.125, 0,
+                                                  0, True)}
+    runs = {name: [] for name in ways}
+    for _ in range(OP_COST_ROUNDS):  # the two ways in turns
+        for name, fn in ways.items():
+            torch.cuda.synchronize()
+            torch.cuda._sleep(RING_SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(OP_COST_CALLS):
+                fn()
+            runs[name].append((time.perf_counter() - t0) / OP_COST_CALLS
+                              * 1e6)
+            torch.cuda.synchronize()
+    return {name: statistics.median(v[1:]) for name, v in runs.items()}
+
+
+def _trace_plane_gpt(htt, kernels, card, none) -> dict:
+    """The GPT bench with the whole trace plane on; returns the checks'
+    numbers.  See phase_trace_plane."""
+    import shutil
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+    from horovod_tpu_torch.models import gpt2_small
+    from horovod_tpu_torch.timeline.profiler import CUDA_TRACE_DIR
+    from horovod_tpu_torch.timeline.recorder import Recorder
+    from horovod_tpu_torch.timeline.timeline import timeline
+    from horovod_tpu_torch.utils import flops as flops_mod
+
+    what = "trace_plane"
+    start, end = TRACE_WINDOW
+    trace_dir = TRACE_DIR / "gpt"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if not metrics.on():
+        fail(f"{what}: the metrics registry is off")
+    metrics.registry.reset()
+    args = gb.parse_args([])
+    k = args.num_in_graph_steps
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+    seen = {}
+
+    def then(step, state, x, y):
+        seen["issued"] = host_launches(kernels)
+        seen["flash"] = dict(kernels.flash_launches)
+        seen["losses"] = list(step.profile_losses)
+        seen["anatomy"] = step.profiler.anatomy
+        seen["steps_total"] = metrics.STEPS_TOTAL.get()
+        seen["calls"] = dict(step.calls)
+        # the DAG of the step, traced on the card (make_fx runs it once;
+        # the recorder puts the state back)
+        t0 = time.perf_counter()
+        Recorder().record_step_function(step.eager, state, x, y)
+        seen["dag_s"] = time.perf_counter() - t0
+        return {}
+
+    with env_vars({"HVD_TRACE_DIR": str(trace_dir),
+                   "HVD_TRACE_START_STEP": str(start),
+                   "HVD_TRACE_END_STEP": str(end), "HVD_PROFILE": "1",
+                   "HVD_PROFILE_XLA": "1"}):
+        # the world is up already: open the timeline as init would
+        timeline.initialize()
+        writer = timeline.writer_kind
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        result = gb.run(args, then=then)
+        wall = time.perf_counter() - t0
+    rank_dir = trace_dir / "0"
+
+    # 1. comm.json: the native writer's, one STEP span a call of the
+    # window, closed after the end step
+    if writer != "native":
+        fail(f"{what}: the timeline opened the {writer} writer, not the "
+             "native one (csrc/timeline.cc)")
+    if timeline.active:
+        fail(f"{what}: the timeline is still open after its end step")
+    comm = json.loads((rank_dir / "comm.json").read_text())
+    step_spans = [e for e in comm if e.get("name") == "STEP"]
+    if len(step_spans) != end - start + 1 or \
+            any(e.get("cat") != "train_step" for e in step_spans):
+        fail(f"{what}: comm.json holds {len(step_spans)} STEP spans, want "
+             f"{end - start + 1} (calls {start}-{end})")
+
+    # 2. compute.json: the four segments once a profiled step each; K1-K4
+    # ran in them; the forward's FLOPs against the analytic count
+    profiled = end - start + 1
+    compute = json.loads((rank_dir / "compute.json").read_text())
+    anatomy = compute["anatomy"]
+    segs = anatomy["segments"]
+    names = ("forward", "backward", "grad_allreduce", "optimizer_update")
+    if sorted(segs) != sorted(names) or anatomy["steps"] != profiled or \
+            any(segs[n]["count"] != profiled * k for n in names):
+        fail(f"{what}: compute.json segments "
+             f"{ {n: d['count'] for n, d in segs.items()} } over "
+             f"{anatomy['steps']} steps, want each of {names} "
+             f"{profiled * k} times over {profiled}")
+    layers, hidden, seq = 12, 768, args.seq_len
+    from horovod_tpu_torch.convert import canonical_params
+
+    with torch.device("meta"):
+        n_params = flops_mod.param_count(canonical_params(gpt2_small()))
+    analytic = flops_mod.transformer_train_flops_per_seq(
+        n_params, layers, hidden, seq, causal=True) * args.batch_size / 3
+    fwd_flops = segs["forward"]["flops"] / segs["forward"]["count"]
+    if abs(fwd_flops / analytic - 1) > TRACE_FLOPS_SHARE:
+        fail(f"{what}: the forward segment counted {fwd_flops:.4g} FLOPs "
+             f"a step, the analytic count {analytic:.4g}")
+    if not (anatomy["mfu"] is not None and math.isfinite(anatomy["mfu"])
+            and math.isfinite(anatomy["host_gap"]["per_step_us"])):
+        fail(f"{what}: mfu {anatomy['mfu']}, host gap "
+             f"{anatomy['host_gap']}")
+    # the launches the wrappers issued: the warm-up and the capture a
+    # step each, the segments' first run and the window's calls, each
+    # running the forward twice (its own segment and the backward's)
+    chains = profiled * k + 1
+    want = {"K1": 2 * k + chains, "K2": layers * (2 * k + 2 * chains),
+            "K3": layers * (2 * k + chains),
+            "K4": layers * (2 * k + chains)}
+    got = {key: seen["issued"][key] for key in want}
+    mainloops = {key.split(".")[1] for key, n in seen["flash"].items() if n}
+    if got != want or mainloops != {"wgmma"}:
+        fail(f"{what}: K1-K4 issued {got} on {mainloops}, want {want} on "
+             "wgmma")
+
+    # 3. metrics.json, dumped when the end step closed the timeline
+    snap = json.loads((rank_dir / "metrics.json").read_text())["metrics"]
+
+    def sample(name, **labels):
+        for s in snap[name]["samples"]:
+            if s["labels"] == labels:
+                return s["value"]
+        return None
+
+    closed_at = end + 1
+    traced = sample("hvd_collectives_traced_total", op="allreduce")
+    traced_bytes = sample("hvd_collectives_traced_bytes_total",
+                          op="allreduce")
+    buckets = fusion_buckets(gpt2_small)
+    if sample("hvd_steps_total") != closed_at * k:
+        fail(f"{what}: metrics.json hvd_steps_total "
+             f"{sample('hvd_steps_total')}, want {closed_at * k} (the "
+             f"calls when call {closed_at} closed the timeline)")
+    # the traced inventory is the reference's: the loss's all-reduce once
+    # a recorded program (the capture and the segments' first run); the
+    # fused buckets reduce without it, as the reference's lax.psum does
+    if (traced, traced_bytes) != (2, 8):
+        fail(f"{what}: traced all-reduces {traced} ({traced_bytes} bytes),"
+             " want 2 (the loss, at the capture and at the segments' "
+             "first run; 8 bytes)")
+    if sample("hvd_train_loss") != seen["losses"][-1]:
+        fail(f"{what}: metrics.json hvd_train_loss "
+             f"{sample('hvd_train_loss')}, want the last loss "
+             f"{seen['losses'][-1]}")
+    if seen["steps_total"] != steps * k:
+        fail(f"{what}: hvd_steps_total {seen['steps_total']} after the "
+             f"run, want {steps * k}")
+
+    # 4. the DAG: one node per launch of K1-K4, with edges from inputs
+    nodes, edges = read_gml(rank_dir / "dag.gml")
+    indeg = {}
+    for _, t in edges:
+        indeg[t] = indeg.get(t, 0) + 1
+    dag = {}
+    for key, (label, ins) in DAG_OPS.items():
+        ids = [i for i, (lab, _) in nodes.items() if lab == label]
+        dag[key] = {"nodes": len(ids),
+                    "min_inputs": min((indeg.get(i, 0) for i in ids),
+                                      default=0)}
+    want_dag = {"K1": 1, "K2": layers, "K3": layers, "K4": layers}
+    if any(dag[key]["nodes"] != n or dag[key]["min_inputs"] <
+           DAG_OPS[key][1] for key, n in want_dag.items()):
+        fail(f"{what}: dag.gml holds {dag}, want {want_dag} nodes with "
+             f"{ {key: v[1] for key, v in DAG_OPS.items()} } inputs each")
+
+    # 5. the CUPTI trace of the window: K1-K4 by name, one range a bucket
+    trace = json.loads((rank_dir / CUDA_TRACE_DIR / "trace.json")
+                       .read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernel_names = [e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"]
+    in_trace = {key: sum(any(p in n for p in TRACE_KERNELS[key])
+                         for n in kernel_names)
+                for key in ("K1", "K2", "K3", "K4")}
+    ranges = [e.get("name", "") for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("allreduce:")]
+    labels = _bucket_labels(gpt2_small)
+    want_ranges = sorted(labels * chains)
+    if min(in_trace.values()) < 1 or sorted(ranges) != want_ranges:
+        fail(f"{what}: the window's trace holds K1-K4 {in_trace} and "
+             f"{len(ranges)} bucket ranges, want each kernel and "
+             f"{len(want_ranges)} ranges ({buckets} buckets x {chains} "
+             "chains) named after their tensors")
+
+    # 6. the run's final loss: the window left the graph's state sound
+    rel = abs(result["final_loss"] - none["final_loss"]) / \
+        abs(none["final_loss"])
+    if rel > GPT_BF16_LOSS_RTOL:
+        fail(f"{what}: final loss {result['final_loss']} against "
+             f"gpt_main_path's {none['final_loss']} ({rel:.3g} relative, "
+             f"limit {GPT_BF16_LOSS_RTOL})")
+    # 7. the graphed rate outside the window (iterations 2 and 3)
+    outside = statistics.mean(result["rates"][1:])
+    share = outside / none["seq_sec_per_chip"] - 1
+    if share < -TRACE_RATE_SHARE:
+        fail(f"{what}: {outside:.2f} seq/s outside the window against "
+             f"gpt_main_path's {none['seq_sec_per_chip']:.2f}")
+    return {
+        "trace_dir": str(trace_dir.relative_to(TRACE_DIR.parents[1])),
+        "writer": writer, "window": list(TRACE_WINDOW),
+        "step_spans": len(step_spans), "comm_events": len(comm),
+        "segments": {n: {key: segs[n][key] for key in (
+            "count", "per_step_us", "flops", "bytes", "verdict")}
+            for n in names},
+        "mfu": anatomy["mfu"], "host_gap": anatomy["host_gap"],
+        "profiled_wall_us_per_step": anatomy["wall_us"] / profiled,
+        "forward_flops": fwd_flops, "analytic_forward_flops": analytic,
+        "forward_flops_ratio": fwd_flops / analytic,
+        "k1_k4_issued": got, "metrics_steps_total": closed_at * k,
+        "traced_allreduce": traced, "fusion_buckets": buckets,
+        "train_loss": seen["losses"][-1], "profile_losses": seen["losses"],
+        "dag": dag, "dag_nodes": len(nodes), "dag_edges": len(edges),
+        "dag_seconds": seen["dag_s"], "cuda_trace_kernels": in_trace,
+        "bucket_ranges": len(ranges), "final_loss": result["final_loss"],
+        "loss_rel_diff_vs_main_path": rel,
+        "seq_sec_per_chip_outside_window": outside,
+        "seq_sec_per_chip_iterations": result["rates"],
+        "main_path_seq_sec_per_chip": none["seq_sec_per_chip"],
+        "rate_share_vs_main_path": share, "step_calls": seen["calls"],
+        "wall_s": wall}
+
+
+def _trace_plane_frontend(card, frontend_rate) -> dict:
+    """The frontend's per-tensor trace: the PyTorch bench at its defaults
+    with HVD_TIMELINE set, in turns with it unset (off, on, on, off)."""
+    import collections
+    import shutil
+
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as pb
+    from horovod_tpu_torch.timeline.timeline import timeline
+
+    what = "trace_plane frontend"
+    args = pb.parse_args([])
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+    rates = {"off": [], "on": []}
+    checked = []
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        trace_dir = TRACE_DIR / f"frontend{i}"
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        env = {"HVD_TIMELINE": str(trace_dir)} if mode == "on" else {}
+        with env_vars(env):
+            timeline.initialize()
+            writer = timeline.writer_kind
+            with cudnn_benchmark(False):
+                result = pb.run(args)
+            timeline.shutdown()
+        rates[mode].append(result["img_sec_per_proc"])
+        if mode == "off":
+            continue
+        rank_dir = trace_dir / "0"
+        comm = json.loads((rank_dir / "comm.json").read_text())
+        grads = json.loads((rank_dir / "gradient_name_list.json")
+                           .read_text())
+        spans = collections.Counter(e["tid"] for e in comm
+                                    if e.get("name") == "MESH_ALLREDUCE")
+        want = {"allreduce." + n[len("gradients/"):]: steps for n in grads}
+        if writer != "native" or len(grads) != 161 or dict(spans) != want:
+            fail(f"{what}: {writer} writer, {len(grads)} gradient names, "
+                 f"{len(spans)} tensors with spans (counts "
+                 f"{sorted(set(spans.values()))}), want the native writer "
+                 f"and one MESH_ALLREDUCE span a step ({steps}) for each "
+                 "of 161 parameters named as gradient_name_list.json "
+                 "names them")
+        checked.append({"trace_dir": str(trace_dir.relative_to(
+            TRACE_DIR.parents[1])), "writer": writer,
+            "spans": sum(spans.values()), "final_loss": result["final_loss"]})
+    return {"steps": steps, "parameters": 161, "runs": checked,
+            "img_sec_per_chip_traced": rates["on"],
+            "img_sec_per_chip_untraced_in_turns": rates["off"],
+            "traced_share": statistics.mean(rates["on"])
+            / statistics.mean(rates["off"]) - 1,
+            "img_sec_per_chip_frontend_main_path": frontend_rate}
+
+
+def _profiled_window_alone() -> dict:
+    """The same profiled window without the CUPTI capture (no
+    HVD_PROFILE_XLA, no timeline): the GPT bench cut to its 2 warm-up
+    calls and 3 more, the window over calls 3-5.  Its segments' ms a
+    step, to set beside the captured window's."""
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+
+    start, end = TRACE_WINDOW
+    seen = {}
+
+    def then(step, state, x, y):
+        seen["anatomy"] = step.profiler.finalize()
+
+    with env_vars({"HVD_TRACE_DIR": str(TRACE_DIR / "gpt_no_capture"),
+                   "HVD_PROFILE": "1", "HVD_PROFILE_START_STEP": str(start),
+                   "HVD_PROFILE_END_STEP": str(end)}):
+        gb.run(gb.parse_args(["--num-iters", "1",
+                              "--num-batches-per-iter",
+                              str(end - start + 1)]), then=then)
+    an = seen["anatomy"]
+    if an is None or an["steps"] != end - start + 1:
+        fail(f"trace_plane: the window without the capture gave {an}")
+    return {"wall_us_per_step": an["wall_us"] / an["steps"],
+            "mfu": an["mfu"], "host_gap_per_step_us":
+            an["host_gap"]["per_step_us"],
+            "segments_us_per_step": {n: d["per_step_us"]
+                                     for n, d in an["segments"].items()}}
+
+
+def phase_trace_plane(htt, kernels, fa, card, none, frontend_rate) -> None:
+    """The trace plane on the GPT main path (module docstring, phase
+    27), the profiled window again without the CUPTI capture, then the
+    frontend's per-tensor communication trace, then a K2 launch's host
+    cost by route."""
+    gpt = _trace_plane_gpt(htt, kernels, card, none)
+    alone = _profiled_window_alone()
+    frontend = _trace_plane_frontend(card, frontend_rate)
+    emit({"phase": "trace_plane", "model": "gpt2_small", "batch": 4,
+          "seq_len": 1024, "dtype": "bfloat16", "world_size": htt.size(),
+          "gpt": gpt, "window_without_capture": alone, "frontend": frontend,
+          "k2_host_us_per_launch": _op_host_us(kernels, fa), "card": card})
+
+
 #: where the kernels line's launches come from
 LAUNCHES_NOTE = (
     f"counted by name in the CUPTI trace of the last {TRACED_CALLS} "
@@ -3847,6 +4281,9 @@ def main() -> None:
     ap.add_argument("--variants-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K6-K10 (elementwise_kernels to variants_profile)")
+    ap.add_argument("--trace-plane-only", action="store_true",
+                    help="run the device and build phases, gpt_main_path "
+                         "and trace_plane")
     ap.add_argument("--model-parallel-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K5 and model parallelism (ring_kernels, "
@@ -3891,6 +4328,11 @@ def main() -> None:
               "launches": LAUNCHES_NOTE})
         htt.shutdown()
         return
+    if cli.trace_plane_only:
+        _, _, gpt_none = phase_gpt_main_path(htt, kernels, card)
+        phase_trace_plane(htt, kernels, fa, card, gpt_none, None)
+        htt.shutdown()
+        return
     if cli.model_parallel_only:
         results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
                                             card)
@@ -3913,12 +4355,14 @@ def main() -> None:
     k1_launches["momentum"], default_img_sec = phase_main_path(
         kernels, flops_mod, card)
     phase_ef_main_path(kernels, flops_mod, card, default_img_sec, fp8_route)
-    phase_frontend_main_path(htt, card)
+    frontend_rates = phase_frontend_main_path(htt, card)
     phase_profile(htt, kernels)
     results.update(run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                                       default_img_sec))
     k1_launches.update(phase_rules(htt, kernels))
     flash, gpt_trace, gpt_none = phase_gpt_main_path(htt, kernels, card)
+    phase_trace_plane(htt, kernels, fa, card, gpt_none,
+                      frontend_rates["plain"])
     k1_launches["adam"] = gpt_trace["k1"]["adam"]
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]

@@ -8,15 +8,23 @@ CUDA device unless the caller passes ``device="cpu"``.
 
 Its kernels (``csrc/``) are written by hand for Hopper; on a CUDA device
 the training step runs as one captured CUDA graph.
+
+The reference's SPMD surface has thin forms here where it has a meaning
+in a process-per-card world: :func:`mesh` and :func:`hierarchical_mesh`
+are ``DeviceMesh``es of the world, :func:`in_spmd` is False and the
+axis names are the reference's.  ``spmd``, ``rank_context``,
+``sharded``, ``replicated``, ``put_per_rank`` and ``get_per_rank`` have
+none: the code every rank runs is the SPMD region, and a process holds
+only its own rank's values (``ROADMAP.md``, "Decisions").
 """
 
 from .core import (  # noqa: F401
-    Adasum, Average, Max, Min, Sum,
+    AXIS, CROSS_AXIS, LOCAL_AXIS, Adasum, Average, Max, Min, Sum,
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
-    gloo_built, gloo_enabled, init, is_homogeneous, is_initialized,
-    local_rank, local_size, mpi_built, mpi_enabled, mpi_threads_supported,
-    nccl_built, process_rank, process_size, rank, reinit, rocm_built,
-    shutdown, size, xla_built,
+    gloo_built, gloo_enabled, hierarchical_mesh, in_spmd, init,
+    is_homogeneous, is_initialized, local_rank, local_size, mesh, mpi_built,
+    mpi_enabled, mpi_threads_supported, nccl_built, process_rank,
+    process_size, rank, reinit, rocm_built, shutdown, size, xla_built,
 )
 from .ops.collectives import (  # noqa: F401
     ProcessSet, allgather, allgatherv, allreduce, allreduce_gradients,

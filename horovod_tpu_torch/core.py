@@ -17,6 +17,13 @@ The rendezvous at ``HVD_COORDINATOR_ADDR`` is bounded: every rank waits
 at most ``HVD_START_TIMEOUT`` seconds (60 by default) for the others to
 join, then raises, so a rank that never arrives fails the job with its
 error instead of hanging it.
+
+``init`` opens the per-rank timeline when ``HVD_TIMELINE`` /
+``HVD_TRACE_DIR`` is set, as the reference's does, and ``shutdown``
+closes it (writing ``metrics.json`` beside ``comm.json``).  An
+environment that names the launcher's rendezvous server for the metrics
+pushes (``HVD_METRICS_KV_ADDR`` / ``HVD_METRICS_KV_PORT``) makes
+``init`` raise: those pushes are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +39,12 @@ from .utils import env as env_util
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
+
+#: the job's mesh axis names, as horovod_tpu.core names them: the world's
+#: 1-D axis, and the hierarchical (cross, local) axes
+AXIS = "hvd"
+CROSS_AXIS = "cross"
+LOCAL_AXIS = "local"
 
 # Reduction op constants, as horovod_tpu.core names them.
 Average = "Average"
@@ -78,6 +91,12 @@ def init(device=None, backend: Optional[str] = None) -> None:
     global _world, _init_kwargs, _epoch
     if _world is not None:
         return
+    from . import metrics
+    from .metrics import timeseries
+
+    # before joining: a refused environment leaves no group behind
+    metrics.start_pusher_from_env(0)
+    timeseries.start_flusher_from_env(0)
     size = env_util.get_int(env_util.HVD_NUM_PROCESSES, 1)
     rank = env_util.get_int(env_util.HVD_PROCESS_ID, 0)
     local_size = env_util.get_int(env_util.HVD_LOCAL_SIZE, size)
@@ -119,6 +138,11 @@ def init(device=None, backend: Optional[str] = None) -> None:
     _epoch += 1
     log.info("initialized: rank=%d size=%d local_size=%d device=%s "
              "backend=%s", rank, size, local_size, dev, backend)
+    # env-driven timeline start-up, as the reference's core does when
+    # HVD_TIMELINE / HVD_TRACE_DIR is set (a no-op otherwise)
+    from .timeline.timeline import timeline
+
+    timeline.initialize()
 
 
 def _rendezvous(addr: str, rank: int, size: int) -> dist.TCPStore:
@@ -140,6 +164,9 @@ def shutdown() -> None:
     global _world
     if _world is None:
         return
+    from .timeline.timeline import timeline
+
+    timeline.shutdown()
     if dist.is_initialized():
         dist.destroy_process_group()
     _world = None
@@ -161,6 +188,43 @@ def epoch() -> int:
     """The number of worlds this process has joined (0 before the first
     :func:`init`); what was built for one world compares it."""
     return _epoch
+
+
+#: the meshes made for the current world, by kind
+_meshes: dict = {}
+
+
+def _mesh(kind: str, shape, names):
+    _require_init()
+    key = (kind, _epoch)
+    if key not in _meshes:
+        from .parallel.mesh import make_mesh
+
+        for old in [k for k in _meshes if k[1] != _epoch]:
+            del _meshes[old]  # a mesh of an earlier world holds its groups
+        _meshes[key] = make_mesh(shape, names)
+    return _meshes[key]
+
+
+def mesh():
+    """The world as a 1-D ``DeviceMesh`` with axis :data:`AXIS` (the
+    reference's global mesh; ``parallel/mesh.make_mesh``).  Every rank
+    calls it the first time in a world (making a mesh is collective)."""
+    return _mesh("world", (size(),), (AXIS,))
+
+
+def hierarchical_mesh():
+    """The world as a 2-D ``(cross, local)`` ``DeviceMesh``, hosts by
+    ranks within a host (the reference's hierarchical mesh).  Collective
+    the first time in a world, as :func:`mesh`."""
+    return _mesh("hierarchical", (cross_size(), local_size()),
+                 (CROSS_AXIS, LOCAL_AXIS))
+
+
+def in_spmd() -> bool:
+    """False: the port has no SPMD region; every rank is a process
+    running the same code (the module docstring)."""
+    return False
 
 
 def is_initialized() -> bool:

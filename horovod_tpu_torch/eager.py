@@ -13,6 +13,17 @@ Horovod torch frontend and the callbacks stand on, over
   the job;
 * :func:`normalize_op` — the reference's ``average`` / ``op`` rule.
 
+Each array collective is traced as the reference's host plane traces
+it: the shape agreement is the port's negotiation, under a
+``NEGOTIATE_<OP>`` span of the timeline, and the collective itself runs
+under a span named after the call's tensor (``name``, or a sequential
+default name) with the transport's activity (``MESH_ALLREDUCE``, ...:
+``torch.distributed`` is one device collective across the processes,
+the reference's XLA process mesh), recorded in the metrics plane with
+``metrics.record_host`` (``transport="mesh"``).  A broadcast gets its
+spans but no metrics, as the reference's mesh broadcast (an object
+broadcast) records none.
+
 The reference's device-plane mode (a list of per-rank values handed to
 one controller) has no counterpart here: one process drives one card,
 so each process holds only its own value (``ROADMAP.md``).
@@ -22,14 +33,18 @@ One process: every function is the identity.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import time
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import core
+from . import core, metrics
 from .core import Adasum, Average, Max, Min, Sum
+from .timeline.timeline import timeline
 
 _OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
         Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX}
@@ -57,10 +72,44 @@ def allgather_object(obj: Any, *, name: Optional[str] = None) -> List[Any]:
     return out
 
 
+_seq = itertools.count(1)
+
+
+def next_name(prefix: str) -> str:
+    """Sequential default tensor names, the same on every process when
+    the calls are issued in the same order (the reference's
+    ``eager_controller.next_name``)."""
+    return f"{prefix}.{next(_seq)}"
+
+
+@contextlib.contextmanager
+def _host_guard(name: str, activity: str, op: str, transport: str,
+                nbytes: int):
+    """The timeline span and the metrics of one host-plane collective
+    (the reference's ``eager._host_guard``, without its stall watchdog,
+    which is not ported)."""
+    mon = metrics.on()
+    t0 = time.perf_counter() if mon else 0.0
+    try:
+        with timeline.span(name, activity):
+            yield
+    finally:
+        if mon:
+            metrics.record_host(op, transport, nbytes,
+                                time.perf_counter() - t0)
+
+
 def _agree_meta(arr: np.ndarray, nm: str, opname: str) -> List[tuple]:
-    """The gathered shapes of every rank's ``arr``; raises the same
-    ValueError on every rank when the dtypes differ."""
-    metas = allgather_object((tuple(arr.shape), str(arr.dtype)), name=nm)
+    """The gathered shapes of every rank's ``arr``, under a
+    ``NEGOTIATE_<OP>`` span of the timeline; raises the same ValueError
+    on every rank when the dtypes differ."""
+    op = opname.replace("process_", "").upper()
+    timeline.negotiate_start(nm, op)
+    try:
+        metas = allgather_object((tuple(arr.shape), str(arr.dtype)),
+                                 name=nm)
+    finally:
+        timeline.negotiate_end(nm, op)
     dtypes = [m[1] for m in metas]
     if len(set(dtypes)) > 1:
         raise ValueError(f"{opname} dtype mismatch across ranks: {dtypes}")
@@ -76,21 +125,24 @@ def process_allreduce(arr, *, op: str = Average,
         raise ValueError(f"unknown reduction op {op!r}")
     if core.process_size() == 1:
         return arr
-    shapes = _agree_meta(arr, name, "process_allreduce")
+    nm = name or next_name("process_allreduce")
+    shapes = _agree_meta(arr, nm, "process_allreduce")
     if len(set(shapes)) > 1:
         raise ValueError(
             f"process_allreduce shape mismatch across ranks: {shapes}")
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(core.device())
-    if op == Adasum:
-        from .ops.adasum import adasum_allreduce
+    with _host_guard(nm, "MESH_ALLREDUCE", "allreduce", "mesh", arr.nbytes):
+        if op == Adasum:
+            from .ops.adasum import adasum_allreduce
 
-        out = adasum_allreduce(t)
-    else:
-        out = t.clone()
-        dist.all_reduce(out, op=_OPS[op])
-        if op == Average:
-            out = out / core.process_size()
-    return out.cpu().numpy().astype(arr.dtype, copy=False)
+            out = adasum_allreduce(t)
+        else:
+            out = t.clone()
+            dist.all_reduce(out, op=_OPS[op])
+            if op == Average:
+                out = out / core.process_size()
+        out = out.cpu().numpy()
+    return out.astype(arr.dtype, copy=False)
 
 
 def process_allgather(arr, *, name: Optional[str] = None) -> np.ndarray:
@@ -99,7 +151,8 @@ def process_allgather(arr, *, name: Optional[str] = None) -> np.ndarray:
     arr = np.asarray(arr)
     if core.process_size() == 1:
         return arr
-    shapes = _agree_meta(arr, name, "process_allgather")
+    nm = name or next_name("process_allgather")
+    shapes = _agree_meta(arr, nm, "process_allgather")
     if len({len(s) for s in shapes}) > 1 or \
             any(s[1:] != shapes[0][1:] for s in shapes):
         raise ValueError(
@@ -113,8 +166,9 @@ def process_allgather(arr, *, name: Optional[str] = None) -> np.ndarray:
     t = torch.from_numpy(padded).to(core.device())
     out = torch.empty((len(rows) * t.shape[0], *t.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t)
-    out = out.cpu().numpy().reshape((len(rows),) + padded.shape)
+    with _host_guard(nm, "MESH_ALLGATHER", "allgather", "mesh", arr.nbytes):
+        dist.all_gather_into_tensor(out, t)
+        out = out.cpu().numpy().reshape((len(rows),) + padded.shape)
     return np.concatenate([out[i, :n] for i, n in enumerate(rows)], axis=0)
 
 
@@ -125,13 +179,21 @@ def process_broadcast(arr, root_rank: int = 0, *,
     arr = np.asarray(arr)
     if core.process_size() == 1:
         return arr
-    shape, dtype = broadcast_object((arr.shape, arr.dtype), root_rank,
-                                    name=name)
+    nm = name or next_name("process_broadcast")
+    timeline.negotiate_start(nm, "BROADCAST")
+    try:
+        shape, dtype = broadcast_object((arr.shape, arr.dtype), root_rank,
+                                        name=nm)
+    finally:
+        timeline.negotiate_end(nm, "BROADCAST")
     src = arr if core.process_rank() == root_rank \
         else np.zeros(shape, dtype)
     t = torch.from_numpy(np.ascontiguousarray(src)).to(core.device())
-    dist.broadcast(t, src=root_rank)
-    return t.cpu().numpy()
+    # a span, but no metrics: the reference's mesh broadcast records none
+    with timeline.span(nm, "MESH_BROADCAST"):
+        dist.broadcast(t, src=root_rank)
+        out = t.cpu().numpy()
+    return out
 
 
 def normalize_op(average, op):

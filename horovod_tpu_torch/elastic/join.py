@@ -50,6 +50,10 @@ def join() -> int:
     rank to join, which the barrier does not tell apart: the highest
     rank, as the reference returns.  One process: its own rank."""
     core._require_init()
+    from .. import metrics
+
+    if metrics.on():
+        metrics.JOIN_EVENTS.inc()
     if core.process_size() == 1:
         return core.process_rank()
     dist.barrier()

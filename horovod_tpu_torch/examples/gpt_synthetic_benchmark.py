@@ -109,7 +109,7 @@ def run(args, eager: bool = False,
     state, x, y)``, when given, is called after the timed window with the
     step that was timed, its state and its inputs (``chip_smoke.py``
     traces more calls with it); what it returns is the result's
-    ``"then"``."""
+    ``"then"``.  ``"rates"`` are the iterations' seq/s per card."""
     core.init(device=args.device)
     factory = gpt2_small if args.model == "gpt2" else gpt_tiny
     # initialized on the device, from a generator there seeded with 0
@@ -170,6 +170,7 @@ def run(args, eager: bool = False,
         log(f"analytic MFU {mfu:.1%} of the H100 bf16 peak")
     log(f"sequences/sec per chip: {per_chip:.1f}")
     return {"seq_sec_per_chip": per_chip, "mfu": mfu,
+            "rates": [r / core.size() for r in rates],
             "final_loss": final_loss, "step_calls": calls,
             **({"then": after} if then is not None else {})}
 

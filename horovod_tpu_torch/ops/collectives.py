@@ -8,6 +8,9 @@ region; here every rank is a process and each function is one
 (a mixed ``"cpu:gloo,cuda:nccl"`` backend serves both).  Each function
 leaves its input unchanged and returns a new tensor.  None of them reads
 a value back to the host, so they can be captured into a CUDA graph.
+Each records itself in the traced-collective inventory
+(``metrics.record_traced``): inside a train step once a capture, as the
+reference records once a trace; outside one, every call.
 
 A rank outside the ``process_set`` it is given takes part in nothing and
 gets its input back (a copy).  The reference leaves that value to its
@@ -23,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from .. import core
+from .. import metrics as _metrics
 from ..core import Adasum, Average, Max, Min, Sum
 from .compression import Compression, average_, check_wire, compress_with
 
@@ -113,6 +117,8 @@ def allreduce(tensor: torch.Tensor, *, op: str = Average,
     decomposition (``parallel/hierarchical.py``), ``two_level`` the one
     with ``compression`` on the cross stage only."""
     del name  # the reference's tensor name; NCCL calls carry none
+    # once a capture inside a train step (metrics.traced_recording)
+    _metrics.record_traced("allreduce", tensor)
     if two_level and op in (Average, Sum, Adasum):
         if process_set is not None:
             raise ValueError(
@@ -188,6 +194,7 @@ def allgather(tensor: torch.Tensor, *, name: Optional[str] = None,
     on every rank of the group.  Every rank gives the same shape (for
     varying first dimensions, :func:`allgatherv`)."""
     del name
+    _metrics.record_traced("allgather", tensor)
     member, group, group_size = group_of(process_set)
     if not member:
         return tensor.clone()
@@ -227,6 +234,7 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
                process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """``root_rank``'s value into ``tensor`` on every rank of the group,
     in place; a rank outside ``process_set`` keeps its value."""
+    _metrics.record_traced("broadcast", tensor)
     member, group, _ = group_of(process_set)
     if process_set is not None and root_rank not in process_set.ranks:
         raise ValueError(f"broadcast root {root_rank} is not in the "
@@ -259,6 +267,7 @@ def alltoall(tensor: torch.Tensor, *,
     """Equal-split all-to-all: the group's rank i sends its j-th chunk
     along axis 0 to its rank j and receives rank j's i-th chunk there.
     ``tensor.shape[0]`` must divide by the group's size."""
+    _metrics.record_traced("alltoall", tensor)
     member, group, group_size = group_of(process_set)
     _chunks(tensor, group_size, "alltoall")
     if not member:
@@ -274,6 +283,7 @@ def reducescatter(tensor: torch.Tensor, *, op: str = Sum,
     equal chunks along axis 0: the group's rank i gets chunk i."""
     if op not in (Sum, Average):
         raise ValueError(f"reducescatter takes Sum or Average, got {op!r}")
+    _metrics.record_traced("reducescatter", tensor)
     member, group, group_size = group_of(process_set)
     _chunks(tensor, group_size, "reducescatter")
     if not member:

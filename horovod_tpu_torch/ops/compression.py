@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import metrics
 from ..utils import env as env_util
 from ..utils.logging import get_logger
 
@@ -44,10 +45,6 @@ log = get_logger(__name__)
 #: the float8 wire dtypes
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 
-#: tensors a quantizer shipped uncompressed (fewer than 2 levels left by
-#: the group's headroom), counted on the host as the calls are issued;
-#: exported as a metric once the metrics module is ported
-FALLBACKS = {"uncompressed": 0}
 
 
 def _compressible(tensor) -> bool:
@@ -203,7 +200,10 @@ class _ScaledQuantizer(Compressor):
             return tensor, None
         headroom = cls.headroom(group_size)
         if headroom < 2.0:
-            FALLBACKS["uncompressed"] += 1
+            # counted on the host as the calls are issued, in the
+            # counter of the guard's trips (training.py counts those)
+            if metrics.on():
+                metrics.COMPRESSION_FALLBACKS.inc()
             log.warning(
                 "%s over a %d-rank group leaves %.2f quantization levels — "
                 "shipping uncompressed (use two-level reduction to "

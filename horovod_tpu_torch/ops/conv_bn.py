@@ -37,8 +37,13 @@ Public layouts are the reference's: x NHWC ``[B, H, W, Cin]``, w HWIO
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import kernels
 from .elementwise import autocast_off
@@ -92,8 +97,60 @@ def plain_conv3x3_plain(x, w) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# dispatch: the plain version for CPU tensors, the kernel for any other
+# dispatch: the plain version for CPU tensors, the kernel for any other.
+# K8-K10 are also the torch.library ops ``hvd::conv3x3_bn_relu``,
+# ``hvd::conv3x3_stats`` and ``hvd::conv3x3_plain`` (CPU: the plain
+# version, CUDA: the kernel, a fake and a FLOP formula), taken while a
+# dispatch mode (make_fx, FlopCounterMode) is on.
 # ---------------------------------------------------------------------------
+_PLAIN = {"bn_relu": plain_conv3x3_bn_relu, "stats": plain_conv3x3_stats,
+          "plain": plain_conv3x3_plain}
+#: FLOPs per output element of each epilogue: K8 a multiply, an add and
+#: a max; K9 the sum's add and the square's multiply and add
+EPILOGUE_FLOPS = {"bn_relu": 3, "stats": 3, "plain": 0}
+
+_LIB = torch.library.Library("hvd", "FRAGMENT")
+_LIB.define("conv3x3_bn_relu(Tensor x, Tensor w, Tensor scale, "
+            "Tensor bias) -> Tensor")
+_LIB.define("conv3x3_stats(Tensor x, Tensor w) -> (Tensor, Tensor, Tensor)")
+_LIB.define("conv3x3_plain(Tensor x, Tensor w) -> Tensor")
+
+
+def _fake(kind: str):
+    def fake(x, w, *epilogue):
+        y = x.new_empty((*x.shape[:3], w.shape[3]))
+        if kind != "stats":
+            return y
+        return (y, *(x.new_empty((w.shape[3],), dtype=torch.float32)
+                     for _ in range(2)))
+    return fake
+
+
+def _flops(kind: str):
+    def formula(x_shape, w_shape, *args, out_shape=None, **kw) -> int:
+        outputs = math.prod(x_shape[:3]) * w_shape[3]
+        return outputs * (2 * 9 * w_shape[2] + EPILOGUE_FLOPS[kind])
+    return formula
+
+
+for _kind, _plain in _PLAIN.items():
+    _LIB.impl(f"conv3x3_{_kind}", _plain, "CPU")
+    _LIB.impl(f"conv3x3_{_kind}", functools.partial(kernels.launch_conv3x3,
+                                                    _kind), "CUDA")
+    torch.library.register_fake(f"hvd::conv3x3_{_kind}", _fake(_kind),
+                                lib=_LIB)
+    register_flop_formula(getattr(torch.ops.hvd, f"conv3x3_{_kind}"))(
+        _flops(_kind))
+
+
+def _conv(kind: str, x, w, *epilogue):
+    if _get_current_dispatch_mode() is None:
+        if x.device.type == "cpu":
+            return _PLAIN[kind](x, w, *epilogue)
+        return kernels.launch_conv3x3(kind, x, w, *epilogue)
+    return getattr(torch.ops.hvd, f"conv3x3_{kind}")(x, w, *epilogue)
+
+
 def conv3x3_bn_relu(x, w, scale, bias) -> torch.Tensor:
     """``relu(conv3x3_same(x, w) · scale + bias)`` in one pass (K8).
     x: ``[B, H, W, Cin]`` NHWC; w: ``[3, 3, Cin, Cout]``; scale / bias:
@@ -102,10 +159,8 @@ def conv3x3_bn_relu(x, w, scale, bias) -> torch.Tensor:
     _check(x, w)
     scale, bias = scale.float(), bias.float()
     with autocast_off(x):
-        if x.device.type == "cpu":
-            return plain_conv3x3_bn_relu(x, w, scale, bias)
-        return kernels.launch_conv3x3("bn_relu", x, w.contiguous(),
-                                      scale.contiguous(), bias.contiguous())
+        return _conv("bn_relu", x, w.contiguous(), scale.contiguous(),
+                     bias.contiguous())
 
 
 def conv3x3_stats(x, w):
@@ -114,9 +169,7 @@ def conv3x3_stats(x, w):
     sum [Cout] float32, sumsq [Cout] float32)``."""
     _check(x, w)
     with autocast_off(x):
-        if x.device.type == "cpu":
-            return plain_conv3x3_stats(x, w)
-        return kernels.launch_conv3x3("stats", x, w.contiguous())
+        return _conv("stats", x, w.contiguous())
 
 
 def conv3x3_plain(x, w) -> torch.Tensor:
@@ -125,9 +178,7 @@ def conv3x3_plain(x, w) -> torch.Tensor:
     spatially flipped, io-transposed weights)."""
     _check(x, w)
     with autocast_off(x):
-        if x.device.type == "cpu":
-            return plain_conv3x3_plain(x, w)
-        return kernels.launch_conv3x3("plain", x, w.contiguous())
+        return _conv("plain", x, w.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,11 @@ NCHW activations are views of NHWC memory, so ``models/resnet.py`` hands
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import kernels
 
@@ -55,24 +59,58 @@ def plain_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# dispatch: the plain version for CPU tensors, the kernel for any other
+# dispatch: the plain version for CPU tensors, the kernel for any other.
+# K7, K6' and K6 are also the torch.library ops ``hvd::residual_relu``,
+# ``hvd::relu_grad`` and ``hvd::scale_bias_relu`` (CPU: the plain
+# version, CUDA: the kernel, a fake and a FLOP formula), taken while a
+# dispatch mode (make_fx, FlopCounterMode) is on.
 # ---------------------------------------------------------------------------
+#: FLOPs per output element: K7 an add and a max, K6' a select, K6 a
+#: multiply, an add and a max
+EW_FLOPS_PER_ELEMENT = {"residual_relu": 2, "relu_grad": 1,
+                        "scale_bias_relu": 3}
+
+#: each op's plain version, kernel wrapper and fake
+_EW_OPS = {
+    "residual_relu": (plain_residual_relu, kernels.launch_residual_relu,
+                      lambda x, y: torch.empty_like(x)),
+    "relu_grad": (plain_relu_grad, kernels.launch_relu_grad,
+                  lambda out, g: torch.empty_like(g)),
+    "scale_bias_relu": (plain_scale_bias_relu,
+                        kernels.launch_scale_bias_relu,
+                        lambda x, scale, bias: torch.empty_like(x)),
+}
+
+_LIB = torch.library.Library("hvd", "FRAGMENT")
+_LIB.define("residual_relu(Tensor x, Tensor y) -> Tensor")
+_LIB.define("relu_grad(Tensor out, Tensor g) -> Tensor")
+_LIB.define("scale_bias_relu(Tensor x, Tensor scale, Tensor bias) -> Tensor")
+for _name, (_plain, _kernel, _fake) in _EW_OPS.items():
+    _LIB.impl(_name, _plain, "CPU")
+    _LIB.impl(_name, _kernel, "CUDA")
+    torch.library.register_fake(f"hvd::{_name}", _fake, lib=_LIB)
+    register_flop_formula(getattr(torch.ops.hvd, _name))(
+        (lambda n: lambda *a, out_shape=None, **kw: n * math.prod(
+            out_shape))(EW_FLOPS_PER_ELEMENT[_name]))
+
+
+def _ew_op(name: str, *args):
+    if _get_current_dispatch_mode() is None:
+        plain, kernel, _ = _EW_OPS[name]
+        return (plain if args[0].device.type == "cpu" else kernel)(*args)
+    return getattr(torch.ops.hvd, name)(*args)
+
+
 def _residual_relu(x, y):
-    if x.device.type == "cpu":
-        return plain_residual_relu(x, y)
-    return kernels.launch_residual_relu(x, y)
+    return _ew_op("residual_relu", x, y)
 
 
 def _relu_grad(out, g):
-    if out.device.type == "cpu":
-        return plain_relu_grad(out, g)
-    return kernels.launch_relu_grad(out, g)
+    return _ew_op("relu_grad", out, g)
 
 
 def _scale_bias_relu(x, scale, bias):
-    if x.device.type == "cpu":
-        return plain_scale_bias_relu(x, scale, bias)
-    return kernels.launch_scale_bias_relu(x, scale, bias)
+    return _ew_op("scale_bias_relu", x, scale, bias)
 
 
 def autocast_off(t: torch.Tensor):

@@ -21,9 +21,13 @@ over kv tiles (``kv_tile`` keys, :data:`KV_TILE` by default; the card's
 checks pass the plan's tile) with ``p`` cast to v's dtype against the
 running max before ``p·v``, so a bf16 ``p`` is rounded where the kernel
 rounds it; ``ds = p·(dp − delta)·scale``
-cast to k's (q's) dtype before its product; float32 sums.  CPU tensors
-take the plain version; any other tensor goes to the kernel, which
-raises on what it does not take.  Nothing falls back.
+cast to k's (q's) dtype before its product; float32 sums.  Each launch
+is a ``torch.library`` op (``hvd::flash_fwd``, ``hvd::flash_bwd_dq``,
+``hvd::flash_bwd_dkv``) whenever a dispatch mode traces or counts, and
+the kernel's wrapper otherwise: CPU tensors take the plain version, any
+other tensor the kernel, which raises on what it does not take; nothing
+falls back.  The ops' FLOP formulas (:func:`flash_flops`) count the matrix
+products over the pairs each launch sees.
 :func:`plain_flash_attention` is :func:`flash_attention` through the
 plain versions on any device: the oracle that holds the kernels to
 account through a whole model on the card.
@@ -44,7 +48,10 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import kernels
 
@@ -143,22 +150,129 @@ def plain_mha_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
 # ---------------------------------------------------------------------------
 # dispatch: the plain version for CPU tensors, the kernel for any other
 # ---------------------------------------------------------------------------
-def _mha_fwd(q, k, v, **kw):
-    if q.device.type == "cpu":
-        return plain_mha_fwd(q, k, v, **kw)
-    return kernels.launch_flash_fwd(q, k, v, **kw)
+# K2-K4 are the torch.library ops ``hvd::flash_fwd``, ``hvd::flash_bwd_dq``
+# and ``hvd::flash_bwd_dkv``: the kernel for CUDA tensors, the plain
+# version for CPU tensors, a fake giving the outputs' shapes and a FLOP
+# formula each, so a make_fx trace shows one node per launch with edges
+# from its inputs and FlopCounterMode counts the attention products.
+# A launch goes through the op while a dispatch mode (make_fx,
+# FlopCounterMode, a fake mode) is on; otherwise it calls the kernel's
+# wrapper (or the plain version) itself, which skips the dispatcher's
+# ~15 µs a launch (chip_smoke.py's trace_plane measures both).
+_LIB = torch.library.Library("hvd", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale, int q_offset, int kv_offset, bool normalize) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.define("flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, bool causal, float scale, "
+            "int q_offset, int kv_offset) -> Tensor")
+_LIB.define("flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, bool causal, float scale, "
+            "int q_offset, int kv_offset) -> (Tensor, Tensor)")
+
+#: the scalar arguments of K2 and of K3 / K4, in the ops' order
+_FWD_ARGS = ("causal", "scale", "q_offset", "kv_offset", "normalize")
+_BWD_ARGS = ("causal", "scale", "q_offset", "kv_offset")
+#: each op: the kernel's plain version, its wrapper, its scalar arguments
+#: and its fake
+_FLASH_OPS = {
+    "flash_fwd": (plain_mha_fwd, kernels.launch_flash_fwd, _FWD_ARGS,
+                  lambda q, k, v, causal, scale, q_offset, kv_offset,
+                  normalize: (q.new_empty(q.shape, dtype=q.dtype
+                                          if normalize else torch.float32),
+                              _stats_like(q), _stats_like(q))),
+    "flash_bwd_dq": (plain_mha_bwd_dq, kernels.launch_flash_bwd_dq,
+                     _BWD_ARGS, lambda q, *a: q.new_empty(
+                         q.shape, dtype=torch.float32)),
+    "flash_bwd_dkv": (plain_mha_bwd_dkv, kernels.launch_flash_bwd_dkv,
+                      _BWD_ARGS, lambda q, k, v, *a: (
+                          k.new_empty(k.shape, dtype=torch.float32),
+                          v.new_empty(v.shape, dtype=torch.float32))),
+}
 
 
-def _mha_bwd_dq(q, k, v, do, lse, delta, **kw):
-    if q.device.type == "cpu":
-        return plain_mha_bwd_dq(q, k, v, do, lse, delta, **kw)
-    return kernels.launch_flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+def _stats_like(q):
+    return q.new_empty((*q.shape[:3], 1), dtype=torch.float32)
 
 
-def _mha_bwd_dkv(q, k, v, do, lse, delta, **kw):
-    if q.device.type == "cpu":
-        return plain_mha_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return kernels.launch_flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0,
+                    kv_offset: int = 0) -> int:
+    """The (query, key) pairs one [.., sq, ..] × [.., sk, ..] attention
+    sees: all of them, or causally those with ``q_offset + i >=
+    kv_offset + j``."""
+    if not causal:
+        return sq * sk
+    seen = np.clip(q_offset - kv_offset + 1 + np.arange(sq), 0, sk)
+    return int(seen.sum())
+
+
+#: matrix products each kernel computes over the pairs it sees, at
+#: 2·d FLOPs a pair each: K2 q·kᵀ and p·v; K3 recomputes s, then dp and
+#: dq; K4 recomputes s, then dp, dv and dk
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def flash_flops(op: str, q_shape, k_shape, causal: bool, q_offset: int,
+                kv_offset: int) -> int:
+    """FLOPs of one launch of K2 (``flash_fwd``), K3 or K4 on [b, h, s,
+    d] operands: 2·d per pair seen for each of its matrix products."""
+    b, h, sq, d = q_shape
+    return (2 * d * FLASH_PRODUCTS[op] * b * h
+            * attention_pairs(sq, k_shape[2], causal, q_offset, kv_offset))
+
+
+def _by_name(fn, names):
+    """``fn`` called with the op's trailing scalar arguments by name."""
+    def call(*args):
+        n = len(args) - len(names)
+        return fn(*args[:n], **dict(zip(names, args[n:])))
+    return call
+
+
+def _flops_of(op: str, names):
+    def formula(*args, out_shape=None) -> int:
+        scalars = dict(zip(names, args[len(args) - len(names):]))
+        return flash_flops(op, args[0], args[1], scalars["causal"],
+                           scalars["q_offset"], scalars["kv_offset"])
+    return formula
+
+
+for _op, (_plain, _kernel, _names, _fake) in _FLASH_OPS.items():
+    _LIB.impl(_op, _by_name(_plain, _names), "CPU")
+    _LIB.impl(_op, _by_name(_kernel, _names), "CUDA")
+    torch.library.register_fake(f"hvd::{_op}", _fake, lib=_LIB)
+    register_flop_formula(getattr(torch.ops.hvd, _op))(_flops_of(_op,
+                                                                 _names))
+
+
+def _launch(op: str, *tensors, **scalars):
+    plain, kernel, names, _ = _FLASH_OPS[op]
+    if _get_current_dispatch_mode() is None:
+        return (plain if tensors[0].device.type == "cpu" else kernel)(
+            *tensors, **scalars)
+    return getattr(torch.ops.hvd, op)(*tensors,
+                                      *(scalars[n] for n in names))
+
+
+def _mha_fwd(q, k, v, *, causal, scale, q_offset=0, kv_offset=0,
+             normalize=True):
+    return _launch("flash_fwd", q, k, v, causal=bool(causal),
+                   scale=float(scale), q_offset=int(q_offset),
+                   kv_offset=int(kv_offset), normalize=bool(normalize))
+
+
+def _mha_bwd_dq(q, k, v, do, lse, delta, *, causal, scale, q_offset=0,
+                kv_offset=0):
+    return _launch("flash_bwd_dq", q, k, v, do, lse, delta,
+                   causal=bool(causal), scale=float(scale),
+                   q_offset=int(q_offset), kv_offset=int(kv_offset))
+
+
+def _mha_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale, q_offset=0,
+                 kv_offset=0):
+    return _launch("flash_bwd_dkv", q, k, v, do, lse, delta,
+                   causal=bool(causal), scale=float(scale),
+                   q_offset=int(q_offset), kv_offset=int(kv_offset))
 
 
 # ---------------------------------------------------------------------------

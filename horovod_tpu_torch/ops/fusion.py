@@ -4,8 +4,9 @@ The port of ``horovod_tpu/ops/fusion.py``, back on the reference
 Horovod's own GPU design: each bucket of same-dtype tensors is packed
 into one flat contiguous buffer, reduced with ONE ``all_reduce`` over
 NCCL, and handed back as views of the reduced buffer.  Each bucket's
-call runs inside an NVTX range named after its tensors, which is what
-the fork's per-tensor NCCL tagging shows in a profiler.  With a
+call runs inside a range named after its tensors (torch.profiler's and,
+on CUDA, NVTX's), which is what the fork's per-tensor NCCL tagging shows
+in a profiler.  With a
 quantizer, the scales of every tensor of the call come from one MAX
 all-reduce, and error feedback carries each rank's residual.
 
@@ -21,6 +22,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from .. import metrics as _metrics
 from ..core import Average
 from ..utils import env as env_util
 from ..utils.tree import tree_flatten, tree_leaf_names, tree_unflatten
@@ -150,15 +152,27 @@ class FusionPlan:
         return len(self.buckets)
 
 
-def _nvtx_range(flat: torch.Tensor, names: Sequence[str]):
-    """The bucket's NVTX range on CUDA; nothing on the CPU, where torch
-    has no NVTX."""
-    if flat.device.type != "cuda":
-        return contextlib.nullcontext()
+def dispatch_group_label(process_set: Optional[ProcessSet] = None) -> str:
+    """The communication-group label a dispatch reduces over — ``world``
+    for the whole job, ``process_set:<ranks>`` for a subset (the
+    reference's protocol string, ``horovod_tpu/ops/fusion.py``)."""
+    if process_set is None:
+        return "world"
+    return "process_set:" + ",".join(str(r) for r in process_set.ranks)
+
+
+def _bucket_range(flat: torch.Tensor, names: Sequence[str]):
+    """The bucket's range, named ``allreduce:<its tensors>``: a
+    torch.profiler range (what an ``HVD_PROFILE_XLA`` capture shows)
+    and, on CUDA, an NVTX range."""
     label = "allreduce:" + ",".join(names)
     if len(label) > _NVTX_NAME_CHARS:
         label = label[:_NVTX_NAME_CHARS - 3] + "..."
-    return torch.cuda.nvtx.range(label)
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.profiler.record_function(label))
+    if flat.device.type == "cuda":
+        stack.enter_context(torch.cuda.nvtx.range(label))
+    return stack
 
 
 def _global_maxima(xs: List[torch.Tensor], comps, group, group_size: int):
@@ -205,6 +219,12 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
             f"error-feedback residual list has {len(residuals)} entries "
             f"for {len(tensors)} tensors")
     member, group, group_size = group_of(process_set)
+    # a subset's reductions ride the group-labelled traced inventory (the
+    # whole job is the unlabelled default, as in the reference)
+    group_label = dispatch_group_label(process_set)
+    if group_label != "world":
+        for _ in tensors:
+            _metrics.record_traced_group("allreduce", group_label)
     if not member:
         out = [t.clone() for t in tensors]
         return (out, list(residuals)) if residuals is not None else out
@@ -249,7 +269,7 @@ def fused_allreduce(tensors: List[torch.Tensor], *, op: str = Average,
     out: List[Any] = [None] * len(tensors)
     for bucket in plan.buckets:
         flat = torch.cat([compressed[i].reshape(-1) for i in bucket])
-        with _nvtx_range(flat, [names[i] for i in bucket]):
+        with _bucket_range(flat, [names[i] for i in bucket]):
             dist.all_reduce(flat, op=dist_op, group=group)
         if op == Average:
             flat = average_(flat, group_size)

@@ -31,6 +31,12 @@ Adam's bias corrections are computed from it on the device, in float32
 in the reference's order (``_bias_corrections``), into each group's
 2-float ``bc`` buffer, which K1 reads when it runs.  The optimizer holds
 only the constant scalars, rounded once, when it is built.
+
+Each update of a flat group is one launch of K1 (:func:`flat_update_`),
+the ``torch.library`` op ``hvd::fused_update`` while a dispatch mode is
+on: K1 on CUDA tensors, the plain version on CPU tensors, so a
+``make_fx`` trace of a train step shows each launch as one node and
+``FlopCounterMode`` counts it (:data:`K1_FLOPS_PER_ELEMENT`).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import kernels
 from ..utils.tree import tree_flatten, tree_unflatten
@@ -173,18 +181,86 @@ def plain_adam_(p, g, mu, nu, *, lr, b1, b2, eps, one_minus_b1,
     p.copy_(p + u)
 
 
-def flat_update_(kind: str, p, g, mu=None, nu=None, **scalars) -> None:
-    """One rule over flat buffers, in place: the plain version for CPU
-    tensors, K1 for any other.  A tensor that K1 does not take raises;
-    nothing falls back."""
-    if p.device.type != "cpu":
-        kernels.launch_fused_update(kind, p, g, mu, nu, **scalars)
-    elif kind == SGD:
+def _plain_update_(kind: str, p, g, mu, nu, **scalars) -> None:
+    if kind == SGD:
         plain_sgd_(p, g, **scalars)
     elif kind == MOMENTUM:
         plain_momentum_(p, g, mu, **scalars)
     else:
         plain_adam_(p, g, mu, nu, **scalars)
+
+
+# ---------------------------------------------------------------------------
+# K1 as the torch.library op ``hvd::fused_update``: the kernel for CUDA
+# tensors, its plain version for CPU tensors, a fake that writes nothing
+# (shapes are unchanged) and a FLOP formula, so torch.fx traces one node
+# per launch and FlopCounterMode counts it
+# ---------------------------------------------------------------------------
+#: each rule's scalars, in the op's argument order
+_K1_SCALARS = ("lr", "momentum", "b1", "b2", "eps", "one_minus_b1",
+               "one_minus_b2")
+#: FLOPs per element of each rule, as the plain version and the kernel
+#: compute it: sgd p + (-lr)·g; momentum t = m·t + g, p + (-lr)·t; adam
+#: both moments (3 + 4), the bias-corrected step (mul, mul, sqrt, add,
+#: div) and p + (-lr)·step
+K1_FLOPS_PER_ELEMENT = {SGD: 2, MOMENTUM: 4, ADAM: 14}
+
+_LIB = torch.library.Library("hvd", "FRAGMENT")
+_LIB.define(
+    "fused_update(str kind, Tensor(a!) p, Tensor g, Tensor(b!)? mu, "
+    "Tensor(c!)? nu, Tensor? bc, float lr, float momentum, float b1, "
+    "float b2, float eps, float one_minus_b1, float one_minus_b2) -> ()")
+
+
+def _op_scalars(kind: str, bc, values) -> dict:
+    names = {SGD: ("lr",), MOMENTUM: ("lr", "momentum"),
+             ADAM: ("lr", "b1", "b2", "eps", "one_minus_b1",
+                    "one_minus_b2")}[kind]
+    scalars = {n: v for n, v in zip(_K1_SCALARS, values) if n in names}
+    if kind == ADAM:
+        scalars["bc"] = bc
+    return scalars
+
+
+def _fused_update_cpu(kind, p, g, mu, nu, bc, *values) -> None:
+    _plain_update_(kind, p, g, mu, nu, **_op_scalars(kind, bc, values))
+
+
+def _fused_update_cuda(kind, p, g, mu, nu, bc, *values) -> None:
+    kernels.launch_fused_update(kind, p, g, mu, nu,
+                                **_op_scalars(kind, bc, values))
+
+
+_LIB.impl("fused_update", _fused_update_cpu, "CPU")
+_LIB.impl("fused_update", _fused_update_cuda, "CUDA")
+torch.library.register_fake("hvd::fused_update",
+                            lambda *args: None, lib=_LIB)
+
+
+@register_flop_formula(torch.ops.hvd.fused_update)
+def _fused_update_flops(kind, p_shape, *args, out_shape=None, **kw) -> int:
+    del args, out_shape, kw
+    return K1_FLOPS_PER_ELEMENT[kind] * int(np.prod(p_shape))
+
+
+def flat_update_(kind: str, p, g, mu=None, nu=None, **scalars) -> None:
+    """One rule over flat buffers, in place: the plain version for CPU
+    tensors, K1 for any other — as the op ``hvd::fused_update`` while a
+    dispatch mode (make_fx, FlopCounterMode) is on, through the wrapper
+    itself otherwise.  A tensor that K1 does not take raises; nothing
+    falls back."""
+    if kind not in K1_FLOPS_PER_ELEMENT:
+        raise ValueError(f"unknown fused update rule {kind!r}")
+    if _get_current_dispatch_mode() is None:
+        # nothing traces or counts: skip the dispatcher
+        if p.device.type == "cpu":
+            _plain_update_(kind, p, g, mu, nu, **scalars)
+        else:
+            kernels.launch_fused_update(kind, p, g, mu, nu, **scalars)
+        return
+    torch.ops.hvd.fused_update(
+        kind, p, g, mu, nu, scalars.get("bc"),
+        *(float(scalars.get(n, 0.0)) for n in _K1_SCALARS))
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,11 @@ captures it.
 
 :func:`two_level_allreduce` falls back to the flat all-reduce on a
 trivial topology or a cross group that is not a power of two; each
-fallback is logged and counted in :data:`FALLBACKS`.
+fallback is logged and counted in ``hvd_two_level_fallbacks_total``
+(``metrics.TWO_LEVEL_FALLBACKS``) on the host as the calls are issued
+(a CUDA graph counts its capture once).  The three stages of a
+decomposed reduction ride the group-labelled traced inventory
+(``local`` / ``cross``), as in the reference.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import core
+from .. import metrics
 from ..core import Adasum, Average, Sum
 from ..ops.compression import (
     Compression, ErrorFeedback, _compressible, average_, check_wire,
@@ -41,11 +46,6 @@ from ..utils import env as env_util
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
-
-#: two-level reductions that fell back to the flat all-reduce, counted on
-#: the host as the calls are issued (a CUDA graph counts its capture
-#: once); exported as a metric once the metrics module is ported
-FALLBACKS = {"two_level": 0}
 
 
 def _local_groups() -> list:
@@ -203,6 +203,7 @@ def hierarchical_allreduce(tensor: torch.Tensor, *, op: str = Average
     else:
         g = groups()
         flat, pad = _flat_padded(tensor, ls)
+        _record_stage_inventory()
         shard = _scatter_local(flat, ls, g.local)
         dist.all_reduce(shard, op=dist.ReduceOp.SUM, group=g.cross)
         full = _gather_local(shard, flat.shape[0], g.local)
@@ -210,8 +211,18 @@ def hierarchical_allreduce(tensor: torch.Tensor, *, op: str = Average
     return average_(out, core.size()) if op == Average else out
 
 
+def _record_stage_inventory() -> None:
+    """The group-labelled traced inventory of the three stages (the
+    group *families* ``local`` / ``cross``); the user-facing
+    ``allreduce`` itself is counted once by ``collectives.allreduce``."""
+    metrics.record_traced_group("reducescatter", "local")
+    metrics.record_traced_group("allreduce", "cross")
+    metrics.record_traced_group("allgather", "local")
+
+
 def _count_two_level_fallback(reason: str) -> None:
-    FALLBACKS["two_level"] += 1
+    if metrics.on():
+        metrics.TWO_LEVEL_FALLBACKS.inc()
     log.warning("two_level_allreduce falling back to flat allreduce: %s",
                 reason)
 
@@ -229,7 +240,7 @@ def two_level_allreduce(tensor: torch.Tensor, *, op: str = Average,
 
     A trivial topology (one node, or one rank a node) or a cross group
     that is not a power of two falls back to the flat all-reduce,
-    compressed for the world's size (logged, counted in FALLBACKS).  An
+    compressed for the world's size (logged and counted).  An
     :class:`ErrorFeedback` compression gives its inner compressor here:
     the residual is shaped like the whole tensor, the wire error like
     the shard."""
@@ -263,6 +274,7 @@ def two_level_allreduce(tensor: torch.Tensor, *, op: str = Average,
         return hierarchical_allreduce(tensor, op=op)
     g = groups()
     flat, pad = _flat_padded(tensor, ls)
+    _record_stage_inventory()
     shard = _scatter_local(flat, ls, g.local)
     c, ctx = compress_with(compression, shard, cs)
     check_wire(c.dtype, c.device)

@@ -10,6 +10,16 @@ handle over a ``torch.distributed`` ``Work`` (an ``async_op`` call),
 returns the result.  The reference's thread pool has no counterpart:
 the ``Work`` is the deferred operation.
 
+Each all-reduce and all-gather is traced as the reference's frontend
+traces it through its host plane: a span of the timeline named after its
+tensor (``name``; the optimizer passes ``allreduce.<parameter name>``,
+the reference's names), from submit to ``synchronize``, and
+``metrics.record_host`` with ``transport="mesh"``.  The optimizer also
+writes the reference bindings' gradient manifest once
+(``gradient_name_list.json``, ``tensor_shapes.json``, ``dag.gml`` of
+grad → allreduce → parameter, ``metadata.json``) when a trace directory
+is set.
+
 ``DistributedOptimizer`` wraps a ``torch.optim`` optimizer: each
 parameter's gradient is all-reduced asynchronously as soon as it is
 final for the backward (``register_post_accumulate_grad_hook``), after
@@ -21,12 +31,13 @@ parameter's *delta* of the local step instead.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .. import core, eager
+from .. import core, eager, metrics
 from ..core import Adasum, Average, Max, Min, Sum  # noqa: F401
 from ..ops import collectives
 from ..ops.compression import (  # noqa: F401
@@ -91,6 +102,26 @@ class HandleManager:
 _handles = HandleManager()
 
 
+def _traced(work, finish: Callable, name: str, activity: str, op: str,
+            nbytes: int) -> int:
+    """The handle of a collective submitted now: its timeline span (named
+    after ``name``) and its metrics close when the handle is
+    synchronized."""
+    from ..timeline.timeline import timeline
+
+    t0, start = timeline.begin(), time.perf_counter()
+
+    def done():
+        out = finish()
+        timeline.end(name, activity, t0)
+        if metrics.on():
+            metrics.record_host(op, "mesh", nbytes,
+                                time.perf_counter() - start)
+        return out
+
+    return _handles.add(work, done)
+
+
 def _own(c: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
     """``c`` as a buffer of the call's own: a copy when it shares
     ``tensor``'s memory (the input is left as it was)."""
@@ -101,13 +132,15 @@ def allreduce_async(tensor, average=None, name=None, op=None,
                     compression=Compression.none) -> int:
     """Starts the reduction of ``tensor`` (op Average, Sum, Min, Max or
     Adasum; ``average`` is the older spelling) across the job and
-    returns its handle.  Average is a SUM, then a division."""
-    del name
+    returns its handle.  Average is a SUM, then a division.  ``name``
+    names the call's timeline span (default ``allreduce.torch.<n>``)."""
     op = _normalize_op(average, op)
+    nm = name or eager.next_name("allreduce.torch")
     t = tensor.detach()
     if op == Adasum:
         out = collectives.allreduce(t, op=Adasum, compression=compression)
-        return _handles.add(None, lambda: out)
+        return _traced(None, lambda: out, nm, "MESH_ALLREDUCE",
+                       "allreduce", t.nbytes)
     dist_op = collectives.reduce_op(op)
     n = core.size()
     c, ctx = compress_with(compression, t, n)
@@ -119,7 +152,8 @@ def allreduce_async(tensor, average=None, name=None, op=None,
         out = average_(buf, n) if op == Average else buf
         return compression.decompress(out, ctx)
 
-    return _handles.add(work, finish)
+    return _traced(work, finish, nm, "MESH_ALLREDUCE", "allreduce",
+                   buf.nbytes)
 
 
 def allreduce(tensor, average=None, name=None, op=None,
@@ -142,7 +176,7 @@ def allreduce_(tensor, average=None, name=None, op=None):
 def allgather_async(tensor, name=None) -> int:
     """Starts the gather of every rank's ``tensor`` along axis 0 (the
     first dimensions may differ) and returns its handle."""
-    del name
+    nm = name or eager.next_name("allgather.torch")
     t = tensor.detach().contiguous()
     n = core.size()
     rows = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
@@ -160,7 +194,8 @@ def allgather_async(tensor, name=None) -> int:
         return torch.cat([out[i * top:i * top + k]
                           for i, k in enumerate(counts)])
 
-    return _handles.add(work, finish)
+    return _traced(work, finish, nm, "MESH_ALLGATHER", "allgather",
+                   t.nbytes)
 
 
 def allgather(tensor, name=None):
@@ -230,23 +265,57 @@ class _DistributedOptimizer:
         self._hooks = []
         self._pending = {}           # param id -> handle
         self._delay = {}             # param id -> backward passes left
+        self._recorded = False
         if named_parameters is not None:
             for n, p in named_parameters:
                 self._param_names[id(p)] = n
+        idx = 0
         for group in self._opt.param_groups:
             for p in group["params"]:
+                # the reference's name: the parameter's, else its index
+                self._param_names.setdefault(id(p), f"param.{idx}")
+                idx += 1
                 if p.requires_grad:
                     self._delay[id(p)] = backward_passes_per_step
                     self._hooks.append(p.register_post_accumulate_grad_hook(
                         self._hook))
+
+    def _allreduce(self, p, g) -> int:
+        return allreduce_async(g, op=self._op,
+                               name=f"allreduce.{self._param_names[id(p)]}",
+                               compression=self._compression)
+
+    def _record_once(self) -> None:
+        """The gradient manifest of the reference's eager bindings,
+        written once when a trace directory is set:
+        ``gradient_name_list.json`` and ``tensor_shapes.json`` (names
+        ``gradients/<parameter name>``), ``dag.gml`` of grad → allreduce
+        → parameter and ``metadata.json``."""
+        if self._recorded:
+            return
+        self._recorded = True
+        from ..timeline.recorder import (
+            Recorder, structure_dag, write_gml, write_gradient_manifest,
+        )
+
+        rec = Recorder()
+        if not rec.enabled:
+            return
+        live = [p for g in self._opt.param_groups for p in g["params"]
+                if p.requires_grad]
+        names = [self._param_names[id(p)] for p in live]
+        write_gradient_manifest(
+            rec, [f"gradients/{n}" for n in names],
+            {f"gradients/{n}": list(p.shape) for n, p in zip(names, live)})
+        write_gml(*structure_dag(names), rec._path("dag.gml"))
+        rec.dump_metadata(framework="torch", num_gradients=len(names))
 
     def _hook(self, p) -> None:
         self._delay[id(p)] -= 1
         if self._delay[id(p)] > 0 or p.grad is None:
             return
         self._delay[id(p)] = self.backward_passes_per_step
-        self._pending[id(p)] = allreduce_async(
-            p.grad, op=self._op, compression=self._compression)
+        self._pending[id(p)] = self._allreduce(p, p.grad)
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
@@ -257,6 +326,7 @@ class _DistributedOptimizer:
     def synchronize(self) -> None:
         """Join the outstanding gradient handles; reduce any gradient
         whose hook did not fire (a gradient set by hand)."""
+        self._record_once()
         for group in self._opt.param_groups:
             for p in group["params"]:
                 g = p.grad
@@ -264,8 +334,7 @@ class _DistributedOptimizer:
                     continue
                 h = self._pending.pop(id(p), None)
                 if h is None:
-                    h = allreduce_async(g, op=self._op,
-                                        compression=self._compression)
+                    h = self._allreduce(p, g)
                 with torch.no_grad():
                     g.copy_(_handles.wait(h))
 

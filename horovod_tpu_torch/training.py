@@ -33,20 +33,39 @@ error-feedback guard reads the residual's norm once every
 ``HVD_COMPRESSION_GUARD_STEPS`` calls, after the call, and on divergence
 rebuilds the step without compression (captured again).
 
+Every call is traced as the reference traces it: the step-cadence
+metrics (``hvd_step_seconds``, ``hvd_steps_total``, ``hvd_samples_total``
+and the ``step_seconds`` time series), the timeline's ``record_step`` /
+``CYCLE_START`` / ``STEP`` span when ``HVD_TIMELINE`` or
+``HVD_TRACE_DIR`` opened one, ``hvd_train_loss`` from the trailing
+loss fetch, and the error-feedback guard's residual norm, fall-back
+count and ``compression.fallback`` event.  The collectives inside the
+step are recorded once a capture (``metrics.traced_recording``).
+
+``profile=True`` (or ``HVD_PROFILE=1``) runs the compute-anatomy
+profiler (``timeline/profiler.py``) over its step window: those calls
+run the step's four blocks — forward, backward (which computes the
+forward again), the gradient all-reduce and the optimizer update — one
+by one, eagerly and uncaptured, each closed by a device sync and timed
+as a segment, ``in_graph_steps`` times a call.  They update the same
+state tensors in place that the captured graph reads, so the replays
+after the window resume from the updated state.
+
 Knobs whose slice has not landed yet (``autotune``, ``profile_guided``,
-``profile``, ``donate=False``, and their ``HVD_*`` environment defaults)
-raise ``NotImplementedError``; none is silently ignored.
+``donate=False``, and their ``HVD_*`` environment defaults) raise
+``NotImplementedError``; none is silently ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
-from . import core
+from . import core, metrics
 from .convert import canonical_batch_stats, canonical_params
 from .core import Adasum, Average
 from .ops import collectives
@@ -61,6 +80,8 @@ from .parallel.hierarchical import (
 from .optim.distributed import broadcast_parameters
 from .optim.fused_update import FusedOptimizer, apply_updates
 from .optim.transforms import Transform
+from .metrics import timeseries as _timeseries
+from .timeline.timeline import timeline
 from .utils import env as env_util
 from .utils.logging import get_logger
 from .utils.tree import tree_flatten
@@ -106,6 +127,8 @@ class TrailingLossFetcher:
     def _fetch(self, n: int, loss: torch.Tensor) -> None:
         self.value = float(loss.item())
         self.step = n
+        if metrics.on():
+            metrics.TRAIN_LOSS.set(self.value)
 
     def flush(self) -> Optional[float]:
         """Read every retained loss (end of training); returns the last."""
@@ -123,8 +146,12 @@ def scan_steps(step_fn: Callable, k: int) -> Callable:
         return step_fn
 
     def looped(state, *args):
-        for _ in range(k):
-            state, loss = step_fn(state, *args)
+        for i in range(k):
+            # the program's collectives are recorded once, as a lax.scan
+            # body is traced once
+            with metrics.traced_recording(False) if i \
+                    else contextlib.nullcontext():
+                state, loss = step_fn(state, *args)
         return state, loss
 
     return looped
@@ -225,7 +252,9 @@ class _CompiledStep:
     eager step.  A replay runs the captured kernels without their
     wrappers, so the kernels' launch counters count what the host issued
     (the capture once) and not the replays.  ``calls`` counts the calls
-    by kind."""
+    by kind.  The collectives of the step are recorded in the metrics
+    plane once: at the capture on a card, at the first call on the CPU
+    (``metrics.traced_recording``)."""
 
     def __init__(self, entry: Callable, k: int,
                  calls: Optional[Dict[str, int]] = None):
@@ -238,6 +267,8 @@ class _CompiledStep:
         self.inputs: tuple = ()
         #: whether this step ran eagerly once (the next call captures)
         self.warm = False
+        #: whether the step's program has been recorded in the metrics
+        self.recorded = False
         self.bound: List[int] = []
         self.loss: Optional[torch.Tensor] = None
 
@@ -251,11 +282,12 @@ class _CompiledStep:
                 "this train step was built before horovod_tpu_torch."
                 "reinit(); build it again with make_train_step")
 
-    def eager(self, state: TrainState, x, y):
+    def eager(self, state: TrainState, x, y, record: bool = False):
         self.check_world()
         self.calls["eager"] += 1
         self.warm = True
-        return self.entry(state, x, y)
+        with metrics.traced_recording(record):
+            return self.entry(state, x, y)
 
     def __call__(self, state: TrainState, x, y):
         self.check_world()
@@ -263,7 +295,8 @@ class _CompiledStep:
             return self._replay(state, x, y)
         device = next(iter(state.params.values())).device
         if device.type != "cuda":
-            return self.eager(state, x, y)
+            record, self.recorded = not self.recorded, True
+            return self.eager(state, x, y, record=record)
         if not self.warm:
             return self._warm_up(state, x, y)
         return self._capture(state, x, y)
@@ -281,8 +314,10 @@ class _CompiledStep:
         self.inputs = (x.clone(), y.clone())
         self.bound = [t.data_ptr() for t in _state_tensors(state)]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"), \
+                metrics.traced_recording(not self.recorded):
             state, self.loss = self.entry(state, *self.inputs)
+        self.recorded = True
         self.graph = graph
         graph.replay()
         self.calls["capture"] += 1
@@ -312,16 +347,13 @@ def _not_ported(knob: str) -> NotImplementedError:
         "slice of horovod_tpu_torch)")
 
 
-def _refuse_unported(*, autotune, profile_guided, profile, donate):
+def _refuse_unported(*, autotune, profile_guided, donate):
     if autotune or (autotune is None
                     and env_util.get_bool(env_util.HVD_AUTOTUNE)):
         raise _not_ported("autotune")
     if profile_guided or (profile_guided is None and env_util.get_bool(
             env_util.HVD_AUTOTUNE_PROFILE_GUIDED)):
         raise _not_ported("profile_guided tuning")
-    if profile or (profile is None
-                   and env_util.get_bool(env_util.HVD_PROFILE)):
-        raise _not_ported("the compute-anatomy profiler")
     if not donate:
         raise _not_ported("donate=False (the port updates the state in "
                           "place)")
@@ -329,6 +361,26 @@ def _refuse_unported(*, autotune, profile_guided, profile, donate):
 
 def _per_leaf(fn: Callable, grads: Dict[str, torch.Tensor]):
     return {k: fn(g) for k, g in grads.items()}
+
+
+def _profiler(profile: Optional[bool]):
+    """The compute-anatomy profiler of a step: ``HVD_PROFILE``'s when
+    ``profile`` is None, one enabled when True (None when it has nowhere
+    to write), none when False."""
+    from .timeline import profiler as profiler_mod
+
+    if profile is None:
+        return profiler_mod.from_env()
+    if profile:
+        prof = profiler_mod.ComputeProfiler(enabled=True)
+        return prof if prof.enabled else None
+    return None
+
+
+def _nbytes(*trees) -> int:
+    """Bytes of every tensor in ``trees`` (nested dicts, lists, tuples)."""
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_flatten(tree)[0] if torch.is_tensor(t))
 
 
 def make_train_step(
@@ -394,11 +446,17 @@ def make_train_step(
     * ``loss_fetch_steps`` (default ``HVD_LOSS_FETCH_STEPS``, 16) drives
       ``step.loss_fetcher``.
 
+    * ``profile`` (default ``HVD_PROFILE``) runs the compute-anatomy
+      profiler over its window (module docstring); ``step.profiler`` is
+      it (None when off), ``step.profile_losses`` the losses of the
+      profiled calls, read after their synced segments (each also sets
+      ``hvd_train_loss``).
+
     The returned loss is a tensor of its own on every call.
     ``step.eager`` is the same step run eagerly, never captured;
     ``step.calls`` counts the calls by kind (``eager``, ``capture``,
-    ``replay``).  A step built before :func:`core.reinit` raises on its
-    next call.
+    ``replay``; a profiled call is none of them).  A step built before
+    :func:`core.reinit` raises on its next call.
     """
     del has_batch_stats, autotune_log_file
     if compression is None:
@@ -406,7 +464,7 @@ def make_train_step(
     if two_level is None:
         two_level = use_two_level_default()
     _refuse_unported(autotune=autotune, profile_guided=profile_guided,
-                     profile=profile, donate=donate)
+                     donate=donate)
     if op != Adasum:
         collectives.reduce_op(op)  # an unknown op raises here
     # error feedback threads the residual on the fused path only; the
@@ -438,6 +496,7 @@ def make_train_step(
             env_util.HVD_LOSS_FETCH_STEPS, env_util.DEFAULT_LOSS_FETCH_STEPS)
     fetcher = TrailingLossFetcher(loss_fetch_steps)
     k = max(in_graph_steps, 1)
+    profiler = _profiler(profile)
 
     def _compute_loss(x, y):
         return loss_fn(apply_fn(x), y)
@@ -460,9 +519,26 @@ def make_train_step(
         return TrainState(params, opt_state, state.model_state,
                           state.step + 1, state.residual)
 
+    def _grads(state: TrainState, loss):
+        names = list(state.params)
+        return dict(zip(names, torch.autograd.grad(
+            loss, [state.params[n] for n in names])))
+
+    def _ensure_residual(state: TrainState, ef_on: bool) -> TrainState:
+        if ef_on and not tree_flatten(state.residual)[0]:
+            if k > 1:
+                raise ValueError(
+                    "error-feedback compression with in_graph_steps > "
+                    "1 needs an initialized residual — build the "
+                    "state with init_train_state(..., compression=...)")
+            state = state._replace(
+                residual=ErrorFeedback.init_state(state.params))
+        return state
+
     def build(comp, ef_on: bool) -> _CompiledStep:
         """The compiled step reducing with ``comp`` (error feedback when
-        ``ef_on``)."""
+        ``ef_on``), with its blocks as the profiler's segments
+        (``.segments``)."""
         def _reduce_grads(grads, residual):
             if two_level:
                 return _per_leaf(lambda g: two_level_allreduce(
@@ -487,27 +563,41 @@ def make_train_step(
 
         def per_rank_step(state: TrainState, x, y):
             loss = compute_loss(x, y)
-            names = list(state.params)
-            grads = dict(zip(names, torch.autograd.grad(
-                loss, [state.params[n] for n in names])))
-            grads = _reduce_grads(grads, state.residual)
+            grads = _reduce_grads(_grads(state, loss), state.residual)
             loss = collectives.allreduce(loss.detach(), op=Average)
             return _apply_update(state, grads), loss
 
         entry = scan_steps(per_rank_step, in_graph_steps)
 
         def with_residual(state: TrainState, x, y):
-            if ef_on and not tree_flatten(state.residual)[0]:
-                if k > 1:
-                    raise ValueError(
-                        "error-feedback compression with in_graph_steps > "
-                        "1 needs an initialized residual — build the "
-                        "state with init_train_state(..., compression=...)")
-                state = state._replace(
-                    residual=ErrorFeedback.init_state(state.params))
-            return entry(state, x, y)
+            return entry(_ensure_residual(state, ef_on), x, y)
 
-        return _CompiledStep(with_residual, k, calls)
+        # the profiler's segments: the same blocks, one at a time; the
+        # forward leaves the module's buffers (BatchNorm statistics) as
+        # it found them, as the reference's forward segment discards its
+        # new statistics
+        def forward(state, x, y):
+            with torch.no_grad(), _restoring(_module_buffers(),
+                                             contextlib.nullcontext()):
+                return _compute_loss(x, y)
+
+        def backward(state, x, y):
+            loss = compute_loss(x, y)
+            return loss.detach(), _grads(state, loss)
+
+        def grad_allreduce(state, loss, grads):
+            return (_reduce_grads(grads, state.residual),
+                    collectives.allreduce(loss, op=Average))
+
+        def optimizer_update(state, grads, loss):
+            return _apply_update(state, grads), loss
+
+        compiled = _CompiledStep(with_residual, k, calls)
+        compiled.segments = {"forward": forward, "backward": backward,
+                             "grad_allreduce": grad_allreduce,
+                             "optimizer_update": optimizer_update}
+        compiled.ef_on = ef_on
+        return compiled
 
     calls = {"eager": 0, "capture": 0, "replay": 0}
     box = {"compiled": build(compression, ef), "ef": ef, "calls": 0,
@@ -516,11 +606,34 @@ def make_train_step(
                                    env_util.DEFAULT_COMPRESSION_GUARD_STEPS)
     #: the guard's reads of the residual norm, its trips, the last norm
     guard = {"reads": 0, "trips": 0, "norm": None}
+    #: calls made (the step-cadence clock) and the last call's start
+    cadence = {"calls": 0, "last": 0.0}
+
+    def _record_step_metrics(x) -> None:
+        """The step cadence: the interval between successive calls
+        (``hvd_step_seconds`` and the ``step_seconds`` series), steps and
+        samples issued."""
+        now = time.perf_counter()
+        cadence["calls"] += 1
+        if cadence["last"]:
+            dt = now - cadence["last"]
+            metrics.STEP_SECONDS.observe(dt)
+            if _timeseries.on():
+                _timeseries.record(_timeseries.STEP_SECONDS, dt,
+                                   step=cadence["calls"])
+        cadence["last"] = now
+        metrics.STEPS_TOTAL.inc(k)
+        try:
+            metrics.SAMPLES_TOTAL.inc(int(x.shape[0]) * k)
+        except (AttributeError, IndexError, TypeError):
+            pass  # a batch without a leading dim: samples stay uncounted
 
     def _maybe_guard(state: TrainState) -> None:
         """Every ``guard_steps`` calls with error feedback on: one read of
-        the residual's norm (one sync, after the call); a divergence
-        rebuilds the step without compression."""
+        the residual's norm (one sync, after the call), exported as
+        ``hvd_compression_residual_norm``; a divergence rebuilds the step
+        without compression, counted and recorded as a
+        ``compression.fallback`` event."""
         if not box["ef"] or guard_steps <= 0:
             return
         box["calls"] += 1
@@ -529,6 +642,11 @@ def make_train_step(
         norm = residual_norm(state.residual)
         guard["reads"] += 1
         guard["norm"] = norm
+        if metrics.on():
+            metrics.COMPRESSION_RESIDUAL_NORM.set(norm)
+        if _timeseries.on():
+            _timeseries.record(_timeseries.RESIDUAL_NORM_SERIES, norm,
+                               step=cadence["calls"])
         if box["guard"] is None:
             box["guard"] = ErrorFeedbackGuard()
         if not box["guard"].observe(norm):
@@ -539,16 +657,106 @@ def make_train_step(
             "baseline — falling back to uncompressed allreduce; the "
             "residual stays as it was in TrainState.residual", norm,
             box["guard"].factor)
+        if metrics.on():
+            metrics.COMPRESSION_FALLBACKS.inc()
+        try:
+            from .observe import events as events_mod
+
+            events_mod.record_event(
+                "compression.fallback", severity="warning",
+                payload={"residual_norm": float(norm),
+                         "factor": box["guard"].factor,
+                         "step": cadence["calls"]})
+        except NotImplementedError:
+            raise
+        except Exception:  # noqa: BLE001 — recording is best-effort
+            pass
         box["ef"] = False
         box["compiled"] = build(Compression.none, False)
 
+    profile_losses: List[float] = []
+
+    def _profiled_step(state: TrainState, x, y):
+        """One call on the decomposed path: each block run and synced
+        under a profiler segment span, ``in_graph_steps`` times.  The
+        first profiled call of a build runs the chain once beforehand
+        with the state put back afterwards: the warm-up that keeps
+        first-run costs out of the spans, and the run whose FLOPs
+        (``FlopCounterMode``) and bytes each segment carries; the
+        segments' collectives are recorded in it, once, as the
+        reference records its separately traced segments."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        compiled = box["compiled"]
+        state = _ensure_residual(state, compiled.ef_on)
+        seg = compiled.segments
+        costs = getattr(compiled, "segment_costs", None)
+        if costs is None:
+            costs = compiled.segment_costs = {}
+            tensors = _state_tensors(state) + _module_buffers()
+            with _restoring(tensors, contextlib.nullcontext()), \
+                    metrics.traced_recording(True):
+
+                def prep(name, reads, *args):
+                    """Run segment ``name`` once under FlopCounterMode;
+                    its bytes are those of ``reads`` (what it reads of
+                    the state and its arguments) and of its outputs."""
+                    with FlopCounterMode(display=False) as counter:
+                        out = seg[name](*args)
+                    costs[name] = {"flops": counter.get_total_flops(),
+                                   "bytes": _nbytes(reads, out)}
+                    return out
+
+                model = (state.params, state.model_state, x, y)
+                prep("forward", model, state, x, y)
+                loss, grads = prep("backward", model, state, x, y)
+                grads, loss = prep("grad_allreduce",
+                                   (loss, grads, state.residual), state,
+                                   loss, grads)
+                prep("optimizer_update",
+                     (grads, state.params, state.opt_state), state, grads,
+                     loss)
+                from .timeline.profiler import _sync
+
+                _sync(loss)
+
+        def run(name, *args):
+            return profiler.run_segment(name, seg[name], *args,
+                                        flops=costs[name]["flops"],
+                                        nbytes=costs[name]["bytes"])
+
+        with profiler.step_span(), metrics.traced_recording(False):
+            for _ in range(k):
+                run("forward", state, x, y)
+                loss, grads = run("backward", state, x, y)
+                grads, loss = run("grad_allreduce", state, loss, grads)
+                state, loss = run("optimizer_update", state, grads, loss)
+        value = float(loss.item())  # synced already by its segment
+        profile_losses.append(value)
+        if metrics.on():
+            metrics.TRAIN_LOSS.set(value)
+        return state, loss.clone()
+
     def fetching(eager: bool) -> Callable:
         def call(state: TrainState, x, y):
-            compiled = box["compiled"]
-            state, loss = (compiled.eager if eager else compiled)(
-                state, x, y)
-            fetcher.push(loss)
+            if metrics.on():
+                _record_step_metrics(x)
+            # a call in the profiler's window takes the decomposed path,
+            # inside the same timeline STEP span as any other call
+            if profiler is not None and profiler.on_step():
+                run = _profiled_step
+            else:
+                compiled = box["compiled"]
+                run = compiled.eager if eager else compiled
+            if timeline.active:
+                timeline.record_step(owner="train_step")
+                timeline.mark_cycle_start()
+                with timeline.span("train_step", "STEP"):
+                    state, loss = run(state, x, y)
+            else:
+                state, loss = run(state, x, y)
             _maybe_guard(state)
+            fetcher.push(loss)
             return state, loss
 
         return call
@@ -558,6 +766,8 @@ def make_train_step(
     step.calls = calls
     step.loss_fetcher = fetcher
     step.guard = guard
+    step.profiler = profiler
+    step.profile_losses = profile_losses
     return step
 
 

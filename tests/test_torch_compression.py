@@ -218,7 +218,9 @@ def test_average_is_a_float_division_on_integer_and_fp8_wires():
 
 
 def test_uncompressed_fallback_is_counted():
-    before = port.FALLBACKS["uncompressed"]
+    from horovod_tpu_torch import metrics
+
+    before = metrics.COMPRESSION_FALLBACKS.get()
     port.Int8Compressor.compress_for(torch.ones(4), 100)
     port.FP8Compressor.compress_for(torch.ones(4), 100)
-    assert port.FALLBACKS["uncompressed"] == before + 1
+    assert metrics.COMPRESSION_FALLBACKS.get() == before + 1

@@ -190,3 +190,27 @@ def test_reinit_keeps_the_world_and_retires_what_was_built(port_cpu_world):
     assert state.step == 1 and torch.isfinite(loss)
     assert torch.equal(htt.allreduce(torch.ones(3), process_set=htt.
                                      ProcessSet([0])), torch.ones(3))
+
+
+def test_spmd_surface_thin_forms_match_the_reference_names(port_cpu_world,
+                                                           hvd_init):
+    """Where the reference's SPMD surface has a meaning in a
+    process-per-card world: the axis names, the world's 1-D mesh and the
+    (cross, local) mesh as DeviceMeshes (made once a world), and
+    ``in_spmd`` — False outside the reference's SPMD region too."""
+    import horovod_tpu_torch as htt
+
+    assert (htt.AXIS, htt.CROSS_AXIS, htt.LOCAL_AXIS) == \
+        (hvd.AXIS, hvd.CROSS_AXIS, hvd.LOCAL_AXIS)
+    assert htt.in_spmd() is hvd.in_spmd() is False
+    m = htt.mesh()
+    assert m.mesh_dim_names == hvd.mesh().axis_names == (htt.AXIS,)
+    assert tuple(m.shape) == (htt.size(),) and htt.mesh() is m
+    h = htt.hierarchical_mesh()
+    assert h.mesh_dim_names == hvd.hierarchical_mesh().axis_names
+    assert tuple(h.shape) == (htt.cross_size(), htt.local_size())
+    htt.reinit()
+    assert htt.mesh() is not m
+    for name in ("spmd", "rank_context", "sharded", "replicated",
+                 "put_per_rank", "get_per_rank"):
+        assert hasattr(hvd, name) and not hasattr(htt, name)

@@ -488,8 +488,10 @@ def test_gpt_benchmark_runs_on_cpu(monkeypatch):
             "--num-iters", "2", "--device", "cpu"]))
     finally:
         core.shutdown()
-    assert set(out) == {"seq_sec_per_chip", "mfu", "final_loss",
+    assert set(out) == {"seq_sec_per_chip", "mfu", "rates", "final_loss",
                         "step_calls"}
+    assert len(out["rates"]) == 2    # one per iteration
+    assert out["seq_sec_per_chip"] == pytest.approx(np.mean(out["rates"]))
     assert np.isfinite(out["final_loss"]) and out["seq_sec_per_chip"] > 0
     assert out["mfu"] is None     # no fraction of the card's peak on a CPU
 

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from horovod_tpu.parallel import hierarchical as ref
-from horovod_tpu_torch import core
+from horovod_tpu_torch import core, metrics
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.parallel import hierarchical as port
 
@@ -80,9 +80,9 @@ def test_group_lists_are_the_references_layout(world_of, monkeypatch):
 def test_world_of_one_reductions(world_of, op):
     x = torch.randn(7)
     np.testing.assert_array_equal(port.hierarchical_allreduce(x, op=op), x)
-    before = port.FALLBACKS["two_level"]
+    before = metrics.TWO_LEVEL_FALLBACKS.get()
     out = port.two_level_allreduce(x, op=op, compression=Compression.int8)
-    assert port.FALLBACKS["two_level"] == before + 1
+    assert metrics.TWO_LEVEL_FALLBACKS.get() == before + 1
     # one rank: the quantizer's whole range, int8 exact to half a step
     assert torch.allclose(out, x, atol=x.abs().max().item() / 127)
     np.testing.assert_array_equal(port.hierarchical_allgather(x[None]),

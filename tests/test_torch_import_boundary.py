@@ -76,7 +76,15 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.parallel.tensor_parallel",
               "horovod_tpu_torch.parallel.pipeline",
               "horovod_tpu_torch.parallel.moe",
-              "horovod_tpu_torch.examples.multichip_drives"):
+              "horovod_tpu_torch.examples.multichip_drives",
+              "horovod_tpu_torch.metrics",
+              "horovod_tpu_torch.metrics.registry",
+              "horovod_tpu_torch.metrics.timeseries",
+              "horovod_tpu_torch.observe.events",
+              "horovod_tpu_torch.runtime.native",
+              "horovod_tpu_torch.timeline.timeline",
+              "horovod_tpu_torch.timeline.recorder",
+              "horovod_tpu_torch.timeline.profiler"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -291,3 +299,32 @@ def test_frontend_subpackage_imports_the_top_level_torch():
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.ImportFrom) and node.level:
                 assert not any(a.name == "torch" for a in node.names), f
+
+
+def test_the_kernels_are_library_ops_with_flop_formulas():
+    """K1-K4 and K6-K10 are ``torch.library`` ops of the ``hvd``
+    namespace, with CPU (plain version) and CUDA (kernel)
+    implementations, a fake and a FLOP formula each — what make_fx and
+    FlopCounterMode see of them."""
+    from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+    import horovod_tpu_torch.ops.conv_bn  # noqa: F401
+    import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+    import horovod_tpu_torch.optim.fused_update  # noqa: F401
+
+    q = torch.randn(1, 2, 8, 16)
+    with FlopCounterMode(display=False) as counter:
+        torch.ops.hvd.flash_fwd(q, q, q, True, 0.25, 0, 0, True)
+        torch.ops.hvd.fused_update("sgd", torch.zeros(5), torch.ones(5),
+                                   None, None, None, 0.1, 0, 0, 0, 0, 0, 0)
+    pairs = 8 * 9 // 2
+    assert counter.get_total_flops() == 2 * 16 * 2 * 2 * pairs + 2 * 5
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "fused_update", "residual_relu", "relu_grad",
+                 "scale_bias_relu", "conv3x3_bn_relu", "conv3x3_stats",
+                 "conv3x3_plain"):
+        packet = getattr(torch.ops.hvd, name)
+        assert packet in flop_registry, name
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                packet.default.name(), key), (name, key)

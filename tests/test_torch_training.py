@@ -19,7 +19,8 @@ relative precision of their own.
 * MLP on 2 gloo processes against the reference on a 2-device mesh with
   the same global batch.
 * the synthetic benchmark's ``run`` on the CPU, and the knobs still
-  refused (autotune, profile-guided tuning, the profiler, donate=False).
+  refused (autotune, profile-guided tuning, donate=False); the profiler
+  (``profile=True``) runs, ``tests/test_torch_profiler.py``.
 * the wire tier in the step, world 1: int8 and bf16 compression with
   and without error feedback against the reference's step (losses and
   parameter changes to 1e-5, the residual to 1e-7 absolute: it is the
@@ -313,7 +314,7 @@ def test_trailing_loss_fetcher_reads_one_cadence_behind():
 @pytest.mark.parametrize("kw,env", [
     ({"autotune": True}, {}),
     ({"profile_guided": True}, {}),
-    ({}, {"HVD_PROFILE": "1"}),
+    ({}, {"HVD_AUTOTUNE_PROFILE_GUIDED": "1"}),
     ({"donate": False}, {}),
 ])
 def test_unported_knobs_raise(monkeypatch, kw, env):
@@ -322,6 +323,31 @@ def test_unported_knobs_raise(monkeypatch, kw, env):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
                                  optimizer=fused_sgd(0.1), **kw)
+
+
+@pytest.mark.parametrize("how", ["argument", "env"])
+def test_profile_runs_instead_of_raising(port_cpu_world, monkeypatch,
+                                         tmp_path, how):
+    """The compute-anatomy profiler is ported: ``profile=True`` (or
+    ``HVD_PROFILE=1``) builds a step whose window writes compute.json;
+    without a trace directory there is no profiler, as in the
+    reference."""
+    model = MLP(4, (3,))
+    kw = {"profile": True} if how == "argument" else {}
+    monkeypatch.setenv("HVD_PROFILE", "1")
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=fused_sgd(0.1), **kw)
+    assert step.profiler is None
+    monkeypatch.setenv("HVD_TRACE_DIR", str(tmp_path))
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=fused_sgd(0.1), **kw)
+    state = training.init_train_state(model, fused_sgd(0.1))
+    x, y = torch.ones(2, 4), torch.zeros(2, dtype=torch.long)
+    for _ in range(4):
+        state, loss = step(state, x, y)
+    assert step.profiler.anatomy["steps"] == 3
+    assert (tmp_path / "0" / "compute.json").exists()
+    assert state.step == 4 and np.isfinite(loss.item())
 
 
 def test_optax_optimizer_is_refused():
@@ -588,7 +614,7 @@ def test_one_rank_reductions_equal_the_default(port_cpu_world, monkeypatch,
     """At one rank Adasum is the identity, and the hierarchical and
     two-level reductions fall back to the flat one: the trajectory is
     the default step's, bit for bit."""
-    from horovod_tpu_torch.parallel import hierarchical
+    from horovod_tpu_torch import metrics
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -602,12 +628,12 @@ def test_one_rank_reductions_equal_the_default(port_cpu_world, monkeypatch,
                                         loss_fn=F.cross_entropy,
                                         optimizer=opt, **extra)
         state = training.init_train_state(model, opt)
-        before = hierarchical.FALLBACKS["two_level"]
+        before = metrics.TWO_LEVEL_FALLBACKS.get()
         for _ in range(2):
             state, loss = step(state, torch.from_numpy(x),
                                torch.from_numpy(y).long())
         runs.append((loss, dict(state.params),
-                     hierarchical.FALLBACKS["two_level"] - before))
+                     metrics.TWO_LEVEL_FALLBACKS.get() - before))
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[1][1])
     two_level = kw.get("two_level") or env

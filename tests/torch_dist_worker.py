@@ -396,9 +396,10 @@ def _task_wire(workdir: Path):
     from horovod_tpu_torch.ops.sparse import (
         IndexedSlices, allreduce_indexed_slices,
     )
+    from horovod_tpu_torch import metrics
     from horovod_tpu_torch.parallel.hierarchical import (
-        FALLBACKS, hierarchical_allgather, hierarchical_allreduce,
-        process_stage_plan, two_level_allreduce,
+        hierarchical_allgather, hierarchical_allreduce, process_stage_plan,
+        two_level_allreduce,
     )
 
     htt.init(device="cpu")
@@ -436,14 +437,15 @@ def _task_wire(workdir: Path):
     out["hier/average"] = hierarchical_allreduce(t["x"]).numpy()
     out["hier/sum"] = hierarchical_allreduce(t["x"], op=htt.Sum).numpy()
     out["hier/allreduce"] = htt.allreduce(t["x"], hierarchical=True).numpy()
-    before = FALLBACKS["two_level"]
+    before = metrics.TWO_LEVEL_FALLBACKS.get()
     out["two_level/int8"] = two_level_allreduce(
         t["x"], compression=Compression.int8).numpy()
     out["two_level/ef_int8"] = htt.allreduce(
         t["x"], compression=ErrorFeedback(Compression.int8),
         two_level=True).numpy()
     out["two_level/sum"] = two_level_allreduce(t["x"], op=htt.Sum).numpy()
-    out["two_level/fallbacks"] = np.asarray(FALLBACKS["two_level"] - before)
+    out["two_level/fallbacks"] = np.asarray(
+        metrics.TWO_LEVEL_FALLBACKS.get() - before)
     out["hier/allgather"] = hierarchical_allgather(t["x"][None]).numpy()
     out["hier/plan"] = np.asarray([[s.peers for s in process_stage_plan()]])
     # sparse slices, alone and inside a tree with a residual
@@ -902,6 +904,57 @@ def nested_flax(flat: dict, prefix: str = "") -> dict:
     return nested
 
 
+def snapshot_samples(registry, skip=()) -> dict:
+    """``{family: [(labels, value or count)]}`` of a metrics registry's
+    families with samples, but those in ``skip``: names, labels, values
+    — a histogram by its count only (its sum and bucket placement are
+    timings)."""
+    import json
+
+    out = {}
+    for name, fam in registry.snapshot()["metrics"].items():
+        if not fam["samples"] or name in skip:
+            continue
+        key = "count" if fam["type"] == "histogram" else "value"
+        out[name] = sorted((json.dumps(s["labels"], sort_keys=True), s[key])
+                           for s in fam["samples"])
+    return out
+
+
+def eager_drive(eager, frontend, rank: int) -> None:
+    """The eager drive of the trace tests, the same calls on either
+    package (the reference's eager plane and torch frontend take these
+    numpy arrays and torch tensors as the port's do)."""
+    import torch
+
+    a = np.arange(6, dtype=np.float32).reshape(2, 3) + rank
+    eager.process_allreduce(a, name="grad.a")
+    eager.process_allreduce(a.astype(np.float64), op="Sum", name="grad.b")
+    eager.process_allgather(a[:1 + rank], name="rows")
+    frontend.allreduce(torch.from_numpy(a), name="allreduce.w")
+    frontend.allreduce(torch.from_numpy(a), name="allreduce.w", op="Max")
+    frontend.join()
+
+
+def _task_trace(workdir: Path):
+    """:func:`eager_drive` with the timeline on (``<workdir>/trace``):
+    this rank's metrics (:func:`snapshot_samples`, as JSON); its
+    ``comm.json`` and ``metrics.json`` are left in the trace dir."""
+    import json
+
+    os.environ["HVD_TIMELINE"] = str(workdir / "trace")
+    import horovod_tpu_torch as htt
+    import horovod_tpu_torch.torch as frontend
+    from horovod_tpu_torch import eager, metrics
+
+    htt.init(device="cpu")
+    metrics.registry.reset()
+    eager_drive(eager, frontend, htt.rank())
+    out = {"metrics": json.dumps(snapshot_samples(metrics.registry))}
+    htt.shutdown()
+    return out
+
+
 def _task_fail(workdir: Path):
     """Rank 1 fails before it joins; rank 0 waits for it in init."""
     import horovod_tpu_torch as htt
@@ -916,7 +969,7 @@ TASKS = {"core": _task_core, "fail": _task_fail, "fusion": _task_fusion,
          "train_mlp": _task_train_mlp, "collectives": _task_collectives,
          "wire": _task_wire, "train_wire": _task_train_wire,
          "ring": _task_ring, "tp": _task_tp, "pp": _task_pp,
-         "moe": _task_moe, "drives": _task_drives,
+         "moe": _task_moe, "drives": _task_drives, "trace": _task_trace,
          "sp_bench_gpt": lambda w: _task_sp_bench(w, "gpt"),
          "sp_bench_bert": lambda w: _task_sp_bench(w, "bert")}
 
