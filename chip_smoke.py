@@ -225,6 +225,39 @@ Phases, each printing one JSON line:
    the capture (its segments' ms a step); and the host µs of a K2 launch
    through its wrapper, as the training path calls it and through the
    op ``hvd::flash_fwd`` (run after gpt_main_path).
+28. autotune — the tuners through the train step's rebuild seam (a
+   rebuild is a new CUDA-graph capture).  (a) GPT-2 small (b 4, s 1024,
+   bf16, flash K2-K4, K1 Adam) through ``make_train_step(autotune=True)``
+   (``HVD_AUTOTUNE_COMPUTE`` unset; AUTOTUNE_ENV: one warm-up sample,
+   then a sample every AUTOTUNE_SPS calls), each call synced, until the
+   GP has scored AUTOTUNE_SCORED distinct fusion thresholds.  Checks:
+   one capture for each knob signature built, each build's calls eager,
+   capture, then replays; each captured graph's 2 traced replays launch
+   K1 once a step and K2-K4 12 times a step; launches issued by the
+   eager and captured calls alone; the memory allocated after the last
+   capture within AUTOTUNE_MEMORY_SHARE of after the first (each rebuild
+   releases the old graph and its pool); the losses equal, call by call,
+   those of the same run with autotune off (a difference is reported
+   with its knobs and held to GPT_LOSS_RTOL, the graphed-vs-eager
+   limit).  Prints the thresholds visited and the GP's scores, each
+   build's host ms (eager call plus capture), and the synced seq/s of
+   the first and the last build.  (b) ResNet-50 (b 128, bf16,
+   ``fused_sgd`` momentum with ``fused_optimizer=False``), its host
+   batches from a seeded numpy generator through ``prefetch_to_device``,
+   with ``HVD_TRACE_DIR``, ``HVD_PROFILE=1`` (calls PG_PROFILE) and
+   ``HVD_AUTOTUNE_PROFILE_GUIDED=1`` (windows of PG_WINDOW calls), cuDNN
+   deterministic: the tuner measures its baseline, takes the profiler's
+   anatomy, applies the ``fused_optimizer`` plan through the rebuild and
+   verifies it or rolls it back.  Checks: the plan equals
+   ``compute_plans_from_anatomy``'s for the measured anatomy; K1 0 a step
+   in the first graph's traced replays and 1 in the plan's (issued: 0
+   and 1 by each build's eager and capture calls); the losses finite and
+   within the parity limits of the same run on the per-leaf path alone;
+   the first batches prefetched equal the host batches, copied on the
+   prefetcher's own stream; ``analyze(trace_dir, last_steps=1)`` on the
+   card's trace.  Prints the tuner's history (predicted against realized
+   speedup), the critical path's split of the step and the simulator's
+   ranked scenarios (run after trace_plane).
 
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
@@ -252,7 +285,9 @@ then a kernels line of K6-K10, and prints no last line.
 and 24, gpt_main_path, 25, bert_adasum and 26, then a kernels line of
 K5, and prints no last line.  ``--trace-plane-only`` runs the device and
 build phases, gpt_main_path and trace_plane (without the frontend's
-untraced rate), and prints no last line.
+untraced rate), and prints no last line.  ``--autotune-only`` runs the
+device, build, gpt_main_path and autotune phases, and prints no last
+line.
 """
 
 import contextlib
@@ -4214,6 +4249,399 @@ def phase_trace_plane(htt, kernels, fa, card, none, frontend_rate) -> None:
           "k2_host_us_per_launch": _op_host_us(kernels, fa), "card": card})
 
 
+# ---------------------------------------------------------------------------
+# the tuners on the card (phase 28)
+# ---------------------------------------------------------------------------
+#: where the autotune phase writes its GP log and its trace
+AUTOTUNE_DIR = Path(__file__).resolve().parent / "build" / "autotune"
+#: the GP's settings in autotune (a): one warm-up sample, a sample every
+#: AUTOTUNE_SPS calls, no freezing inside the run
+AUTOTUNE_SPS = 5
+AUTOTUNE_ENV = {"HVD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HVD_AUTOTUNE_STEPS_PER_SAMPLE": str(AUTOTUNE_SPS),
+                "HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "100"}
+#: distinct fusion thresholds the GP must have scored
+AUTOTUNE_SCORED = 3
+#: memory allocated after the last capture against after the first
+AUTOTUNE_MEMORY_SHARE = 0.05
+#: autotune (b): the profile-guided loop's windows (calls), the
+#: profiler's window (calls; after the first graph's traced replays),
+#: the calls driven, the host batches cycled and the ones checked
+PG_WINDOW = 9
+PG_PROFILE = (5, 6)
+PG_CALLS = 26
+PG_HOST_BATCHES = 3
+
+
+def _builds_calls(step) -> list:
+    return [dict(b["calls"]) for b in step.builds]
+
+
+def _ran(step, before: list):
+    """``(build, kind)`` of the call made since ``before``
+    (``_builds_calls``): the build whose own counter moved, and how it
+    ran; a profiled call moves none (``None, "profiled"``)."""
+    for i, b in enumerate(step.builds):
+        prev = before[i] if i < len(before) else dict.fromkeys(b["calls"], 0)
+        for kind, n in b["calls"].items():
+            if n != prev[kind]:
+                return i, kind
+    return None, "profiled"
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, benchmark mode off, inside."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+
+
+def _gpt_tuning_run(htt, kernels, autotune: bool, calls: int = None):
+    """GPT-2 small (b 4, s 1024, bf16, flash K2-K4, K1 Adam) through
+    ``make_train_step(autotune=autotune)``, one synced call at a time:
+    with the GP on, until it has scored AUTOTUNE_SCORED thresholds (2
+    replays of each new graph traced after its capture), else ``calls``
+    calls.  Returns the calls (kind, build, host ms, loss, memory after
+    a capture), the traces, the step and the GP's log rows."""
+    from horovod_tpu_torch.models import gpt2_small, next_token_loss
+
+    log_file = AUTOTUNE_DIR / "gpt_autotune.csv"
+    log_file.unlink(missing_ok=True)
+    model = on_card(gpt2_small, dtype=torch.bfloat16, max_len=1024)
+    opt = htt.fused_adam(1e-4)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1000, size=(4, 1024))).cuda()
+    step = htt.make_train_step(apply_fn=model, loss_fn=next_token_loss,
+                               optimizer=opt, autotune=autotune,
+                               autotune_log_file=str(log_file),
+                               loss_fetch_steps=0)
+    state = htt.init_train_state(model, opt)
+    rows, traces, scored = [], [], []
+    while True:
+        before = _builds_calls(step)
+        t0 = time.perf_counter()
+        state, loss = step(state, ids, ids)
+        value = loss.item()
+        build, kind = _ran(step, before)
+        row = {"kind": kind, "build": build,
+               "host_ms": (time.perf_counter() - t0) * 1e3, "loss": value}
+        rows.append(row)
+        if row["kind"] == "capture":
+            row["memory_allocated"] = torch.cuda.memory_allocated()
+            if autotune:
+                state, loss, _, spans = trace_replays(
+                    f"autotune: build {build}", kernels, step, state,
+                    (ids, ids), TRACED_CALLS)
+                traces.append((build, spans))
+                rows += [{"kind": "replay", "build": build, "traced": True,
+                          "loss": None}] * TRACED_CALLS
+        if autotune:
+            scored = [r.split(",") for r in
+                      log_file.read_text().splitlines()[1:]] \
+                if log_file.exists() else []
+            if len({r[1] for r in scored}) >= AUTOTUNE_SCORED:
+                break
+            if len(rows) > 12 * AUTOTUNE_SPS:
+                fail(f"autotune: the GP scored {scored} in {len(rows)} calls")
+        elif len(rows) >= calls:
+            break
+    return rows, traces, step, state, scored
+
+
+def _autotune_gpt(htt, kernels) -> dict:
+    """autotune (a): see the module docstring, phase 28."""
+    what = "autotune (a)"
+    reset_counts(kernels)
+    with env_vars(AUTOTUNE_ENV):
+        rows, traces, step, state, scored = _gpt_tuning_run(htt, kernels,
+                                                            True)
+    flash = dict(kernels.flash_launches)
+    k1 = kernels.launch_totals(kernels.fused_update_launches)
+    pm = step.parameter_manager
+    builds = step.builds
+    sigs = [(b["threshold"], b["hierarchical"]) for b in builds]
+    # one capture a knob signature that ran twice, and no more
+    per_build = {}
+    for r in rows:
+        per_build.setdefault(r["build"], []).append(r["kind"])
+    for b, kinds in per_build.items():
+        if kinds[:2] != ["eager", "capture"] or \
+                any(k != "replay" for k in kinds[2:]):
+            fail(f"{what}: build {b} {sigs[b]} ran {kinds}")
+    captured = [sigs[b] for b in per_build]
+    if step.calls["capture"] != len(per_build) or \
+            len(set(captured)) != len(captured):
+        fail(f"{what}: {step.calls['capture']} captures for the knob "
+             f"signatures {captured}")
+    # each captured graph: K1 once a step, K2-K4 12 times, in 2 replays
+    want = {key: n * TRACED_CALLS for key, n in
+            step_trace(flash=12).items()}
+    for b, spans in traces:
+        if trace_launches(spans) != want:
+            fail(f"{what}: build {b}'s replays hold {trace_launches(spans)}"
+                 f", want {want}")
+    issued = step.calls["eager"] + step.calls["capture"]
+    if k1 != {"sgd": 0, "momentum": 0, "adam": issued} or \
+            flash != flash_counts(kernels, GPT_BF16_FLASH, 12 * issued):
+        fail(f"{what}: launches issued K1 {k1}, K2-K4 {flash} over "
+             f"{issued} eager and captured calls")
+    mem = [r["memory_allocated"] for r in rows if r["kind"] == "capture"]
+    if abs(mem[-1] - mem[0]) > AUTOTUNE_MEMORY_SHARE * mem[0]:
+        fail(f"{what}: memory allocated after each capture {mem}")
+    # the same run untuned: its losses, call by call
+    plain_rows, _, plain, _, _ = _gpt_tuning_run(
+        htt, kernels, False, calls=len(rows))
+    if plain.calls != {"eager": 1, "capture": 1, "replay": len(rows) - 2} \
+            or len(plain_rows) != len(rows):
+        fail(f"{what}: the untuned run's calls {plain.calls}")
+    # call by call (a traced replay's loss is not read); a knob whose
+    # build changes a loss is held to the graphed-vs-eager limit
+    differ = [{"call": i + 1, "tuned": r["loss"], "untuned": p["loss"],
+               "knobs": sigs[r["build"]], "kind": r["kind"]}
+              for i, (r, p) in enumerate(zip(rows, plain_rows))
+              if r["loss"] is not None and r["loss"] != p["loss"]]
+    worst = max((abs(d["tuned"] - d["untuned"]) / abs(d["untuned"])
+                 for d in differ), default=0.0)
+    if worst > GPT_LOSS_RTOL or any(
+            not math.isfinite(r["loss"]) for r in rows
+            if r["loss"] is not None):
+        fail(f"{what}: losses differ from the untuned run's beyond the "
+             f"graphed-vs-eager limit {GPT_LOSS_RTOL}: {differ}")
+
+    def rate(build):
+        ms = [r["host_ms"] for r in rows if r["build"] == build and
+              r["kind"] == "replay" and not r.get("traced")]
+        return 4 / (statistics.median(ms) / 1e3) if ms else None
+
+    # the GP's own reading: a score is the gradient bytes over a synced
+    # call's seconds (the sample's median), so seq/s = 4 · score / bytes
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in state.params.values())
+    seq_sec = [4 * float(r[3]) / grad_bytes for r in scored]
+
+    rebuild_ms = {str(b): sum(r["host_ms"] for r in rows if r["build"] == b
+                              and r["kind"] in ("eager", "capture"))
+                  for b in per_build}
+    return {"calls": len(rows), "step_calls": dict(step.calls),
+            "knob_signatures": [list(s) for s in captured],
+            "gp_scores": [{"threshold": int(r[1]),
+                           "hierarchical": bool(int(r[2])),
+                           "score_bytes_per_sec": float(r[3])}
+                          for r in scored],
+            "rebuild_host_ms_eager_plus_capture": rebuild_ms,
+            "capture_host_ms": [r["host_ms"] for r in rows
+                                if r["kind"] == "capture"],
+            "memory_allocated_after_capture": mem,
+            "seq_sec_before_tuning": seq_sec[0],
+            "seq_sec_best_scored": max(seq_sec),
+            "seq_sec_synced_replays_first_build": rate(0),
+            "seq_sec_synced_replays_last_build": rate(max(per_build)),
+            "losses_bit_equal_untuned": not differ,
+            "loss_differences": differ[:8], "loss_max_rel_diff": worst,
+            "trace_per_graph": want, "frozen": pm.frozen}
+
+
+def _resnet_pg_run(htt, kernels, host, tuned: bool):
+    """ResNet-50 (b 128, bf16, fused_sgd momentum on the per-leaf path)
+    for PG_CALLS calls, its batches through prefetch_to_device; tuned:
+    with the trace, the profiler and the profile-guided loop (the first
+    graph's and each new graph's 2 replays traced after its capture).
+    Returns the calls, the traces, the step and the prefetcher."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.data.loader import prefetch_to_device
+    from horovod_tpu_torch.models import ResNet50
+
+    model = on_card(ResNet50, dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    opt = htt.fused_sgd(0.01, momentum=0.9)
+    step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                               optimizer=opt, has_batch_stats=True,
+                               fused_optimizer=False, loss_fetch_steps=0,
+                               profile_guided=tuned)
+    state = htt.init_train_state(model, opt, has_batch_stats=True)
+
+    def batches():
+        for i in range(PG_CALLS):
+            yield host[i % len(host)]
+
+    it = prefetch_to_device(batches(), 2)
+    rows, traces, checked = [], [], 0
+    pending = iter(it)
+    while True:
+        try:
+            x, y = next(pending)
+        except StopIteration:
+            break
+        i = len(rows)
+        if checked < PG_HOST_BATCHES and tuned:
+            hx, hy = host[i % len(host)]
+            if not (torch.equal(x.cpu(), torch.from_numpy(hx))
+                    and torch.equal(y.cpu(), torch.from_numpy(hy))):
+                fail(f"autotune (b): prefetched batch {i} differs from the "
+                     "host batch")
+            checked += 1
+        before = _builds_calls(step)
+        k1_before = sum(kernels.fused_update_launches.values())
+        state, loss = step(state, x, y)
+        build, kind = _ran(step, before)
+        rows.append({"kind": kind, "build": build,
+                     "loss": loss.item(), "k1_issued": sum(
+                         kernels.fused_update_launches.values()) - k1_before,
+                     "phase": step.profile_guided_tuner.phase
+                     if tuned else None})
+        if tuned and rows[-1]["kind"] == "capture" and \
+                len(rows) + TRACED_CALLS <= PG_CALLS:
+            # the next calls, on their own batches, traced: replays that
+            # issue no launch of their own
+            batches_ = [next(pending) for _ in range(TRACED_CALLS)]
+            before, issued = dict(step.calls), host_launches(kernels)
+
+            def run(st=state):
+                losses = []
+                for bx, by in batches_:
+                    st, out = step(st, bx, by)
+                    losses.append(out)
+                return st, losses
+
+            (state, losses), _, spans = profiled(run)
+            if step.calls != {**before,
+                              "replay": before["replay"] + TRACED_CALLS} \
+                    or host_launches(kernels) != issued:
+                fail(f"autotune (b): build {build}'s traced calls "
+                     f"{before} -> {step.calls}")
+            traces.append((build, spans))
+            rows += [{"kind": "replay", "build": build, "loss": t.item(),
+                      "traced": True} for t in losses]
+    return rows, traces, step, it, checked
+
+
+def _autotune_resnet(htt, kernels) -> dict:
+    """autotune (b): see the module docstring, phase 28."""
+    import shutil
+
+    from horovod_tpu_torch.optim.compute_knobs import (
+        KNOB_FUSED_OPTIMIZER, compute_plans_from_anatomy,
+    )
+    from horovod_tpu_torch.timeline.replay import analyze
+    from horovod_tpu_torch.timeline.timeline import timeline
+
+    what = "autotune (b)"
+    trace_dir = AUTOTUNE_DIR / "resnet"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    host = [(rng.random((128, 224, 224, 3), dtype=np.float32),
+             rng.integers(0, 1000, size=128).astype(np.int64))
+            for _ in range(PG_HOST_BATCHES)]
+    env = {"HVD_TRACE_DIR": str(trace_dir), "HVD_PROFILE": "1",
+           "HVD_PROFILE_START_STEP": str(PG_PROFILE[0]),
+           "HVD_PROFILE_END_STEP": str(PG_PROFILE[1]),
+           "HVD_AUTOTUNE_PROFILE_GUIDED": "1",
+           "HVD_AUTOTUNE_WINDOW_STEPS": str(PG_WINDOW)}
+    reset_counts(kernels)
+    with deterministic_cudnn(), env_vars(env):
+        # the world is up already: open the timeline as init would
+        timeline.initialize()
+        rows, traces, step, it, checked = _resnet_pg_run(htt, kernels,
+                                                         host, True)
+        timeline.shutdown()
+    tuner = step.profile_guided_tuner
+    anatomy = step.profiler.anatomy
+    if it.stream is None or it.stream == torch.cuda.default_stream() or \
+            checked != PG_HOST_BATCHES:
+        fail(f"{what}: the batches were copied on {it.stream}, "
+             f"{checked} checked")
+    history = tuner.history
+    outcomes = [h["outcome"] for h in history]
+    if outcomes not in (["applied", "verified"],
+                        ["applied", "rolled_back"]):
+        fail(f"{what}: the tuner's history {history}")
+    want = compute_plans_from_anatomy(
+        anatomy, exclude=("loss_fetch_steps",), fused_available=True)
+    applied = {k: history[0][k] for k in (
+        "compute", "predicted_step_us", "baseline_step_us",
+        "predicted_speedup_pct")}
+    if not want or applied != {k: want[0].to_dict()[k] for k in applied} \
+            or applied["compute"] != {KNOB_FUSED_OPTIMIZER: True}:
+        fail(f"{what}: applied {applied}, the planner gives "
+             f"{[p.to_dict() for p in want]}")
+    fused = [b["fused"] for b in step.builds]
+    if fused != ([False, True] if outcomes[1] == "verified"
+                 else [False, True, False]):
+        fail(f"{what}: builds {step.builds}")
+    # K1: none a step in the first graph, one in the plan's
+    trace_k1 = {b: trace_launches(spans)["K1"] / TRACED_CALLS
+                for b, spans in traces}
+    issued_k1 = {}
+    for r in rows:
+        if r["kind"] in ("eager", "capture"):
+            issued_k1.setdefault(r["build"], []).append(r["k1_issued"])
+    if trace_k1.get(0) != 0 or trace_k1.get(1) != 1 or \
+            issued_k1.get(0) != [0, 0] or issued_k1.get(1) != [1, 1]:
+        fail(f"{what}: K1 a step in the graphs' traces {trace_k1}, issued "
+             f"by the builds' eager and capture calls {issued_k1}")
+    # the per-leaf run: the same losses, call by call, to the card's
+    # parity limits (the switch to K1 changes no value)
+    with deterministic_cudnn():
+        plain_rows, _, plain, _, _ = _resnet_pg_run(htt, kernels, host,
+                                                    False)
+    pairs = [(r["loss"], p["loss"]) for r, p in zip(rows, plain_rows)
+             if r["loss"] is not None]
+    if len(plain_rows) != len(rows) or any(
+            not math.isfinite(a) or abs(a - b) > PARITY_RTOL * abs(b)
+            + PARITY_ATOL for a, b in pairs):
+        fail(f"{what}: losses against the per-leaf run {pairs}")
+    result = analyze(str(trace_dir), last_steps=1)
+    last = result.summary["steps"][-1]
+    return {
+        "calls": [r["kind"] + ("*" if r.get("traced") else "")
+                  for r in rows],
+        "profile_window": list(PG_PROFILE), "window_steps": PG_WINDOW,
+        "history": history, "planner": [p.to_dict() for p in want],
+        "anatomy_segments_us_per_step": {
+            k: v["per_step_us"] for k, v in anatomy["segments"].items()},
+        "anatomy_step_us": anatomy["wall_us"] / anatomy["steps"],
+        "k1_per_step_traced": {str(b): v for b, v in trace_k1.items()},
+        "losses_bit_equal_per_leaf": all(a == b for a, b in pairs),
+        "loss_max_abs_diff": max(abs(a - b) for a, b in pairs),
+        "prefetch": {"stream": str(it.stream), "checked": checked},
+        "replay": {"step": last["step"],
+                   "measured_step_us": last["measured_step_us"],
+                   "replay_step_us": last["replay_step_us"],
+                   "critical_path": last["critical_path"],
+                   "attribution": last["attribution"]["per_rank"],
+                   "scenarios": [[s["scenario"], s["speedup_pct"]] for s
+                                 in last["what_if"]["scenarios"]]},
+        "fusion_plan": tuner.plan.to_dict() if tuner.plan is not None and
+        tuner.plan.buckets else None}
+
+
+def phase_autotune(htt, kernels, card) -> None:
+    """The tuners through the rebuild seam (module docstring, phase
+    28): (a) the GP on GPT-2 small, (b) the profile-guided compute tier
+    on ResNet-50."""
+    AUTOTUNE_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    gpt = _autotune_gpt(htt, kernels)
+    t1 = time.perf_counter()
+    resnet = _autotune_resnet(htt, kernels)
+    emit({"phase": "autotune", "world_size": htt.size(),
+          "gpt": {"model": "gpt2_small", "batch": 4, "seq_len": 1024,
+                  "dtype": "bfloat16", "seconds": t1 - t0, **gpt},
+          "resnet": {"model": "ResNet50", "batch": 128, "dtype": "bfloat16",
+                     "optimizer": "fused_sgd(0.01, momentum=0.9), per leaf "
+                     "until the plan", "seconds": time.perf_counter() - t1,
+                     **resnet},
+          "card": card})
+
+
 #: where the kernels line's launches come from
 LAUNCHES_NOTE = (
     f"counted by name in the CUPTI trace of the last {TRACED_CALLS} "
@@ -4284,6 +4712,9 @@ def main() -> None:
     ap.add_argument("--trace-plane-only", action="store_true",
                     help="run the device and build phases, gpt_main_path "
                          "and trace_plane")
+    ap.add_argument("--autotune-only", action="store_true",
+                    help="run the device and build phases, gpt_main_path "
+                         "and autotune")
     ap.add_argument("--model-parallel-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K5 and model parallelism (ring_kernels, "
@@ -4333,6 +4764,11 @@ def main() -> None:
         phase_trace_plane(htt, kernels, fa, card, gpt_none, None)
         htt.shutdown()
         return
+    if cli.autotune_only:
+        phase_gpt_main_path(htt, kernels, card)
+        phase_autotune(htt, kernels, card)
+        htt.shutdown()
+        return
     if cli.model_parallel_only:
         results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
                                             card)
@@ -4363,6 +4799,7 @@ def main() -> None:
     flash, gpt_trace, gpt_none = phase_gpt_main_path(htt, kernels, card)
     phase_trace_plane(htt, kernels, fa, card, gpt_none,
                       frontend_rates["plain"])
+    phase_autotune(htt, kernels, card)
     k1_launches["adam"] = gpt_trace["k1"]["adam"]
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]

@@ -1,0 +1,560 @@
+"""Online autotuning of communication knobs via Bayesian optimization:
+the port of ``horovod_tpu/optim/autotune.py``.
+
+Re-design of the reference autotuner (horovod/common/parameter_manager.cc/.h:
+joint Bayesian optimization of fusion-threshold + cycle-time plus
+categorical hierarchical-allreduce/allgather/cache flags, scored by
+bytes/sec, warmup-discard + steps-per-sample batching, winning params
+synced to all ranks; GP + expected-improvement machinery in
+horovod/common/optim/{bayesian_optimization.cc, gaussian_process.cc}).
+
+The knobs are the **gradient bucket size** (ops/fusion.py threshold) and
+**hierarchical vs flat** allreduce, as in the JAX package.  Cycle time has
+no analog (no background negotiation loop on the hot path).  Re-tuning
+rebuilds the train step (``training.make_train_step``'s rebuild seam),
+whose CUDA graph is captured again: the compiled-world equivalent of the
+reference's "new parameters take effect next cycle".
+
+The native state machine (``csrc/autotune.cc``, bound by
+``runtime/native.py``) is preferred where ``g++`` builds it; the NumPy
+implementation is its fallback and test oracle.
+
+Pure NumPy GP (RBF kernel + jitter, Cholesky solves) — no SciPy needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..utils import env as env_util
+from ..utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+class GaussianProcessRegressor:
+    """RBF-kernel GP regression (reference optim/gaussian_process.cc)."""
+
+    def __init__(self, length_scale: float = 1.0, noise: float = 1e-6,
+                 signal_var: float = 1.0):
+        self.length_scale = length_scale
+        self.noise = noise
+        self.signal_var = signal_var
+        self._x: Optional[np.ndarray] = None
+        self._y: Optional[np.ndarray] = None
+        self._chol: Optional[np.ndarray] = None
+        self._alpha: Optional[np.ndarray] = None
+
+    def _kernel(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+        return self.signal_var * np.exp(-0.5 * d2 / self.length_scale ** 2)
+
+    def fit(self, x: np.ndarray, y: np.ndarray) -> None:
+        x = np.atleast_2d(np.asarray(x, np.float64))
+        y = np.asarray(y, np.float64).reshape(-1)
+        self._ymean = y.mean() if y.size else 0.0
+        self._ystd = y.std() if y.size and y.std() > 0 else 1.0
+        yn = (y - self._ymean) / self._ystd
+        k = self._kernel(x, x) + self.noise * np.eye(len(x))
+        self._chol = np.linalg.cholesky(k)
+        self._alpha = np.linalg.solve(
+            self._chol.T, np.linalg.solve(self._chol, yn)
+        )
+        self._x, self._y = x, yn
+
+    def predict(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        x = np.atleast_2d(np.asarray(x, np.float64))
+        if self._x is None:
+            return np.zeros(len(x)), np.ones(len(x))
+        ks = self._kernel(x, self._x)
+        mu = ks @ self._alpha
+        v = np.linalg.solve(self._chol, ks.T)
+        var = np.clip(
+            self.signal_var + self.noise - (v ** 2).sum(0), 1e-12, None
+        )
+        return mu * self._ystd + self._ymean, np.sqrt(var) * self._ystd
+
+
+def expected_improvement(mu: np.ndarray, sigma: np.ndarray,
+                         best: float, xi: float = 0.01) -> np.ndarray:
+    """EI acquisition (reference optim/bayesian_optimization.cc)."""
+    from math import erf, sqrt
+
+    z = (mu - best - xi) / np.maximum(sigma, 1e-12)
+    phi = np.exp(-0.5 * z ** 2) / np.sqrt(2 * np.pi)
+    Phi = 0.5 * (1.0 + np.vectorize(erf)(z / np.sqrt(2)))
+    return (mu - best - xi) * Phi + sigma * phi
+
+
+class BayesianOptimization:
+    """Sequential EI maximization over a normalized box with optional
+    categorical dimensions enumerated exhaustively.
+
+    Prior points (``observe_prior``) live on their own list because the
+    warm-start model scores in different units than live observations
+    (the α–β prior predicts comm-only bytes/sec; ``record_step`` scores
+    whole-step bytes/sec, compute included, typically orders of
+    magnitude smaller).  Mixing them raw would let the prior win every
+    argmax and make real measurements unable to override the model.
+    ``set_prior_scale`` anchors the prior into live units (the
+    ParameterManager sets it from the first live sample); until the
+    scale is known, priors are used alone (scale cancels in an argmax
+    over priors only) and dropped from any mix with live data."""
+
+    def __init__(self, bounds: Sequence[Tuple[float, float]],
+                 noise: float = 1e-3, seed: int = 0):
+        self.bounds = np.asarray(bounds, np.float64)
+        self.gp = GaussianProcessRegressor(length_scale=0.3, noise=noise)
+        self.xs: List[np.ndarray] = []
+        self.ys: List[float] = []
+        self.prior_xs: List[np.ndarray] = []
+        self.prior_ys: List[float] = []
+        self.prior_scale: Optional[float] = None
+        self._rng = np.random.default_rng(seed)
+
+    def _norm(self, x):
+        lo, hi = self.bounds[:, 0], self.bounds[:, 1]
+        return (np.asarray(x, np.float64) - lo) / np.maximum(hi - lo, 1e-12)
+
+    def _denorm(self, u):
+        lo, hi = self.bounds[:, 0], self.bounds[:, 1]
+        return lo + np.asarray(u) * (hi - lo)
+
+    def _merged(self) -> Tuple[List[np.ndarray], List[float]]:
+        if self.prior_ys and (self.prior_scale is not None or not self.ys):
+            s = self.prior_scale if self.prior_scale is not None else 1.0
+            return (self.prior_xs + self.xs,
+                    [y * s for y in self.prior_ys] + self.ys)
+        return self.xs, self.ys
+
+    def _refit(self) -> None:
+        xs, ys = self._merged()
+        if xs:
+            self.gp.fit(np.stack(xs), np.asarray(ys))
+
+    def observe(self, x, y: float) -> None:
+        self.xs.append(self._norm(x))
+        self.ys.append(float(y))
+        self._refit()
+
+    def observe_prior(self, x, y: float) -> None:
+        self.prior_xs.append(self._norm(x))
+        self.prior_ys.append(float(y))
+        self._refit()
+
+    def prior_at(self, x) -> Optional[float]:
+        """Raw (unscaled) prior value at the prior point nearest ``x`` —
+        the anchor the ParameterManager rescales against."""
+        if not self.prior_xs:
+            return None
+        u = self._norm(x)
+        d = [float(((u - p) ** 2).sum()) for p in self.prior_xs]
+        return self.prior_ys[int(np.argmin(d))]
+
+    def set_prior_scale(self, s: float) -> None:
+        self.prior_scale = float(s)
+        self._refit()
+
+    def suggest(self, n_candidates: int = 256):
+        xs, ys = self._merged()
+        if len(xs) < 2:
+            return self._denorm(self._rng.uniform(size=len(self.bounds)))
+        cand = self._rng.uniform(size=(n_candidates, len(self.bounds)))
+        mu, sigma = self.gp.predict(cand)
+        ei = expected_improvement(mu, sigma, max(ys))
+        return self._denorm(cand[int(np.argmax(ei))])
+
+    def best(self):
+        # Live observations only: the prior scale anchors ONE point into
+        # live units, so elsewhere on the curve a scaled prior can still
+        # outrank every real measurement — the final argmax must never
+        # pin a never-measured model prediction (priors shape suggest()'s
+        # EI, nothing more).  Priors alone are the fallback when nothing
+        # was measured at all.
+        xs, ys = (self.xs, self.ys) if self.ys else self._merged()
+        if not xs:
+            return None, None
+        i = int(np.argmax(ys))
+        return self._denorm(xs[i]), ys[i]
+
+
+@dataclass
+class TunableParams:
+    """The knob set (reference ParameterManager's tunables, translated).
+
+    The GP encoding is split in two, and the split is part of the
+    contract:
+
+    * :meth:`as_vector` — the CONTINUOUS dimensions only (today: log2 of
+      the fusion threshold).  Categorical flags are deliberately NOT
+      encoded here: an RBF kernel over a {0,1} coordinate would smear
+      observations across categories that share nothing.
+    * :meth:`category` — the categorical coordinates
+      (``hierarchical_allreduce`` plus the compute knobs below), which
+      select WHICH per-category GP an observation lands in (the
+      reference enumerates categorical combinations the same way).  A
+      flipped flag therefore always maps to a different GP; it can
+      never silently share one.
+
+    **Compute knobs** (the compute tier, optim/compute_knobs.py):
+    ``fused_optimizer`` selects the flat fused update kernel over the
+    per-leaf optax traversal (optim/fused_update.py) and
+    ``remat_policy`` rematerializes the loss closure
+    (none/full/dots).  Both default to ``None`` = *knob absent*: a job
+    whose optimizer isn't fusable (or that never opts into remat) keeps
+    exactly the legacy ``(hierarchical,)`` category key, so pre-compute
+    GP state and tests are untouched.  A non-None value appends a
+    ``(name, value)`` coordinate — distinct per value, so flipping
+    ``fused_optimizer`` can never share observations with any other
+    category's fusion-threshold GP.
+
+    ``fusion_plan`` pins an explicit profile-guided plan
+    (optim/profile_guided.py FusionPlanSpec): while set, the plan's
+    bucket vector (and its ``compute`` knob dict) overrides the scalar
+    knobs in the training step's rebuild, and the GP loop is paused
+    (the planner owns the knobs).
+    """
+
+    fusion_threshold_bytes: int = env_util.DEFAULT_FUSION_THRESHOLD_BYTES
+    hierarchical_allreduce: bool = False
+    fused_optimizer: Optional[bool] = None
+    remat_policy: Optional[str] = None
+    fusion_plan: Optional[object] = None
+
+    #: dimension inventory backing the split (documentation + tests)
+    CONTINUOUS_DIMS = ("fusion_threshold_bytes",)
+    CATEGORICAL_DIMS = ("hierarchical_allreduce", "fused_optimizer",
+                        "remat_policy")
+
+    def as_vector(self) -> np.ndarray:
+        # log2 of threshold in MB-ish units for a smooth GP landscape;
+        # continuous dims ONLY — see the class docstring
+        return np.array([np.log2(max(self.fusion_threshold_bytes, 1024))],
+                        np.float64)
+
+    def category(self) -> Tuple:
+        """The per-category-GP key (one GP per value of this tuple).
+        Absent (None) compute knobs contribute no coordinate — the key
+        stays backward compatible with the comm-only era."""
+        cat: list = [bool(self.hierarchical_allreduce)]
+        if self.fused_optimizer is not None:
+            cat.append(("fused_optimizer", bool(self.fused_optimizer)))
+        if self.remat_policy is not None:
+            cat.append(("remat_policy", str(self.remat_policy)))
+        return tuple(cat)
+
+
+class ParameterManager:
+    """Collects per-step (bytes, time) scores and tunes the knobs.
+
+    Mirrors the reference flow (parameter_manager.cc): discard
+    ``warmup_samples``, average ``steps_per_sample`` steps per observation,
+    observe score = bytes/sec, move to the next suggestion; after
+    ``bayes_opt_max_samples`` observations, freeze at the best.  The
+    categorical hierarchical flag is handled by running a separate GP per
+    category (the reference enumerates categorical combinations the same
+    way).  ``on_update(params)`` fires when the active knobs change so the
+    training step can rebuild its fusion plan (a new capture).
+    """
+
+    def __init__(
+        self,
+        *,
+        enabled: Optional[bool] = None,
+        warmup_samples: Optional[int] = None,
+        steps_per_sample: Optional[int] = None,
+        max_samples: Optional[int] = None,
+        log_file: Optional[str] = None,
+        on_update: Optional[Callable[[TunableParams], None]] = None,
+        tune_hierarchical: bool = True,
+        tune_fused_optimizer: bool = False,
+        tune_remat: bool = False,
+        initial: Optional[TunableParams] = None,
+    ):
+        self.enabled = enabled if enabled is not None else \
+            env_util.get_bool(env_util.HVD_AUTOTUNE)
+        self.warmup_samples = warmup_samples if warmup_samples is not None \
+            else env_util.get_int(env_util.HVD_AUTOTUNE_WARMUP_SAMPLES, 3)
+        self.steps_per_sample = steps_per_sample if steps_per_sample is not None \
+            else env_util.get_int(env_util.HVD_AUTOTUNE_STEPS_PER_SAMPLE, 10)
+        # resolved AFTER the category rotation is built (below): the
+        # default budget is per-category, so opting into the compute
+        # dims doesn't silently starve every GP
+        self._max_samples_arg = max_samples
+        noise = env_util.get_float(
+            env_util.HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE, 0.8
+        )
+        self.log_file = log_file or env_util.get_str(env_util.HVD_AUTOTUNE_LOG)
+        self.on_update = on_update
+
+        # log2(threshold bytes) in [log2(1MB), log2(256MB)]; one GP per
+        # categorical combination (TunableParams.category) — the
+        # explicit split a flipped flag can't cross
+        self._noise = noise
+        self.current = initial if initial is not None else TunableParams()
+        # proposal rotation: the product of every TUNED dim's settings,
+        # untuned dims pinned at the initial value — an untuned flag
+        # must never be flipped by the rotation (tune_hierarchical=False
+        # with hierarchical=True would otherwise alternate the flag
+        # every sample, rebuilding and overriding the caller's pin).
+        # Compute knobs only enter the product when explicitly tuned
+        # (tune_fused_optimizer / tune_remat) — a knob a job can't
+        # apply (no FusedOptimizer) must stay pinned at None/absent.
+        import itertools
+
+        hier_vals = [False, True] if tune_hierarchical \
+            else [bool(self.current.hierarchical_allreduce)]
+        fused_vals = [False, True] if tune_fused_optimizer \
+            else [self.current.fused_optimizer]
+        # "none" (not None) when tuned: None means *knob absent* and
+        # would read as "leave unchanged" at the training rebuild seam.
+        # The current value always joins the rotation — a caller pinned
+        # to a custom policy must stay reachable, not be overridden by
+        # the first proposal and lost from every category.
+        remat_vals = list(dict.fromkeys(
+            ["none", "full", "dots", self.current.remat_policy or "none"])) \
+            if tune_remat else [self.current.remat_policy]
+        self._category_knobs: List[dict] = [
+            {"hierarchical_allreduce": h, "fused_optimizer": f,
+             "remat_policy": r}
+            for h, f, r in itertools.product(hier_vals, fused_vals,
+                                             remat_vals)
+        ]
+        self._categories: List[Tuple] = [
+            TunableParams(**k).category() for k in self._category_knobs
+        ]
+        # normalize the INITIAL params onto the rotation's coordinates:
+        # with a compute dim tuned, an absent (None) knob would key an
+        # orphan category no proposal ever revisits — the first
+        # (default-config) observation must land in the rotation's
+        # matching category, not start that category cold
+        if tune_fused_optimizer and self.current.fused_optimizer is None:
+            self.current = dataclasses.replace(self.current,
+                                               fused_optimizer=False)
+        if tune_remat and self.current.remat_policy is None:
+            self.current = dataclasses.replace(self.current,
+                                               remat_policy="none")
+        self._bo = {
+            cat: BayesianOptimization([(20.0, 28.0)], noise=noise, seed=17 + i)
+            for i, cat in enumerate(self._categories)
+        }
+        self._knobs_by_cat = dict(zip(self._categories,
+                                      self._category_knobs))
+        # the sample budget scales with the rotation (default 10 real
+        # observations per category — the 2-category comm-only default
+        # stays exactly the reference's 20): freezing 8+ categories on
+        # a fixed global 20 would leave ~2 noisy samples each
+        if self._max_samples_arg is not None:
+            self.max_samples = self._max_samples_arg
+        else:
+            self.max_samples = env_util.get_int(
+                env_util.HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, 0) \
+                or 10 * len(self._categories)
+        self._cat_idx = 0
+        self._plan_prev_frozen: Optional[bool] = None
+        self._samples_seen = 0
+        self._warmup_left = self.warmup_samples
+        self._step_scores: List[float] = []
+        self.frozen = not self.enabled
+        self._log_header_written = False
+
+        # Prefer the native state machine (csrc/autotune.cc — the analog of
+        # the reference's C++ parameter_manager + optim/ GP); the NumPy
+        # implementation above stays as the fallback and the test oracle.
+        # Compute-knob rotations stay on the python path: the native
+        # machine's category table predates them.
+        self._native = None
+        self._native_lib = None
+        if self.enabled and not env_util.get_bool(
+                env_util.HVD_AUTOTUNE_PYTHON) \
+                and not (tune_fused_optimizer or tune_remat):
+            try:
+                from ..runtime import native
+
+                self._native_lib = native.load()
+                self._native = self._native_lib.hvd_tuner_create(
+                    20.0, 28.0, float(self.current.as_vector()[0]),
+                    len(self._categories), float(noise),
+                    int(self.warmup_samples), int(self.steps_per_sample),
+                    int(self.max_samples), 17,
+                )
+            except Exception as e:  # noqa: BLE001
+                log.warning("native autotuner unavailable (%s); python path", e)
+                self._native = None
+
+    # -- scoring ------------------------------------------------------------
+    def record_step(self, nbytes: float, seconds: float) -> None:
+        """Feed one training step's communication volume and duration
+        (reference scores bytes/sec over all tensors in the cycle)."""
+        if self.frozen:
+            return
+        if seconds <= 0:
+            return
+        if self._native is not None:
+            changed = self._native_lib.hvd_tuner_record(
+                self._native, float(nbytes), float(seconds)
+            )
+            if changed:
+                x = self._native_lib.hvd_tuner_x(self._native)
+                cat = self._native_lib.hvd_tuner_category(self._native)
+                self._set_params(self._params_for(
+                    self._categories[cat], int(2 ** float(x))))
+                self._log(self._native_lib.hvd_tuner_last_score(self._native))
+            if self._native_lib.hvd_tuner_frozen(self._native):
+                self.frozen = True
+                log.info(
+                    "autotune frozen (native): threshold=%d hierarchical=%s "
+                    "(score %.3g)", self.current.fusion_threshold_bytes,
+                    self.current.hierarchical_allreduce,
+                    self._native_lib.hvd_tuner_best_score(self._native),
+                )
+            return
+        self._step_scores.append(nbytes / seconds)
+        if len(self._step_scores) >= self.steps_per_sample:
+            self._finish_sample()
+
+    def _finish_sample(self) -> None:
+        score = float(np.median(self._step_scores))
+        self._step_scores = []
+        if self._warmup_left > 0:
+            self._warmup_left -= 1
+            return
+        # the observation lands in the GP selected by the CURRENT params'
+        # categorical coordinates — not by loop position, so a flag that
+        # moved out-of-band still scores against its own surface (an
+        # unseen category gets its own GP without joining the proposal
+        # rotation — scoring must never start flipping an untuned flag)
+        cat = self.current.category()
+        bo = self._bo.get(cat)
+        if bo is None:
+            bo = self._bo[cat] = BayesianOptimization(
+                [(20.0, 28.0)], noise=self._noise, seed=17 + len(self._bo))
+            # remember the out-of-band knob values so _freeze can map
+            # this category's best back to concrete params
+            self._knobs_by_cat[cat] = {
+                k: getattr(self.current, k)
+                for k in TunableParams.CATEGORICAL_DIMS}
+        if bo.prior_ys and bo.prior_scale is None:
+            # anchor the warm-start prior into live units: the model's
+            # prediction at the point we just measured is declared equal
+            # to the measurement, so the prior contributes its SHAPE but
+            # can never outrank reality by unit mismatch alone.  One
+            # scale for every category (same score_fn units).
+            ref = bo.prior_at(self.current.as_vector())
+            if ref and ref > 0 and score > 0:
+                for b in self._bo.values():
+                    b.set_prior_scale(score / ref)
+        bo.observe(self.current.as_vector(), score)
+        self._log(score)
+        self._samples_seen += 1
+        if self._samples_seen >= self.max_samples:
+            self._freeze()
+            return
+        # round-robin categories; suggest next threshold within category
+        self._cat_idx = (self._cat_idx + 1) % len(self._categories)
+        nxt_cat = self._categories[self._cat_idx]
+        vec = self._bo[nxt_cat].suggest()
+        self._set_params(self._params_for(nxt_cat, int(2 ** float(vec[0]))))
+
+    def _params_for(self, cat: Tuple, threshold: int) -> TunableParams:
+        """Concrete params for one category key + threshold, preserving
+        any pinned knob values the key doesn't encode."""
+        knobs = self._knobs_by_cat.get(cat) or {
+            k: getattr(self.current, k)
+            for k in TunableParams.CATEGORICAL_DIMS}
+        return TunableParams(fusion_threshold_bytes=threshold, **knobs)
+
+    def _freeze(self) -> None:
+        best_cat, best_vec, best_y = None, None, -np.inf
+        for cat, bo in self._bo.items():
+            vec, y = bo.best()
+            if y is not None and y > best_y:
+                best_cat, best_vec, best_y = cat, vec, y
+        if best_vec is not None:
+            self._set_params(self._params_for(
+                best_cat, int(2 ** float(best_vec[0]))))
+        self.frozen = True
+        log.info("autotune frozen: threshold=%d hierarchical=%s (score %.3g)",
+                 self.current.fusion_threshold_bytes,
+                 self.current.hierarchical_allreduce, best_y)
+
+    # -- profile-guided seams ------------------------------------------------
+    def warm_start(self, score_fn: Callable[[TunableParams], float],
+                   n_points: int = 8) -> int:
+        """Seed every per-category GP with ``score_fn``'s predicted score
+        over a threshold grid (optim/profile_guided.py feeds the α–β
+        model's bytes/sec here), so Bayesian exploration starts near the
+        simulator's predicted optimum instead of at a random draw.  Prior
+        points do NOT consume the ``max_samples`` budget — warm-started
+        runs converge in fewer real observations — and they live on the
+        GP's separate prior list: the first live sample anchors their
+        scale into measured units (comm-only model bytes/sec vs
+        whole-step live bytes/sec differ by orders of magnitude), so the
+        model contributes shape, never an unbeatable score.  Returns the
+        number of prior points injected."""
+        if self._native is not None:
+            log.info("autotune warm start: falling back to the python "
+                     "tuner (the native state machine takes no priors)")
+            self._native = None
+        injected = 0
+        for cat, bo in self._bo.items():
+            lo, hi = bo.bounds[0]
+            for x in np.linspace(lo, hi, n_points):
+                p = self._params_for(cat, int(2 ** float(x)))
+                try:
+                    y = float(score_fn(p))
+                except Exception as e:  # noqa: BLE001
+                    log.warning("warm start scorer failed at %s: %s", p, e)
+                    continue
+                if np.isfinite(y):
+                    bo.observe_prior(p.as_vector(), y)
+                    injected += 1
+        return injected
+
+    def apply_plan(self, plan) -> None:
+        """Pin an explicit profile-guided fusion plan: fires
+        ``on_update`` with the plan attached and pauses GP exploration
+        (the planner owns the knobs until :meth:`clear_plan`)."""
+        if self._plan_prev_frozen is None:
+            self._plan_prev_frozen = self.frozen
+        self.frozen = True
+        self._set_params(dataclasses.replace(self.current, fusion_plan=plan))
+
+    def clear_plan(self) -> None:
+        """Roll the pinned plan back to threshold bucketing; GP
+        exploration resumes in whatever state it was paused in."""
+        if self.current.fusion_plan is None:
+            return
+        self._set_params(dataclasses.replace(self.current, fusion_plan=None))
+        if self._plan_prev_frozen is not None:
+            self.frozen = self._plan_prev_frozen
+            self._plan_prev_frozen = None
+
+    def _set_params(self, p: TunableParams) -> None:
+        changed = (
+            p.fusion_threshold_bytes != self.current.fusion_threshold_bytes
+            or p.hierarchical_allreduce != self.current.hierarchical_allreduce
+            or p.fused_optimizer != self.current.fused_optimizer
+            or p.remat_policy != self.current.remat_policy
+            or p.fusion_plan is not self.current.fusion_plan
+        )
+        self.current = p
+        if changed and self.on_update:
+            self.on_update(p)
+
+    def _log(self, score: float) -> None:
+        if not self.log_file:
+            return
+        new = not os.path.exists(self.log_file) and not self._log_header_written
+        with open(self.log_file, "a") as f:
+            if new:
+                f.write("timestamp,fusion_threshold,hierarchical,score_bytes_per_sec\n")
+                self._log_header_written = True
+            f.write(f"{time.time()},{self.current.fusion_threshold_bytes},"
+                    f"{int(self.current.hierarchical_allreduce)},{score}\n")

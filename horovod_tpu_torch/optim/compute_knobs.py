@@ -1,0 +1,310 @@
+"""Compute-knob planning: per-block anatomy → applicable compute plans —
+the port of ``horovod_tpu/optim/compute_knobs.py``.
+
+The comm tier plans from the replay simulator (profile_guided.py:
+stitched DAG → bucket search → FusionPlanSpec).  The compute tier plans
+from the compute-anatomy profiler (timeline/profiler.py): each knob is
+priced against the per-block attribution it attacks, so the
+ProfileGuidedTuner can apply it through the same
+ParameterManager rebuild seam (a new capture of the step's CUDA graph), verify realized-vs-predicted against the
+same guard band, and roll it back on regression — per-block anatomy is
+the *scoring*, the whole-step window stays the *verification*.
+
+Knob models (deliberately simple α-style fractions, calibrated by the
+bench A/B rather than fitted):
+
+* ``fused_optimizer`` — the flat fused update (optim/fused_update.py)
+  replaces the per-leaf traversal; modeled to save
+  ``FUSED_UPDATE_SAVE_FRAC`` of the ``optimizer_update`` block's
+  per-step device time (the per-leaf path's overhead is dispatch + HBM
+  round-trips on small tensors, the reference's estimate of half the
+  block; the port's own reading on ResNet-50 is in PERF.md).
+* ``loss_fetch_steps`` — the trailing async loss fetch (training.py)
+  removes the per-step host sync; modeled to recover
+  ``ASYNC_GAP_SAVE_FRAC`` of the anatomy's measured host gap (the gap
+  that remains is input-pipeline, which the prefetch loader owns).
+
+A plan's ``predicted_step_us``/``baseline_step_us`` are priced against
+the ANATOMY's own step time; the tuner's verify step re-bases the
+absolute saving onto the measured window baseline exactly as it does
+for fusion plans, so an anatomy captured under the decomposed
+(profiled) step cannot inflate the expectation.
+
+:data:`COMPUTE_AUTOTUNE_EXPECTED` is the hand-computed fixture in the
+style of ``AUTOTUNE_EXPECTED`` (timeline/replay/fixture.py), derived
+from the profiler's own two-rank fixture (rank 0: 1000 µs steps,
+optimizer_update 50 µs/step, host gap 100 µs/step):
+
+========================  =======================================
+loss_fetch_steps plan     saves 0.9 × 100 = 90 µs → 910 µs, +9.0%
+fused_optimizer plan      saves 0.5 × 50  = 25 µs → 975 µs, +2.5%
+========================  =======================================
+
+:func:`check_fixture` recovers it exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+from ..utils import env as env_util
+from ..utils.logging import get_logger
+
+log = get_logger(__name__)
+
+#: knob names as they appear in ``FusionPlanSpec.compute`` and in the
+#: training step's rebuild seam (training.py ``_rebuild``)
+KNOB_FUSED_OPTIMIZER = "fused_optimizer"
+KNOB_LOSS_FETCH = "loss_fetch_steps"
+KNOB_REMAT = "remat_policy"
+
+#: fraction of the optimizer_update block the fused kernel is modeled
+#: to save (per-leaf dispatch + sub-tile HBM overhead)
+FUSED_UPDATE_SAVE_FRAC = 0.5
+#: fraction of the measured host gap the async loss fetch recovers
+ASYNC_GAP_SAVE_FRAC = 0.9
+#: don't propose a knob for less than this share of the step
+MIN_BLOCK_FRACTION = 0.01
+
+
+def compute_plans_from_anatomy(
+        anatomy: Optional[dict], *,
+        exclude: Sequence[str] = (),
+        fused_available: bool = True,
+        loss_fetch_steps: Optional[int] = None,
+        fused_save_frac: float = FUSED_UPDATE_SAVE_FRAC,
+        gap_save_frac: float = ASYNC_GAP_SAVE_FRAC) -> List:
+    """Ranked compute-knob plans for one rank's profiler anatomy
+    (``compute.json["anatomy"]`` / ``ComputeProfiler.anatomy``), best
+    predicted speedup first; ``[]`` when the anatomy is empty or every
+    applicable knob is excluded (already applied or condemned)."""
+    from .profile_guided import FusionPlanSpec
+
+    if not anatomy or not anatomy.get("steps"):
+        return []
+    steps = int(anatomy["steps"])
+    wall = float(anatomy.get("wall_us") or 0.0)
+    if wall <= 0.0 or steps <= 0:
+        return []
+    step_us = wall / steps
+    exclude = set(exclude)
+    plans: List[FusionPlanSpec] = []
+
+    gap_us = float((anatomy.get("host_gap") or {}).get("per_step_us", 0.0))
+    if KNOB_LOSS_FETCH not in exclude \
+            and gap_us / step_us >= MIN_BLOCK_FRACTION:
+        if loss_fetch_steps is None:
+            loss_fetch_steps = env_util.get_int(
+                env_util.HVD_LOSS_FETCH_STEPS,
+                env_util.DEFAULT_LOSS_FETCH_STEPS) or \
+                env_util.DEFAULT_LOSS_FETCH_STEPS
+        saved = gap_us * gap_save_frac
+        plans.append(FusionPlanSpec(
+            buckets=[],
+            compute={KNOB_LOSS_FETCH: int(loss_fetch_steps)},
+            predicted_step_us=step_us - saved,
+            baseline_step_us=step_us,
+            predicted_speedup_pct=saved / step_us * 100.0))
+
+    opt_us = float(((anatomy.get("segments") or {})
+                    .get("optimizer_update") or {}).get("per_step_us", 0.0))
+    if KNOB_FUSED_OPTIMIZER not in exclude and fused_available \
+            and opt_us / step_us >= MIN_BLOCK_FRACTION:
+        saved = opt_us * fused_save_frac
+        plans.append(FusionPlanSpec(
+            buckets=[],
+            compute={KNOB_FUSED_OPTIMIZER: True},
+            predicted_step_us=step_us - saved,
+            baseline_step_us=step_us,
+            predicted_speedup_pct=saved / step_us * 100.0))
+
+    plans.sort(key=lambda p: -p.predicted_speedup_pct)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# hand-computed fixture (the AUTOTUNE_EXPECTED style: numbers derived by
+# hand from the profiler fixture, recovered exactly by the planner)
+# ---------------------------------------------------------------------------
+COMPUTE_AUTOTUNE_EXPECTED: Dict[str, float] = {
+    # profiler fixture rank 0 (timeline/profiler.py PROFILE_EXPECTED):
+    # two 1000 µs steps, optimizer_update 50 µs/step, host gap 100 µs/step
+    "baseline_step_us": 1000.0,
+    "optimizer_update_us": 50.0,
+    "host_gap_us": 100.0,
+    # loss_fetch plan: 0.9 × 100 µs = 90 µs saved
+    "async_saved_us": 90.0,
+    "async_predicted_step_us": 910.0,
+    "async_speedup_pct": 9.0,
+    # fused_optimizer plan: 0.5 × 50 µs = 25 µs saved
+    "fused_saved_us": 25.0,
+    "fused_predicted_step_us": 975.0,
+    "fused_speedup_pct": 2.5,
+    # both applied: 885 µs — the end state the two-knob exploration
+    # converges to
+    "combined_step_us": 885.0,
+}
+
+
+def compute_fixture_anatomy() -> dict:
+    """Rank 0's anatomy from the compute-anatomy profiler's own
+    hand-computed fixture — the corpus the planner's pinned numbers
+    above are derived from."""
+    from ..timeline.profiler import (
+        PROFILE_GAP_THRESHOLD_US, PROFILE_HBM_BYTES_PER_SEC,
+        PROFILE_PEAK_FLOPS, profile_fixture_events, reduce_trace_events,
+    )
+
+    return reduce_trace_events(
+        profile_fixture_events(0),
+        peak_flops=PROFILE_PEAK_FLOPS,
+        hbm_bytes_per_sec=PROFILE_HBM_BYTES_PER_SEC,
+        gap_threshold_us=PROFILE_GAP_THRESHOLD_US)
+
+
+def check_fixture() -> bool:
+    """Planner-vs-hand-computed self-test."""
+    exp = COMPUTE_AUTOTUNE_EXPECTED
+    plans = compute_plans_from_anatomy(compute_fixture_anatomy())
+    ok = len(plans) == 2
+    ok = ok and KNOB_LOSS_FETCH in plans[0].compute
+    ok = ok and abs(plans[0].predicted_step_us
+                    - exp["async_predicted_step_us"]) < 1e-6
+    ok = ok and abs(plans[0].predicted_speedup_pct
+                    - exp["async_speedup_pct"]) < 1e-6
+    ok = ok and plans[1].compute == {KNOB_FUSED_OPTIMIZER: True}
+    ok = ok and abs(plans[1].predicted_step_us
+                    - exp["fused_predicted_step_us"]) < 1e-6
+    ok = ok and abs(plans[1].predicted_speedup_pct
+                    - exp["fused_speedup_pct"]) < 1e-6
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# the bench fixture: fused+async ON vs OFF on the current (CPU) mesh
+# ---------------------------------------------------------------------------
+def run_bench_fixture(*, steps: int = 40, batch_per_rank: int = 8,
+                      dim: int = 64, classes: int = 8,
+                      host_delay_s: float = 0.003,
+                      profile_steps: int = 6,
+                      clock=None) -> dict:
+    """The compute-path A/B: the SAME tiny MLP job twice on the current
+    world — baseline (per-leaf update, synchronous loader, a
+    ``loss.item()`` sync every step) vs optimized (the fused update
+    kernel, 2-deep device prefetch, trailing loss fetch) — plus a
+    profiler window on the optimized path for the ``host_gap_pct``
+    number.  An injected per-batch host delay (``host_delay_s``) stands
+    in for a real input pipeline so the prefetch overlap is measurable.
+    Losses must match to float32 tolerance (the fused update is the only
+    numeric delta, and it is expression-identical to the per-leaf one).
+    ``clock`` (default ``time.perf_counter``) times the two drives.
+    Initializes the world on this process's device when it is not up."""
+    import os
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from .. import core
+    from ..data.loader import prefetch_to_device
+    from ..models.mlp import MLP
+    from ..training import init_train_state, make_train_step
+    from .fused_update import fused_sgd
+
+    clock = clock or time.perf_counter
+    if not core.is_initialized():
+        core.init()
+    device = core.device()
+    rng = np.random.default_rng(7)
+    x_host = rng.normal(size=(batch_per_rank, dim)).astype(np.float32)
+    y_host = rng.integers(0, classes, size=(batch_per_rank,)).astype(
+        np.int64)
+
+    def model_and_opt():
+        model = MLP(dim, (32, classes),
+                    generator=torch.Generator().manual_seed(0))
+        opt = fused_sgd(0.05, momentum=0.9)
+        return model, opt, init_train_state(model, opt, device=device)
+
+    def batches():
+        for _ in range(steps):
+            time.sleep(host_delay_s)       # the injected host pipeline
+            yield x_host, y_host
+
+    def drive(optimized: bool) -> dict:
+        model, opt, state = model_and_opt()
+        step = make_train_step(
+            apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+            fused_optimizer=optimized,
+            loss_fetch_steps=16 if optimized else 0,
+        )
+        it = prefetch_to_device(batches(), 2 if optimized else 0,
+                                device=device)
+        # build and warm outside the timed loop (both sides pay it
+        # equally)
+        warm = (torch.from_numpy(x_host).to(device),
+                torch.from_numpy(y_host).to(device))
+        for _ in range(2):
+            state, loss = step(state, *warm)
+        loss.item()
+        t0 = clock()
+        for bx, by in it:
+            state, loss = step(state, bx, by)
+            if not optimized:
+                # the per-step honesty sync the async pipeline removes
+                loss.item()
+        final = float(loss.item())
+        dt = clock() - t0
+        return {"img_sec": batch_per_rank * core.size() * steps / dt,
+                "final_loss": final}
+
+    base = drive(optimized=False)
+    opti = drive(optimized=True)
+
+    # host_gap_pct: the step's own decomposed profiler window over the
+    # optimized path (make_train_step's profile-from-env, the machinery
+    # a real job's HVD_PROFILE=1 uses)
+    host_gap_pct = None
+    keys = ("HVD_TIMELINE", "HVD_PROFILE", "HVD_PROFILE_START_STEP",
+            "HVD_PROFILE_END_STEP")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            os.environ.update({
+                "HVD_TIMELINE": td, "HVD_PROFILE": "1",
+                "HVD_PROFILE_START_STEP": "2",
+                "HVD_PROFILE_END_STEP": str(1 + profile_steps)})
+            model, opt, state = model_and_opt()
+            step = make_train_step(
+                apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+                fused_optimizer=True, loss_fetch_steps=16)
+            xs = torch.from_numpy(x_host).to(device)
+            ys = torch.from_numpy(y_host).to(device)
+            for _ in range(profile_steps + 2):
+                state, _ = step(state, xs, ys)
+            anatomy = step.profiler.finalize() \
+                if step.profiler is not None else None
+            if anatomy:
+                host_gap_pct = round(
+                    anatomy["host_gap"]["fraction"] * 100.0, 2)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    delta = (opti["img_sec"] - base["img_sec"]) / base["img_sec"] * 100.0
+    loss_diff = abs(opti["final_loss"] - base["final_loss"])
+    return {
+        "img_sec_baseline": round(base["img_sec"], 2),
+        "img_sec_optimized": round(opti["img_sec"], 2),
+        "compute_opt_delta_pct": round(delta, 2),
+        "host_gap_pct": host_gap_pct,
+        "loss_baseline": base["final_loss"],
+        "loss_optimized": opti["final_loss"],
+        "loss_max_abs_diff": loss_diff,
+        "loss_equal": bool(loss_diff <= 1e-5),
+    }

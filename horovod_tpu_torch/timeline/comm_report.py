@@ -1,0 +1,600 @@
+"""Collective-traffic report and the α–β link model: the port of
+``horovod_tpu/timeline/comm_report.py``.
+
+The reference's second headline metric is allreduce *scaling efficiency*
+(90% for ResNet-101 on 512 GPUs, reference README.rst:75-77), measured on
+a real cluster.  The stand-in is analytical: read the collectives one
+step issues and model the communication:compute ratio, the quantity
+scaling efficiency is made of.
+
+The model (:class:`TopologySpec`, the compression terms,
+:func:`predict_collective_us`, :func:`per_tensor_table`,
+:func:`model_scaling`) is the reference's, line for line; the replay
+what-ifs (``timeline/replay/simulator.py``), the projection and the GP
+warm start (``optim/profile_guided.py``) all price collectives through
+it.  The reference reads a step's collectives out of optimized HLO; the
+port has no HLO, so :func:`collective_report` reads the port's own step
+instead: the gradient buckets of ``ops/fusion.py`` (``FusionPlan``, one
+``all_reduce`` a bucket) and the collectives the step's capture recorded
+(``metrics.traced_recording``: the loss's all-reduce and any other
+``ops/collectives.py`` call).  It returns the reference's dict.
+
+**Link defaults** (one H100 per rank; none is measured here, the chip
+tool gives one card):
+
+* the intra-node tier — the reference's ``ici`` names, which stay the
+  API (``HVD_REPLAY_ICI_GBPS``, ``HVD_REPLAY_HOP_US``) — is NVLink 4:
+  900 GB/s of total bandwidth per H100 SXM (NVIDIA H100 Tensor Core GPU
+  data sheet), 450 GB/s in each direction, :data:`DEFAULT_ICI_BYTES_PER_SEC`;
+* the cross-node tier (``dcn``: ``HVD_REPLAY_DCN_GBPS``,
+  ``HVD_REPLAY_DCN_HOP_US``) is NDR InfiniBand, 400 Gb/s a port and one
+  ConnectX-7 port a GPU in a DGX H100 (NVIDIA DGX H100 data sheet):
+  50 GB/s, :data:`DEFAULT_DCN_BYTES_PER_SEC`;
+* the hop latencies are NCCL's own ring model (``src/graph/tuning.cc``,
+  ``hwLat``, ring algorithm, LL protocol): 0.6 µs a hop over NVLink
+  (:data:`DEFAULT_ICI_HOP_LATENCY`) and 2.7 µs a hop over the network
+  (:data:`DEFAULT_DCN_HOP_LATENCY`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+def _link_volume(op: str, nbytes: int, n: int) -> float:
+    """Bytes crossing the busiest link for one ring execution."""
+    if n <= 1:
+        return 0.0
+    if op == "all-reduce":
+        return 2.0 * (n - 1) / n * nbytes
+    if op in ("all-gather", "reduce-scatter"):
+        return (n - 1) / n * nbytes
+    if op == "broadcast":
+        return float(nbytes)        # pipelined ring bcast: full buffer
+    return float(nbytes)  # permute / all-to-all: one shard hop
+
+
+def _ring_hops(op: str, n: int) -> int:
+    """Serialized neighbor exchanges in a 1-D ring execution of ``op`` —
+    the latency (α) term's multiplier."""
+    if n <= 1:
+        return 0
+    if op == "all-reduce":
+        return 2 * (n - 1)          # reduce-scatter + all-gather phases
+    if op in ("all-gather", "reduce-scatter", "broadcast"):
+        return n - 1
+    return 1                        # permute / all-to-all: one exchange
+
+
+#: cost curves of the wire formats in ops/compression.py — the itemsize
+#: MUST agree with the compressors' ``wire_itemsize``.  ``qd_us_per_mib``
+#: models the quantize+dequantize kernel pair per MiB of *uncompressed*
+#: payload (bf16 is a pure cast; int8 adds round+clip on the VPU; fp8
+#: adds the float-format conversion); ``scale_exchange`` adds one scalar
+#: all-reduce's α per call (the per-tensor max-|x| agreement quantizers
+#: need — pure latency, the payload is one float).
+COMPRESSION_MODEL = {
+    "bf16": {"itemsize": 2, "qd_us_per_mib": 0.5, "scale_exchange": False},
+    "fp16": {"itemsize": 2, "qd_us_per_mib": 0.5, "scale_exchange": False},
+    "int8": {"itemsize": 1, "qd_us_per_mib": 1.0, "scale_exchange": True},
+    "fp8": {"itemsize": 1, "qd_us_per_mib": 1.5, "scale_exchange": True},
+    "fp8_e4m3": {"itemsize": 1, "qd_us_per_mib": 1.5,
+                 "scale_exchange": True},
+    "fp8_e5m2": {"itemsize": 1, "qd_us_per_mib": 1.5,
+                 "scale_exchange": True},
+}
+
+
+#: the cross-node (``dcn``) tier: NDR InfiniBand, 400 Gb/s a port, one
+#: port a GPU (NVIDIA DGX H100 data sheet); NCCL's ring network hop
+#: latency (tuning.cc ``hwLat``, ring, LL).  Override per job with
+#: HVD_REPLAY_DCN_GBPS / HVD_REPLAY_DCN_HOP_US
+DEFAULT_DCN_BYTES_PER_SEC = 50e9
+DEFAULT_DCN_HOP_LATENCY = 2.7e-6
+
+#: the intra-node (``ici``) tier: NVLink 4, 900 GB/s total per H100 SXM,
+#: 450 GB/s a direction (NVIDIA H100 data sheet); NCCL's ring NVLink hop
+#: latency (tuning.cc ``hwLat``, ring, LL).  The one place these
+#: constants live: the replay CostModel, the projection and the GP warm
+#: start read them from here
+DEFAULT_ICI_BYTES_PER_SEC = 450e9
+DEFAULT_ICI_HOP_LATENCY = 0.6e-6
+
+@dataclasses.dataclass(frozen=True)
+class TopologySpec:
+    """One communication topology — real or hypothetical — as the cost
+    model sees it: world size, the ICI/DCN tier split (``local_size``
+    ranks share an ICI domain; ``cross_size`` domains meet over DCN),
+    per-tier α–β parameters, and the wire-format policy (compression /
+    two-level) the runtime would run with.
+
+    This is the single source of topology assumptions: the
+    efficiency curves (:func:`model_scaling` / :func:`collective_report`),
+    the replay what-ifs (timeline/replay/simulator.py ``CostModel``), and
+    the digital-twin projection engine (timeline/replay/projection.py,
+    ``hvd_replay --project``) all price collectives through a spec, so a
+    docs table and a projection can never disagree on α–β/tier numbers.
+
+    ``two_level`` policy: ``"off"`` always prices the flat ring,
+    ``"on"`` prices the hierarchical shape whenever the topology
+    decomposes (degrading to flat exactly like the runtime), ``"auto"``
+    picks whichever the model says is cheaper — the choice a planner
+    would make.  ``flat_fabric`` picks the link the FLAT ring runs at:
+    ``"auto"`` uses DCN whenever the spec spans hosts (a flat ring runs
+    at its slowest link), ``"ici"`` pins the flat ring to the intra-node
+    link, the assumption :func:`model_scaling`'s curves are built on."""
+
+    world: int
+    local_size: int = 1
+    ici_bytes_per_sec: float = DEFAULT_ICI_BYTES_PER_SEC
+    ici_hop_latency_us: float = DEFAULT_ICI_HOP_LATENCY * 1e6
+    dcn_bytes_per_sec: float = DEFAULT_DCN_BYTES_PER_SEC
+    dcn_hop_latency_us: float = DEFAULT_DCN_HOP_LATENCY * 1e6
+    compression: Optional[str] = None
+    two_level: str = "off"              # "off" | "on" | "auto"
+    flat_fabric: str = "auto"           # "auto" | "ici"
+
+    @property
+    def cross_size(self) -> int:
+        """ICI domains meeting over DCN (1 when the spec doesn't
+        decompose — the whole world is one domain)."""
+        if self.local_size > 1 and self.world % self.local_size == 0:
+            return self.world // self.local_size
+        return 1
+
+    def two_level_possible(self) -> bool:
+        """Same decomposability rule the runtime's degrade uses
+        (parallel/hierarchical.py): >1 rank per ICI domain AND >1
+        domain."""
+        return (self.local_size > 1 and self.world % self.local_size == 0
+                and self.world // self.local_size > 1)
+
+    def spans_dcn(self) -> bool:
+        """True when the spec declares more than one host group — the
+        flat ring would cross DCN links."""
+        return self.cross_size > 1
+
+    def with_world(self, world: int) -> "TopologySpec":
+        return dataclasses.replace(self, world=int(world))
+
+    def _flat_params(self) -> Tuple[float, float]:
+        """(bytes_per_sec, hop_latency_seconds) the FLAT ring runs at."""
+        if self.flat_fabric != "ici" and self.spans_dcn():
+            return self.dcn_bytes_per_sec, self.dcn_hop_latency_us * 1e-6
+        return self.ici_bytes_per_sec, self.ici_hop_latency_us * 1e-6
+
+    def _flat_us(self, op: str, nbytes: int, *, calls: int = 1,
+                 compression: Optional[str] = None,
+                 orig_itemsize: int = 4) -> float:
+        bw, hop = self._flat_params()
+        return predict_collective_us(
+            op, nbytes, self.world, calls=calls,
+            ici_bytes_per_sec=bw, ici_hop_latency=hop,
+            compression=compression, orig_itemsize=orig_itemsize)
+
+    def _two_level_us(self, op: str, nbytes: int, *, calls: int = 1,
+                      compression: Optional[str] = None,
+                      orig_itemsize: int = 4) -> float:
+        return predict_collective_us(
+            op, nbytes, self.world, calls=calls,
+            ici_bytes_per_sec=self.ici_bytes_per_sec,
+            ici_hop_latency=self.ici_hop_latency_us * 1e-6,
+            compression=compression, orig_itemsize=orig_itemsize,
+            two_level=True, local_size=self.local_size,
+            dcn_bytes_per_sec=self.dcn_bytes_per_sec,
+            dcn_hop_latency=self.dcn_hop_latency_us * 1e-6)
+
+    def wire_choice(self, op: str, nbytes: int, *, calls: int = 1,
+                    compression: Optional[str] = None,
+                    orig_itemsize: int = 4) -> Tuple[str, float]:
+        """``(wire_format, predicted_us)`` under this spec's policy —
+        the decision the projection engine reports per collective.
+        ``wire_format`` is ``"flat"`` or ``"two_level"``, suffixed with
+        ``+<compression>`` when a wire format compresses."""
+        flat = self._flat_us(op, nbytes, calls=calls,
+                             compression=compression,
+                             orig_itemsize=orig_itemsize)
+        can_two = (op == "all-reduce" and self.two_level != "off"
+                   and self.two_level_possible())
+        if can_two:
+            two = self._two_level_us(op, nbytes, calls=calls,
+                                     compression=compression,
+                                     orig_itemsize=orig_itemsize)
+            if self.two_level == "on" or two < flat:
+                return self._tag("two_level", compression), two
+        return self._tag("flat", compression), flat
+
+    @staticmethod
+    def _tag(base: str, compression: Optional[str]) -> str:
+        return f"{base}+{compression}" if compression else base
+
+    def predict_us(self, op: str, nbytes: int, *, calls: int = 1,
+                   compression: Optional[str] = "__spec__",
+                   orig_itemsize: int = 4) -> float:
+        """α–β cost of ``op`` under this spec's wire policy (the
+        ``wire_choice`` price; ``compression`` defaults to the spec's
+        own, pass ``None`` to force uncompressed)."""
+        comp = self.compression if compression == "__spec__" else compression
+        return self.wire_choice(op, nbytes, calls=calls, compression=comp,
+                                orig_itemsize=orig_itemsize)[1]
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["cross_size"] = self.cross_size
+        return d
+
+    def describe(self) -> str:
+        s = f"world={self.world}"
+        if self.local_size > 1:
+            s += f" local={self.local_size}x{self.cross_size}"
+        if self.two_level != "off":
+            s += f" two_level={self.two_level}"
+        if self.compression:
+            s += f" compression={self.compression}"
+        return s
+
+
+def _compression_spec(compression):
+    if not compression or str(compression).lower() in ("none", "ef_none"):
+        return None
+    key = str(compression).lower()
+    if key.startswith("ef_"):
+        key = key[3:]               # error feedback rides the same wire
+    spec = COMPRESSION_MODEL.get(key)
+    if spec is None:
+        raise ValueError(
+            f"no cost curve for compression {compression!r}; known: "
+            f"{', '.join(sorted(COMPRESSION_MODEL))}")
+    return spec
+
+
+def compression_wire_ratio(compression, orig_itemsize: int = 4) -> float:
+    """Compressed-to-original wire-byte ratio for a payload of
+    ``orig_itemsize``-byte elements (never above 1 — compressing bf16 to
+    bf16 is free, not a doubling)."""
+    spec = _compression_spec(compression)
+    if spec is None:
+        return 1.0
+    return min(1.0, spec["itemsize"] / max(int(orig_itemsize), 1))
+
+
+def compression_overhead_us(nbytes: int, compression) -> float:
+    """Quantize+dequantize µs for ``nbytes`` of uncompressed payload."""
+    spec = _compression_spec(compression)
+    if spec is None:
+        return 0.0
+    return nbytes / 2**20 * spec["qd_us_per_mib"]
+
+
+def compression_scale_exchange(compression) -> bool:
+    spec = _compression_spec(compression)
+    return bool(spec and spec["scale_exchange"])
+
+
+def compression_terms_us(compression, nbytes: int, world: int,
+                         hop_latency_us: float,
+                         orig_itemsize: int = 4
+                         ) -> Tuple[float, float, float]:
+    """``(wire_ratio, qd_us, scale_alpha_us)`` — the three compression
+    cost terms every pricing site composes identically (the replay
+    CostModel's calibrated what-ifs and the projection engine; the
+    flat/two-level shapes inside :func:`predict_collective_us` inline
+    the same primitives).  One helper so a cost-curve change (a new
+    quantizer overhead term, a different scale-exchange shape) cannot
+    silently desync the pricing sites."""
+    spec = _compression_spec(compression)
+    if spec is None:
+        return 1.0, 0.0, 0.0
+    ratio = compression_wire_ratio(compression, orig_itemsize)
+    qd = compression_overhead_us(nbytes, compression)
+    scale = (_ring_hops("all-reduce", world) * hop_latency_us
+             if spec["scale_exchange"] else 0.0)
+    return ratio, qd, scale
+
+
+def predict_collective_us(
+    op: str,
+    nbytes: int,
+    world: int,
+    *,
+    calls: int = 1,
+    ici_bytes_per_sec: float = DEFAULT_ICI_BYTES_PER_SEC,
+    ici_hop_latency: float = DEFAULT_ICI_HOP_LATENCY,
+    compression: Optional[str] = None,
+    orig_itemsize: int = 4,
+    two_level: bool = False,
+    local_size: Optional[int] = None,
+    dcn_bytes_per_sec: Optional[float] = None,
+    dcn_hop_latency: Optional[float] = None,
+) -> float:
+    """α–β cost of ``calls`` ring executions of ``op`` moving ``nbytes``
+    total, in µs — THE cost model: ``collective_report``'s scaling
+    curves, the per-tensor table below, and the replay engine's what-if
+    simulator (timeline/replay/simulator.py) all call this one function,
+    so a what-if and the report can never disagree on predicted cost.
+
+    ``compression`` (a registry name from ops/compression.py) prices the
+    wire-efficiency tier: β shrinks by the wire-byte ratio, and the
+    quantize/dequantize overhead plus the quantizers' scalar scale
+    exchange (one α) are added — compression is NOT free, which is
+    exactly why the planner must rank it against fusion on one scale.
+
+    ``two_level=True`` (all-reduce only) prices the hierarchical shape
+    (parallel/hierarchical.py ``two_level_allreduce``): a local
+    reduce-scatter and all-gather on ICI at full precision, and the
+    cross-host all-reduce on the 1/local_size shard over the DCN link —
+    with ``compression`` applied to the cross stage only, where it is
+    applied in the real path.  Falls back to the flat shape when the
+    topology can't decompose (local_size unset/1, or not dividing
+    world) — mirroring the runtime's own degrade."""
+    spec = _compression_spec(compression)
+    ratio = compression_wire_ratio(compression, orig_itemsize)
+    scale_hops = _ring_hops("all-reduce", world) if spec \
+        and spec["scale_exchange"] else 0
+
+    if two_level and op == "all-reduce" and local_size \
+            and local_size > 1 and world % local_size == 0 \
+            and world // local_size > 1:
+        l, c = int(local_size), world // int(local_size)
+        dcn_bw = dcn_bytes_per_sec if dcn_bytes_per_sec is not None \
+            else DEFAULT_DCN_BYTES_PER_SEC
+        dcn_hop = dcn_hop_latency if dcn_hop_latency is not None \
+            else DEFAULT_DCN_HOP_LATENCY
+        shard = nbytes / l
+        t = (
+            # local reduce-scatter + all-gather, full precision on ICI
+            _link_volume("reduce-scatter", nbytes, l) / ici_bytes_per_sec
+            + _link_volume("all-gather", nbytes, l) / ici_bytes_per_sec
+            + calls * 2 * _ring_hops("reduce-scatter", l) * ici_hop_latency
+            # cross all-reduce on the (compressed) shard over DCN
+            + _link_volume("all-reduce", shard * ratio, c) / dcn_bw
+            + calls * _ring_hops("all-reduce", c) * dcn_hop
+            # quantize/dequantize the shard; scale exchange rides DCN
+            + compression_overhead_us(int(shard), compression) * 1e-6
+            + (calls * _ring_hops("all-reduce", c) * dcn_hop
+               if spec and spec["scale_exchange"] else 0.0)
+        )
+        return t * 1e6
+
+    t = (_link_volume(op, nbytes * ratio, world) / ici_bytes_per_sec
+         + calls * _ring_hops(op, world) * ici_hop_latency
+         + compression_overhead_us(nbytes, compression) * 1e-6
+         + calls * scale_hops * ici_hop_latency)
+    return t * 1e6
+
+
+def per_tensor_table(
+    tensors: Dict[str, Dict[str, Any]],
+    world: int,
+    *,
+    measured_us: Optional[Dict[str, float]] = None,
+    ici_bytes_per_sec: float = DEFAULT_ICI_BYTES_PER_SEC,
+    ici_hop_latency: float = DEFAULT_ICI_HOP_LATENCY,
+) -> Dict[str, Dict[str, Any]]:
+    """Per-tensor cost table: ``tensors`` maps tensor name ->
+    ``{"op", "bytes", "calls"}`` (``calls`` defaults to 1) and the result
+    adds ``predicted_us`` from :func:`predict_collective_us` plus, when a
+    ``measured_us`` map is given (e.g. comm-span durations out of a
+    merged trace), ``measured_us`` and ``model_error_pct`` — the
+    prediction-vs-reality check that tells you whether a what-if built on
+    this model is trustworthy for that tensor."""
+    measured_us = measured_us or {}
+    table: Dict[str, Dict[str, Any]] = {}
+    for name, d in tensors.items():
+        op = str(d.get("op", "all-reduce"))
+        nbytes = int(d.get("bytes", 0) or 0)
+        calls = int(d.get("calls", 1) or 1)
+        row: Dict[str, Any] = {
+            "op": op,
+            "bytes": nbytes,
+            "calls": calls,
+            "predicted_us": round(predict_collective_us(
+                op, nbytes, world, calls=calls,
+                ici_bytes_per_sec=ici_bytes_per_sec,
+                ici_hop_latency=ici_hop_latency), 3),
+        }
+        if name in measured_us:
+            m = float(measured_us[name])
+            row["measured_us"] = round(m, 3)
+            if m > 0:
+                row["model_error_pct"] = round(
+                    (row["predicted_us"] - m) / m * 100.0, 1)
+        table[name] = row
+    return table
+
+
+def model_scaling(
+    cols: Dict[str, Dict[str, int]],
+    t_compute: Optional[float],
+    *,
+    sizes=(8, 16, 32, 64),
+    ici_bytes_per_sec: float = DEFAULT_ICI_BYTES_PER_SEC,
+    ici_hop_latency: float = DEFAULT_ICI_HOP_LATENCY,
+    compression: Optional[str] = None,
+    orig_itemsize: int = 4,
+    two_level: bool = False,
+    local_size: Optional[int] = None,
+    dcn_bytes_per_sec: Optional[float] = None,
+    dcn_hop_latency: Optional[float] = None,
+):
+    """The pure α-β curve: ({n: t_comm_seconds}, {n: efficiency}) from a
+    collective profile (:func:`step_collectives` output) and a per-step
+    single-chip compute time.  ``compression``/``two_level`` model the
+    wire-efficiency tier on the same curve.  ``orig_itemsize`` is the payload's element size
+    (default f32 = 4): pass 2 for bf16-native gradients, or the wire
+    ratio of bf16/int8 compression is overstated (``cols`` aggregates
+    bytes only, so the dtype must come from the caller).  Routed
+    through one :class:`TopologySpec` per world size (and through
+    :func:`predict_collective_us` underneath) so this curve, the replay
+    what-ifs, and the ``hvd_replay --project`` projections share one
+    arithmetic — a scaling curve and a projection can't disagree.
+    ``flat_fabric="ici"`` pins the flat ring to the intra-node link: the
+    cross-node link only enters through ``two_level=True``, as the
+    reference computes these curves."""
+    base = TopologySpec(
+        world=0,
+        local_size=int(local_size) if local_size else 1,
+        ici_bytes_per_sec=ici_bytes_per_sec,
+        ici_hop_latency_us=ici_hop_latency * 1e6,
+        dcn_bytes_per_sec=dcn_bytes_per_sec
+        if dcn_bytes_per_sec is not None else DEFAULT_DCN_BYTES_PER_SEC,
+        dcn_hop_latency_us=(dcn_hop_latency if dcn_hop_latency is not None
+                            else DEFAULT_DCN_HOP_LATENCY) * 1e6,
+        two_level="on" if two_level else "off",
+        flat_fabric="ici",
+    )
+    comm_seconds, scaling = {}, {}
+    for n in sizes:
+        spec = base.with_world(n)
+        t_comm = sum(
+            spec.predict_us(
+                op, d["bytes"], calls=d["count"],
+                # only the gradient all-reduce path compresses; other
+                # collectives (batch-stat gathers, permutes) ride as-is
+                compression=compression if op == "all-reduce" else None,
+                orig_itemsize=orig_itemsize,
+            ) * 1e-6
+            for op, d in cols.items()
+        )
+        comm_seconds[n] = round(t_comm, 6)
+        scaling[n] = (
+            round(t_compute / (t_compute + t_comm), 4)
+            if t_compute else None
+        )
+    return comm_seconds, scaling
+
+
+
+
+#: the port's collective names (``ops/collectives.py`` ``record_traced``)
+#: as the α–β model names them
+_TRACED_OPS = {
+    "allreduce": "all-reduce", "allgather": "all-gather",
+    "broadcast": "broadcast", "alltoall": "all-to-all",
+    "reducescatter": "reduce-scatter",
+}
+
+
+def traced_collectives() -> Dict[str, Dict[str, int]]:
+    """The traced-collective inventory of the metrics registry
+    (``hvd_collectives_traced_total`` / ``_bytes_total``, recorded once a
+    capture) as ``{op: {"count", "bytes"}}`` under the model's op
+    names."""
+    from .. import metrics
+
+    out: Dict[str, Dict[str, int]] = {}
+    for labels, child in metrics.TRACED_CALLS.samples():
+        op = _TRACED_OPS.get(labels.get("op", ""), labels.get("op", ""))
+        d = out.setdefault(op, {"count": 0, "bytes": 0})
+        d["count"] += int(child.get())
+    for labels, child in metrics.TRACED_BYTES.samples():
+        op = _TRACED_OPS.get(labels.get("op", ""), labels.get("op", ""))
+        out.setdefault(op, {"count": 0, "bytes": 0})["bytes"] += \
+            int(child.get())
+    return out
+
+
+def step_collectives(grads: Sequence[Any], *,
+                     threshold_bytes: Optional[int] = None,
+                     named_buckets: Optional[Sequence[Sequence[str]]] = None,
+                     names: Optional[Sequence[str]] = None,
+                     traced: Optional[Dict[str, Dict[str, int]]] = None
+                     ) -> Dict[str, Dict[str, int]]:
+    """The collectives one train step issues, as ``hlo_collectives``
+    gives them in the reference: one ``all-reduce`` per bucket of the
+    fusion plan over ``grads`` (tensors, or anything with ``dtype``,
+    ``numel()`` and ``element_size()``; ``named_buckets`` with ``names``
+    is a profile-guided plan), plus ``traced`` (default: the registry's
+    traced inventory, :func:`traced_collectives`)."""
+    from ..ops.fusion import FusionPlan
+
+    leaves = list(grads)
+    if named_buckets:
+        plan = FusionPlan.from_named_buckets(leaves, list(names or ()),
+                                             named_buckets)
+    else:
+        plan = FusionPlan(leaves, threshold_bytes=threshold_bytes)
+    cols: Dict[str, Dict[str, int]] = {}
+    if plan.buckets:
+        cols["all-reduce"] = {"count": len(plan.buckets), "bytes": sum(
+            leaves[i].numel() * leaves[i].element_size()
+            for b in plan.buckets for i in b)}
+    for op, d in (traced_collectives() if traced is None
+                  else traced).items():
+        c = cols.setdefault(op, {"count": 0, "bytes": 0})
+        c["count"] += int(d.get("count", 0))
+        c["bytes"] += int(d.get("bytes", 0))
+    return cols
+
+
+def collective_report(
+    grads: Sequence[Any],
+    *,
+    threshold_bytes: Optional[int] = None,
+    named_buckets: Optional[Sequence[Sequence[str]]] = None,
+    names: Optional[Sequence[str]] = None,
+    traced: Optional[Dict[str, Dict[str, int]]] = None,
+    flops_per_step: float = 0.0,
+    # None → utils/flops.peak_flops(): the one peak every MFU number of
+    # the port divides by (HVD_PEAK_FLOPS overrides)
+    peak_flops: Optional[float] = None,
+    ici_bytes_per_sec: float = DEFAULT_ICI_BYTES_PER_SEC,
+    ici_hop_latency: float = DEFAULT_ICI_HOP_LATENCY,
+    sizes=(8, 16, 32, 64),
+    measured_step_seconds: Optional[float] = None,
+    compression: Optional[str] = None,
+    orig_itemsize: int = 4,
+    two_level: bool = False,
+    local_size: Optional[int] = None,
+    dcn_bytes_per_sec: Optional[float] = None,
+    dcn_hop_latency: Optional[float] = None,
+) -> Dict[str, Any]:
+    """The step's collective traffic (:func:`step_collectives` over the
+    gradient leaves ``grads``) plus the α–β scaling model, in the
+    reference's dict.
+
+    Per-step compute time = ``measured_step_seconds`` when given (the
+    honest base), else ``flops_per_step`` / peak; per-step comm time at
+    world size n = Σ_ops [link_volume(op, bytes, n) / bw + count(op) ·
+    ring_hops(op, n) · hop_latency]; efficiency(n) = t_compute /
+    (t_compute + t_comm(n)), the no-overlap bound."""
+    if peak_flops is None:
+        from ..utils.flops import peak_flops as _peak_flops
+
+        peak_flops = _peak_flops()
+    cols = step_collectives(grads, threshold_bytes=threshold_bytes,
+                            named_buckets=named_buckets, names=names,
+                            traced=traced)
+    flops = float(flops_per_step or 0.0)
+    t_compute = measured_step_seconds if measured_step_seconds \
+        else (flops / peak_flops if flops else None)
+    comm_seconds, scaling = model_scaling(
+        cols, t_compute, sizes=sizes,
+        ici_bytes_per_sec=ici_bytes_per_sec,
+        ici_hop_latency=ici_hop_latency,
+        compression=compression, orig_itemsize=orig_itemsize,
+        two_level=two_level,
+        local_size=local_size, dcn_bytes_per_sec=dcn_bytes_per_sec,
+        dcn_hop_latency=dcn_hop_latency,
+    )
+    return {
+        "collectives": cols,
+        "total_collective_bytes": sum(d["bytes"] for d in cols.values()),
+        "flops_per_step": flops,
+        "assumptions": {
+            "peak_flops": peak_flops,
+            "ici_bytes_per_sec": ici_bytes_per_sec,
+            "ici_hop_latency": ici_hop_latency,
+            "t_compute_seconds": t_compute,
+            "t_compute_source": "measured" if measured_step_seconds
+            else "flops/peak",
+            "compression": compression or "none",
+            "two_level": bool(two_level),
+            "local_size": local_size,
+            "model": "efficiency = t_compute / (t_compute + t_comm); "
+                     "t_comm = bytes-on-busiest-link/bw + "
+                     "count*ring_hops*hop_latency; 1-D ring, no overlap",
+        },
+        "modeled_comm_seconds": comm_seconds,
+        "scaling_model": scaling,
+    }

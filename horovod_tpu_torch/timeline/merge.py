@@ -1,0 +1,455 @@
+"""Cross-rank trace merge + straggler analysis: the port of
+``horovod_tpu/timeline/merge.py``, over the port's own
+``<dir>/<rank>/comm.json`` (``timeline/timeline.py``) and
+``compute.json`` (``timeline/profiler.py``).
+
+The fork's per-rank layout (``<dir>/<rank>/comm.json``, reference
+timeline.cc:205-228) deliberately gives every rank its own file — good
+for capture, bad for analysis: N disconnected traces can't answer the
+dPRO-style question "which rank is late?".  This module fuses them:
+
+* :func:`merge_traces` — one Chrome trace for the whole job, with each
+  event's ``pid`` forced to its rank and ``process_name`` metadata so
+  chrome://tracing / Perfetto shows one row group per rank.  When every
+  rank carries a ``clock_sync.json`` sidecar (written by
+  the offset-estimation handshake against the rendezvous server,
+  timeline/replay/clock.py — the port's ``Timeline`` writes none until
+  that server is ported), event timestamps are shifted onto one shared
+  clock — the alignment the replay engine's
+  cross-rank critical path depends on;
+* :func:`straggler_report` — per-tensor negotiation-wait spread across
+  ranks.  A NEGOTIATE span measures how long a rank waited for the rest
+  of the job to reach the same collective (reference timeline.cc
+  NegotiateStart/End, controller.cc response assembly): the LAST rank to
+  arrive waits the least, so per tensor the rank with the minimum wait
+  is the straggler and ``spread = max - min`` is the time it cost the
+  others.
+
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional
+
+NEGOTIATE_PREFIX = "NEGOTIATE_"
+
+#: per-rank clock-offset sidecar written by Timeline.initialize
+CLOCK_SYNC_FILE = "clock_sync.json"
+
+#: per-rank compute-anatomy artifact written by the profiler
+#: (timeline/profiler.py); its segment events merge into the Chrome
+#: trace as their own per-rank row group
+COMPUTE_JSON = "compute.json"
+
+#: control-plane flight-recorder dump (``hvd_events --json >
+#: <dir>/events.json``, or a raw ``GET /events`` report); its events
+#: merge as one row of Chrome instant events above the rank rows
+EVENTS_JSON = "events.json"
+
+#: pid of the flight-recorder row — negative so it can never collide
+#: with a rank pid or a COMPUTE_PID_BASE row, sorted above rank 0
+EVENTS_PID = -1
+
+
+def load_events_artifact(trace_dir: str) -> List[dict]:
+    """The flight-recorder events dumped next to the trace (``{}``-
+    tolerant: absent, undecodable, a bare list, or a full ``GET
+    /events`` report all work — a trace without one is normal)."""
+    p = os.path.join(trace_dir, EVENTS_JSON)
+    if not os.path.isfile(p):
+        return []
+    try:
+        with open(p) as f:
+            d = json.load(f)
+    except (ValueError, OSError):
+        return []
+    if isinstance(d, dict):
+        d = d.get("events") or []
+    return [e for e in d if isinstance(e, dict)]
+
+
+def load_profile_artifact(trace_dir: str, rank: int) -> dict:
+    """One rank's parsed ``compute.json`` (``{}`` when absent or
+    undecodable — a rank that never profiled is normal, not an error)."""
+    p = os.path.join(trace_dir, str(rank), COMPUTE_JSON)
+    if not os.path.isfile(p):
+        return {}
+    try:
+        with open(p) as f:
+            d = json.load(f)
+        return d if isinstance(d, dict) else {}
+    except (ValueError, OSError):
+        return {}
+
+
+def load_rank_events(path: str) -> List[dict]:
+    """Parse one comm.json leniently: a live (unfinalized) file has no
+    closing bracket and may end mid-stream (same contract as
+    scripts/trace_summary.py).  A rank that initialized its writer but
+    never recorded an event leaves an empty (or whitespace-only, or
+    bare-``[``) file — that is an empty trace, not a parse error."""
+    with open(path) as f:
+        txt = f.read().strip()
+    if not txt or txt == "[":
+        return []
+    if txt.endswith(","):
+        txt = txt[:-1]
+    if not txt.endswith("]"):
+        txt += "]"
+    return json.loads(txt)
+
+
+def discover_ranks(trace_dir: str) -> Dict[int, str]:
+    """rank -> comm.json path for every per-rank subdir that has one."""
+    out: Dict[int, str] = {}
+    for entry in os.listdir(trace_dir):
+        if not entry.isdigit():
+            continue
+        p = os.path.join(trace_dir, entry, "comm.json")
+        if os.path.isfile(p):
+            out[int(entry)] = p
+    if not out:
+        raise FileNotFoundError(
+            f"no <rank>/comm.json under {trace_dir}"
+        )
+    return dict(sorted(out.items()))
+
+
+def load_clock_offsets(trace_dir: str) -> Dict[int, float]:
+    """rank -> trace-clock→server-clock offset (µs) from each rank's
+    ``clock_sync.json`` sidecar (written by ``Timeline.initialize`` after
+    the rendezvous handshake, timeline/replay/clock.py).  Ranks without a
+    sidecar are simply absent."""
+    out: Dict[int, float] = {}
+    for entry in os.listdir(trace_dir):
+        if not entry.isdigit():
+            continue
+        p = os.path.join(trace_dir, entry, CLOCK_SYNC_FILE)
+        if not os.path.isfile(p):
+            continue
+        try:
+            with open(p) as f:
+                out[int(entry)] = float(json.load(f)["offset_us"])
+        except (ValueError, KeyError, TypeError):
+            continue
+    return out
+
+
+def clock_shifts(trace_dir: str, ranks) -> tuple:
+    """``(aligned, shift_per_rank, offsets)`` — THE alignment policy,
+    shared by :func:`merge_traces` and the replay stitcher so the merged
+    Chrome trace and the replay DAG built over the same directory can
+    never disagree: shifts apply only when EVERY rank has an offset
+    (all-or-nothing — mixing aligned and unaligned ranks is worse than
+    either), normalized so the earliest-offset rank stays put."""
+    offsets = load_clock_offsets(trace_dir)
+    aligned = bool(offsets) and all(r in offsets for r in ranks)
+    base = min(offsets.values()) if aligned else 0.0
+    shift = {r: (offsets[r] - base if aligned else 0.0) for r in ranks}
+    return aligned, shift, offsets
+
+
+def merge_traces(trace_dir: str, align_clocks: bool = True) -> dict:
+    """All ranks' events as ONE Chrome trace (object form, so viewers
+    accept it even though per-rank files use the array form): every
+    event's ``pid`` is its rank — regardless of what the recording
+    process wrote — plus ``process_name``/``process_sort_index``
+    metadata per rank.
+
+    When ``align_clocks`` and EVERY rank has a ``clock_sync.json``
+    sidecar, each event's ``ts`` is shifted by that rank's offset
+    (normalized so the earliest rank stays at its original origin) — all
+    ranks then share one clock and cross-rank span comparisons are
+    meaningful.  With offsets missing for any rank nothing is shifted
+    (mixing aligned and unaligned ranks would be worse than either)."""
+    ranks = discover_ranks(trace_dir)
+    if align_clocks:
+        aligned, shift, offsets = clock_shifts(trace_dir, ranks)
+    else:
+        aligned, shift, offsets = False, {}, {}
+    from .profiler import COMPUTE_PID_BASE
+
+    events: List[dict] = []
+    for rank, path in ranks.items():
+        events.append({"name": "process_name", "ph": "M", "pid": rank,
+                       "args": {"name": f"rank {rank}"}})
+        events.append({"name": "process_sort_index", "ph": "M",
+                       "pid": rank, "args": {"sort_index": rank}})
+        for ev in load_rank_events(path):
+            ev = dict(ev)
+            ev["pid"] = rank
+            if aligned and "ts" in ev:
+                ev["ts"] = float(ev["ts"]) + shift[rank]
+            events.append(ev)
+        # compute-anatomy segments (compute.json): own row group per
+        # rank, shifted onto the shared clock exactly like comm events.
+        # A 'local'-clock artifact (profiler ran without the timeline)
+        # shares no origin with comm.json — merging it would place the
+        # rows at nonsense offsets, so it is skipped.
+        artifact = load_profile_artifact(trace_dir, rank)
+        prof = artifact.get("events", []) \
+            if artifact.get("clock") != "local" else []
+        if prof:
+            cpid = COMPUTE_PID_BASE + rank
+            events.append({"name": "process_name", "ph": "M", "pid": cpid,
+                           "args": {"name": f"rank {rank} compute"}})
+            events.append({"name": "process_sort_index", "ph": "M",
+                           "pid": cpid, "args": {"sort_index": rank}})
+            for ev in prof:
+                ev = dict(ev)
+                ev["pid"] = cpid
+                if aligned and "ts" in ev:
+                    ev["ts"] = float(ev["ts"]) + shift[rank]
+                events.append(ev)
+    # Control-plane flight-recorder events (events.json): ONE row of
+    # Chrome instant events above the rank rows, so "epoch.commit" or
+    # "abort.publish" lines up against what the device timelines were
+    # doing.  Recorder timestamps are wall-clock seconds while trace
+    # spans ride the trace clock; with no cross-clock handshake the
+    # merge anchors the EARLIEST recorder event at the earliest trace
+    # timestamp and preserves relative spacing — placement is
+    # indicative, not sample-exact.
+    recorder = [e for e in load_events_artifact(trace_dir)
+                if e.get("ts") is not None]
+    if recorder and events:
+        trace_ts = [float(e["ts"]) for e in events if "ts" in e]
+        origin_us = min(trace_ts) if trace_ts else 0.0
+        ev_origin_us = min(float(e["ts"]) for e in recorder) * 1e6
+        events.append({"name": "process_name", "ph": "M",
+                       "pid": EVENTS_PID,
+                       "args": {"name": "control plane"}})
+        events.append({"name": "process_sort_index", "ph": "M",
+                       "pid": EVENTS_PID, "args": {"sort_index": -1}})
+        for e in sorted(recorder, key=lambda e: float(e["ts"])):
+            events.append({
+                "name": e.get("kind") or "event",
+                "ph": "i", "s": "g",
+                "pid": EVENTS_PID, "tid": 0,
+                "ts": origin_us + float(e["ts"]) * 1e6 - ev_origin_us,
+                "args": {"id": e.get("id"),
+                         "severity": e.get("severity"),
+                         "rank": e.get("rank"),
+                         "correlation_id": e.get("correlation_id"),
+                         "cause_id": e.get("cause_id"),
+                         "payload": e.get("payload")},
+            })
+    return {"traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {"source": "hvd_trace_merge",
+                          "trace_dir": os.path.abspath(trace_dir),
+                          "clock_aligned": aligned,
+                          "clock_offsets_us": {str(r): round(o, 3)
+                                               for r, o in offsets.items()}}}
+
+
+def write_merged(trace_dir: str, out_path: str) -> dict:
+    merged = merge_traces(trace_dir)
+    d = os.path.dirname(out_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(merged, f)
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# straggler analysis
+# ---------------------------------------------------------------------------
+def negotiation_waits(
+    events: List[dict],
+) -> tuple:
+    """``(waits, unmatched)`` from one rank's events.
+
+    ``waits``: tensor -> {op, wait_us}, the duration of each
+    NEGOTIATE_<OP> B/E pair (repeated negotiations of the same name
+    accumulate); ``"X"``-phase negotiation events (complete spans, the
+    form the native writer emits) contribute their ``dur`` directly.
+
+    ``unmatched``: spans that never paired — a repeated ``"B"`` for the
+    same ``(name, tensor)`` key means the earlier span lost its ``"E"``
+    (it is counted, not silently overwritten), a stray ``"E"`` has no
+    open span, and whatever is still open at end-of-trace leaked.  A
+    truncated live trace shows up here instead of silently under-counting
+    waits."""
+    waits: Dict[str, Dict[str, float]] = {}
+    open_spans: Dict[tuple, float] = {}
+    unmatched = 0
+    for ev in events:
+        name = ev.get("name", "")
+        if not name.startswith(NEGOTIATE_PREFIX):
+            continue
+        tensor = ev.get("cat") or ev.get("tid") or ""
+        key = (name, tensor)
+        ph = ev.get("ph")
+        if ph == "B":
+            if key in open_spans:
+                unmatched += 1  # earlier B never saw its E
+            open_spans[key] = float(ev.get("ts", 0.0))
+        elif ph == "E":
+            if key not in open_spans:
+                unmatched += 1  # E without a B (trace started mid-span)
+                continue
+            dur = float(ev.get("ts", 0.0)) - open_spans.pop(key)
+            d = waits.setdefault(
+                tensor, {"op": name[len(NEGOTIATE_PREFIX):], "wait_us": 0.0}
+            )
+            d["wait_us"] += dur
+        elif ph == "X":
+            d = waits.setdefault(
+                tensor, {"op": name[len(NEGOTIATE_PREFIX):], "wait_us": 0.0}
+            )
+            d["wait_us"] += float(ev.get("dur", 0.0))
+    unmatched += len(open_spans)  # still open at end-of-trace
+    return waits, unmatched
+
+
+def straggler_report(trace_dir: str, top: Optional[int] = None) -> dict:
+    """Per-tensor negotiation-wait spread across ranks.
+
+    For each tensor negotiated on >= 2 ranks:
+
+    * ``per_rank_wait_us`` — each rank's cumulative negotiation wait;
+    * ``spread_us`` — max - min across ranks: the time the tensor's
+      slowest arrival cost the fastest;
+    * ``straggler_rank`` — the rank with the MINIMUM wait (it arrived
+      last, so everyone else waited on it);
+    * ``max_wait_rank`` — the rank that waited longest (arrived first).
+
+    ``ranks`` summarizes per-rank blame: how many tensors each rank
+    stragglered, its total negotiation wait (a chronically low
+    total = chronically late rank), and ``unmatched_spans`` — B/E pairs
+    that never closed, the signature of a truncated live trace.
+
+    When any rank carries a ``compute.json`` (the compute-anatomy
+    profiler, timeline/profiler.py), ``segments`` extends the straggler
+    story to the compute side: per profiled step block, each rank's
+    device time, the SLOWEST rank, and the max−min spread — so "rank 3
+    is late" localizes to "rank 3's backward is 10% slower", not just a
+    negotiation wait.
+    """
+    per_rank: Dict[int, Dict[str, dict]] = {}
+    unmatched: Dict[int, int] = {}
+    for rank, path in discover_ranks(trace_dir).items():
+        per_rank[rank], unmatched[rank] = negotiation_waits(
+            load_rank_events(path))
+    tensors: Dict[str, dict] = {}
+    for rank, waits in per_rank.items():
+        for tensor, d in waits.items():
+            t = tensors.setdefault(tensor, {"op": d["op"], "waits": {}})
+            t["waits"][rank] = d["wait_us"]
+    rows = []
+    straggled = {r: 0 for r in per_rank}
+    for tensor, t in tensors.items():
+        waits = t["waits"]
+        if len(waits) < 2:
+            continue
+        mx = max(waits, key=waits.get)
+        mn = min(waits, key=waits.get)
+        spread = waits[mx] - waits[mn]
+        straggled[mn] += 1
+        rows.append({
+            "tensor": tensor,
+            "op": t["op"],
+            "per_rank_wait_us": {str(r): round(w, 1)
+                                 for r, w in sorted(waits.items())},
+            "spread_us": round(spread, 1),
+            "straggler_rank": mn,
+            "max_wait_rank": mx,
+        })
+    rows.sort(key=lambda r: -r["spread_us"])
+    if top:
+        rows = rows[:top]
+    report = {
+        "tensors": rows,
+        "ranks": {
+            str(r): {
+                "times_straggler": straggled[r],
+                "total_negotiate_wait_us": round(
+                    sum(d["wait_us"] for d in per_rank[r].values()), 1),
+                "unmatched_spans": unmatched[r],
+            }
+            for r in per_rank
+        },
+    }
+    segments = segment_straggler_report(trace_dir, per_rank.keys())
+    if segments:
+        report["segments"] = segments
+    report["verdicts"] = straggler_verdicts(report)
+    return report
+
+
+def straggler_verdicts(report: dict, *,
+                       skew_threshold: float = 1.3) -> dict:
+    """Machine-readable per-rank verdict block from a straggler report —
+    the shape the watchdog's drift detector consumes
+    (``observe.detectors.straggler_from_verdicts``), so offline trace
+    analysis and the live watchdog agree on who is late.
+
+    Each rank gets ``{"verdict": "straggler" | "ok", "skew", "basis"}``:
+
+    * with profiled compute (``segments``), ``skew`` is the rank's
+      total segment device time over the cross-rank median
+      (basis ``segment_device_us``) — late because *slow*;
+    * otherwise ``skew`` is ``1 + times_straggler / contested_tensors``
+      (basis ``negotiate_wait``) — a rank that arrived last for every
+      contested tensor scores 2.0, one never late scores 1.0.
+    """
+    verdicts: Dict[str, dict] = {}
+    segments = report.get("segments") or {}
+    totals: Dict[str, float] = {}
+    for seg in segments.values():
+        for rank, us in (seg.get("per_rank_device_us") or {}).items():
+            totals[str(rank)] = totals.get(str(rank), 0.0) + float(us)
+    if len(totals) >= 2:
+        ordered = sorted(totals.values())
+        mid = len(ordered) // 2
+        median = ordered[mid] if len(ordered) % 2 \
+            else (ordered[mid - 1] + ordered[mid]) / 2.0
+        for rank, total in totals.items():
+            ratio = total / median if median > 0 else 1.0
+            verdicts[rank] = {
+                "verdict": "straggler" if ratio >= skew_threshold else "ok",
+                "skew": round(ratio, 4),
+                "basis": "segment_device_us",
+            }
+    contested = len(report.get("tensors") or [])
+    for rank, d in (report.get("ranks") or {}).items():
+        if rank in verdicts:
+            continue
+        frac = (d.get("times_straggler", 0) / contested) if contested else 0.0
+        verdicts[rank] = {
+            "verdict": "straggler" if contested and frac >= 0.5 else "ok",
+            "skew": round(1.0 + frac, 4),
+            "basis": "negotiate_wait",
+        }
+    return {"ranks": verdicts, "skew_threshold": skew_threshold}
+
+
+def segment_straggler_report(trace_dir: str, ranks) -> Dict[str, dict]:
+    """Per-compute-segment slowest-rank table from the ranks'
+    ``compute.json`` anatomies: ``{segment: {per_rank_device_us,
+    slowest_rank, spread_us}}`` (empty when nobody profiled).  The
+    reduction is :func:`~horovod_tpu_torch.timeline.profiler
+    .aggregate_anatomies` — the same one behind ``GET /profile`` and
+    ``hvd_profile`` — so this table can never disagree with them on
+    who the slowest rank is."""
+    from .profiler import aggregate_anatomies
+
+    anatomies = {}
+    for rank in ranks:
+        anatomy = load_profile_artifact(trace_dir, rank).get("anatomy")
+        if isinstance(anatomy, dict):
+            anatomies[str(rank)] = anatomy
+    if not anatomies:
+        return {}
+    agg = aggregate_anatomies(anatomies)
+    return {
+        name: {
+            "per_rank_device_us": s["per_rank_device_us"],
+            "slowest_rank": int(s["slowest_rank"]),
+            "spread_us": s["spread_us"],
+        }
+        for name, s in agg["segments"].items()
+    }

@@ -1,0 +1,687 @@
+"""Fleet-scale digital twin: re-materialize a stitched step DAG onto a
+hypothetical topology and predict how it would run — the port of
+``horovod_tpu/timeline/replay/projection.py``.
+
+The endgame of the dPRO chain (profile → global DAG → simulate →
+optimize): every what-if so far re-schedules *the world the trace ran
+in*.  This module rewrites the trace onto a world we have NOT run —
+more ranks, a different ``local_size``, ICI vs DCN tiers, a different
+wire format — and replays it through the SAME discrete-event scheduler
+(critical_path.schedule), so a capacity question ("what does 64× buy
+me?", ``hvd_replay --project 64x``) is answered with the calibrated
+machinery instead of a spreadsheet:
+
+* **compute chains replicate** per target rank — ``distribution`` mode
+  hands target rank *t* source rank ``t mod N``'s chain (the per-rank
+  duration distribution, straggler structure included, survives the
+  projection; with an unchanged world this is the identity, so an
+  identity projection bit-matches the replay baseline), ``slowest``
+  mode hands every target rank the slowest source chain (the
+  conservative bound when source heterogeneity is noise);
+* **collectives re-price** for the target world with the calibrated
+  α–β split the bandwidth what-if uses: the measured duration's β share
+  scales by the target/source link-volume-over-bandwidth ratio and the
+  target α floor is rebuilt from its hop count — hardware whose
+  effective bandwidth differs from the datasheet keeps its measured
+  level.  The wire format is chosen the way the runtime/planner would
+  (``TopologySpec.two_level`` policy: flat, two-level, compressed —
+  two-level is model-priced, the flat trace carries no tier split);
+* **traces without comm spans** (a captured step keeps its collectives
+  inside the CUDA graph; a 1-rank world has none at all) get ONE synthesized
+  fused all-reduce per step carrying the gradient manifest's total
+  bytes, gated by each rank's last compute — the fused-bucket shape the
+  runtime actually dispatches — whenever the target world differs from
+  the source's.
+
+Accuracy is a first-class observable (the PR 6 predicted-vs-realized
+discipline): :func:`validate` pins projected-vs-measured step-time
+error between two trace dirs, :func:`live_trace` and
+:func:`live_validation` drive the small-world → big-world comparison end
+to end on the port's own MLP step (``make_train_step(donate=False)``),
+and the error is exported as ``hvd_projection_err_pct`` next to the
+per-world ``hvd_projection_step_us`` / ``hvd_projection_efficiency``
+gauges.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import statistics
+from typing import Dict, List, Optional, Tuple
+
+from ...utils import env as env_util
+from ...utils.slo import (  # noqa: F401  (public API lives here too)
+    project_serving_p99, serving_slo_headroom,
+)
+from ..comm_report import (
+    TopologySpec, _link_volume, _ring_hops, compression_terms_us,
+)
+from .critical_path import attribute, schedule
+from .simulator import CostModel
+from .stitcher import Artifacts, Node, StepDAG, _dtype_bytes
+
+#: chain-replication modes (HVD_PROJECT_MODE picks the CLI default)
+PROJECT_MODES = ("distribution", "slowest")
+
+#: tensor name of the synthesized fused gradient all-reduce
+SYNTH_TENSOR = "<grads>"
+
+
+def project_mode_from_env() -> str:
+    mode = (env_util.get_str(env_util.HVD_PROJECT_MODE) or
+            PROJECT_MODES[0]).strip().lower()
+    return mode if mode in PROJECT_MODES else PROJECT_MODES[0]
+
+
+# ---------------------------------------------------------------------------
+# spec parsing (the --project grammar)
+# ---------------------------------------------------------------------------
+_RANGE_RE = re.compile(r"^(\d+)x\.\.(\d+)x$")
+_FACTOR_RE = re.compile(r"^(\d+)x$")
+
+_SPEC_KEYS = {
+    "local": "local_size", "local_size": "local_size",
+    "ici_gbps": "ici_bytes_per_sec", "hop_us": "ici_hop_latency_us",
+    "ici_hop_us": "ici_hop_latency_us",
+    "dcn_gbps": "dcn_bytes_per_sec", "dcn_hop_us": "dcn_hop_latency_us",
+    "compression": "compression", "two_level": "two_level",
+}
+
+
+def base_spec_from_env(world: int) -> TopologySpec:
+    """The projection base spec: the replay cost model's env-driven
+    α–β/tier numbers (HVD_REPLAY_ICI_GBPS & friends — ONE source), with
+    ``two_level="auto"`` — a projection chooses the cheaper wire shape
+    per collective the way the planner would, instead of assuming the
+    knob setting of the job that happened to record the trace."""
+    from . import _cost_model_from_env
+
+    return dataclasses.replace(
+        _cost_model_from_env(world).topology, two_level="auto")
+
+
+def parse_project_spec(text: str, source_world: int,
+                       base: Optional[TopologySpec] = None
+                       ) -> List[Tuple[str, TopologySpec]]:
+    """``(name, TopologySpec)`` rows for one ``--project`` argument.
+
+    Grammar (comma-separated tokens, order-free)::
+
+        4x                  target world = 4 x source world
+        2x..64x             doubling sweep: 2x, 4x, ..., 64x
+        16  |  world=16     absolute target world
+        local=8             ranks per ICI domain (cross = world/local)
+        ici_gbps= hop_us= dcn_gbps= dcn_hop_us=   α–β overrides
+        compression=int8    wire format (none clears)
+        two_level=auto|on|off   tier policy (default auto)
+
+    With no world token the overrides apply to the source world itself
+    (the ``identity`` row — the bit-match regression anchor)."""
+    base = base or base_spec_from_env(source_world)
+    worlds: List[int] = []
+    kw: Dict[str, object] = {}
+    for tok in str(text).split(","):
+        tok = tok.strip().lower()
+        if not tok:
+            continue
+        m = _RANGE_RE.match(tok)
+        if m:
+            lo, hi = int(m.group(1)), int(m.group(2))
+            if lo < 1 or hi < lo:
+                raise ValueError(f"bad projection range {tok!r}")
+            f = lo
+            while f <= hi:
+                worlds.append(source_world * f)
+                f *= 2
+            continue
+        m = _FACTOR_RE.match(tok)
+        if m:
+            worlds.append(source_world * int(m.group(1)))
+            continue
+        if tok.isdigit():
+            worlds.append(int(tok))
+            continue
+        key, sep, val = tok.partition("=")
+        if not sep:
+            raise ValueError(
+                f"unrecognized projection token {tok!r} (want Nx, "
+                f"N..Mx, world=N, or one of {sorted(_SPEC_KEYS)})")
+        if key == "world":
+            worlds.append(int(val))
+            continue
+        field = _SPEC_KEYS.get(key)
+        if field is None:
+            raise ValueError(
+                f"unknown projection key {key!r} (known: world, "
+                f"{', '.join(sorted(_SPEC_KEYS))})")
+        if field == "local_size":
+            kw[field] = int(val)
+        elif field == "compression":
+            kw[field] = None if val in ("none", "") else val
+        elif field == "two_level":
+            if val in ("1", "true", "yes"):
+                val = "on"
+            elif val in ("0", "false", "no"):
+                val = "off"
+            if val not in ("auto", "on", "off"):
+                raise ValueError(f"two_level wants auto|on|off, got {val!r}")
+            kw[field] = val
+        elif field.endswith("bytes_per_sec"):
+            kw[field] = float(val) * 1e9
+        else:
+            kw[field] = float(val)
+    if not worlds:
+        worlds = [source_world]
+    out: List[Tuple[str, TopologySpec]] = []
+    for w in worlds:
+        if w < 1:
+            raise ValueError(f"projection world must be >= 1, got {w}")
+        spec = dataclasses.replace(base, world=w, **kw)
+        if w == source_world and not kw:
+            name = "identity"
+        elif w % source_world == 0 and w > source_world:
+            name = f"{w // source_world}x"
+        else:
+            name = f"world={w}"
+        out.append((name, spec))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# comm re-pricing
+# ---------------------------------------------------------------------------
+def slowest_source_rank(dag: StepDAG) -> int:
+    """The source rank with the largest total compute time (ties break
+    toward the lowest rank so projections are deterministic)."""
+    totals = {
+        r: sum(dag.nodes[nid].dur_us for nid in chain
+               if dag.nodes[nid].kind == "compute")
+        for r, chain in dag.chains.items()
+    }
+    return max(sorted(totals), key=lambda r: totals[r])
+
+
+def project_comm_dur(node: Node, src_cm: CostModel,
+                     spec: TopologySpec) -> Tuple[str, float]:
+    """``(wire_format, projected_dur_us)`` of one measured collective on
+    the target topology.
+
+    Flat pricing is *calibrated*: measured duration = α + β; the target
+    β is the measured β scaled by (target link-volume / target
+    bandwidth) over (source link-volume / source bandwidth), the target
+    α is rebuilt from the target hop count.  A source world of 1 has
+    zero link volume (nothing was measured on any wire), so the target
+    β is pure model.  Two-level is always pure model
+    (``CostModel.two_level_dur_us`` semantics: the flat measurement
+    carries no ICI/DCN split).  The format choice follows the spec's
+    policy via the same comparison ``TopologySpec.wire_choice`` makes.
+
+    Identity anchor: at an UNCHANGED world with unchanged link
+    parameters, no compression, and no explicit ``two_level="on"``
+    request, the measurement itself is returned bit for bit — the
+    trace already ran on that world, tiers and all, so any
+    re-derivation (α/β round trips, fabric guesses from an
+    env-declared ``local_size``) could only drift away from ground
+    truth.  Explicit α–β overrides (``ici_gbps=`` etc. at the same
+    world — "my world on slower links") and ``two_level="on"`` opt
+    back into re-pricing."""
+    op = node.op or "all-reduce"
+    if node.kind != "comm" or not node.nbytes:
+        return "measured", node.dur_us
+    comp = spec.compression if (spec.compression
+                                and src_cm.compressible(node)) else None
+    unchanged = (spec.world == src_cm.world
+                 and spec.ici_bytes_per_sec == src_cm.ici_bytes_per_sec
+                 and spec.ici_hop_latency_us == src_cm.hop_latency_us
+                 and spec.dcn_bytes_per_sec == src_cm.dcn_bytes_per_sec
+                 and spec.dcn_hop_latency_us == src_cm.dcn_hop_latency_us)
+    if unchanged and not comp and spec.two_level != "on":
+        return "measured", node.dur_us
+    flat_bw, flat_hop_s = spec._flat_params()
+    flat_hop_us = flat_hop_s * 1e6
+    lv_s = _link_volume(op, node.nbytes, src_cm.world)
+    lv_t = _link_volume(op, node.nbytes, spec.world)
+    if lv_s > 0:
+        beta = src_cm.calibrated_beta_us(node) * (lv_t / lv_s) \
+            * (src_cm.ici_bytes_per_sec / flat_bw)
+    else:
+        beta = lv_t / flat_bw * 1e6
+    ratio, qd, scale = compression_terms_us(
+        comp, node.nbytes, spec.world, flat_hop_us,
+        _dtype_bytes(node.dtype))
+    flat_us = _ring_hops(op, spec.world) * flat_hop_us \
+        + beta * ratio + qd + scale
+    wire, dur = TopologySpec._tag("flat", comp), flat_us
+    if op == "all-reduce" and spec.two_level != "off" \
+            and spec.two_level_possible():
+        target_cm = CostModel.from_topology(spec)
+        two = target_cm.two_level_dur_us(
+            dataclasses.replace(node, ranks=()), compression=comp)
+        if spec.two_level == "on" or two < flat_us:
+            wire, dur = TopologySpec._tag("two_level", comp), two
+    return wire, dur
+
+
+def synthesized_comm_bytes(art: Optional[Artifacts]) -> Optional[int]:
+    """Total gradient payload bytes from the Recorder manifest (the
+    fused bucket a comm-less trace's collectives would carry), or None
+    when no manifest is available."""
+    if art is None:
+        return None
+    names = list(art.gradient_names) or sorted(art.shapes)
+    total = 0
+    for name in names:
+        shape = art.shapes.get(name)
+        if shape is None:
+            continue
+        n = 1
+        for d in shape:
+            n *= int(d)
+        total += n * _dtype_bytes(art.dtypes.get(name))
+    return total or None
+
+
+# ---------------------------------------------------------------------------
+# DAG re-materialization
+# ---------------------------------------------------------------------------
+def project_dag(dag: StepDAG, src_cm: CostModel, spec: TopologySpec,
+                mode: Optional[str] = None,
+                synth_bytes: Optional[int] = None,
+                source_world: Optional[int] = None
+                ) -> Tuple[StepDAG, dict]:
+    """The source step DAG re-materialized onto ``spec``'s topology:
+    ``(projected_dag, info)`` where ``info`` records the per-collective
+    wire formats and whether a gradient all-reduce was synthesized.
+    Schedule the result with the ordinary discrete-event scheduler —
+    projection changes the DAG, never the replay semantics.
+
+    ``source_world`` is the job size the trace STANDS FOR (a
+    single-process SPMD trace is one rank dir standing for a whole
+    mesh — :func:`source_world_of`); it gates comm synthesis so the
+    identity projection of such a trace stays the replay baseline."""
+    mode = mode or project_mode_from_env()
+    if mode not in PROJECT_MODES:
+        raise ValueError(f"unknown projection mode {mode!r} "
+                         f"(want one of {PROJECT_MODES})")
+    src_ranks = sorted(dag.chains)
+    if not src_ranks:
+        raise ValueError("cannot project an empty step DAG")
+    if mode == "slowest":
+        slow = slowest_source_rank(dag)
+        src_of = {t: slow for t in range(spec.world)}
+    else:
+        src_of = {t: src_ranks[t % len(src_ranks)]
+                  for t in range(spec.world)}
+
+    nodes: List[Node] = []
+    chains: Dict[int, List[int]] = {}
+    ready_pred: Dict[int, Dict[int, Optional[int]]] = {}
+    comm_clone: Dict[int, int] = {}         # source comm nid -> new nid
+    wire_formats: Dict[str, str] = {}
+    has_comm = any(n.kind == "comm" for n in dag.nodes)
+    # synthesize the fused gradient all-reduce only when the target
+    # world actually differs from the job size the trace stands for:
+    # an identity projection must stay the replay baseline bit for bit,
+    # whatever the trace looks like (an SPMD trace's in-graph
+    # collectives already live inside its measured compute spans)
+    sw = source_world if source_world else dag.world
+    synth = (not has_comm and spec.world > 1 and spec.world != sw
+             and synth_bytes)
+    synth_id: Optional[int] = None
+
+    for t in range(spec.world):
+        src = src_of[t]
+        clone_of: Dict[int, int] = {}
+        chain: List[int] = []
+        for nid in dag.chains[src]:
+            node = dag.nodes[nid]
+            if node.kind == "compute":
+                new = dataclasses.replace(node, nid=len(nodes), rank=t)
+                nodes.append(new)
+                clone_of[nid] = new.nid
+                chain.append(new.nid)
+                continue
+            if nid not in comm_clone:
+                wire, dur = project_comm_dur(node, src_cm, spec)
+                new = dataclasses.replace(node, nid=len(nodes),
+                                          dur_us=dur, ranks=())
+                nodes.append(new)
+                comm_clone[nid] = new.nid
+                ready_pred[new.nid] = {}
+                wire_formats[node.label or node.tensor or str(nid)] = wire
+            cid = comm_clone[nid]
+            cnode = nodes[cid]
+            cnode.ranks = tuple(sorted(set(cnode.ranks) | {t}))
+            rp = dag.ready_pred.get(nid, {}).get(src)
+            if rp is None:
+                pred = None
+            else:
+                pred = clone_of.get(rp, comm_clone.get(rp))
+            ready_pred[cid][t] = pred
+            chain.append(cid)
+        if synth:
+            if synth_id is None:
+                wire, dur = spec.wire_choice("all-reduce", int(synth_bytes),
+                                             compression=spec.compression)
+                if sw > 1:
+                    # marginal pricing: a multi-rank SPMD trace keeps its
+                    # own world's collective time INSIDE the measured
+                    # compute spans (in-graph dispatch), so the
+                    # synthesized node bills only the increment over the
+                    # source world's flat cost — not a second full
+                    # collective on top of the embedded one
+                    embedded = src_cm.topology.with_world(sw)._flat_us(
+                        "all-reduce", int(synth_bytes))
+                    dur = max(dur - embedded, 0.0)
+                syn = Node(len(nodes), "comm", dur, tensor=SYNTH_TENSOR,
+                           op="all-reduce", nbytes=int(synth_bytes),
+                           label=f"comm:{SYNTH_TENSOR}", dtype="float32")
+                nodes.append(syn)
+                synth_id = syn.nid
+                ready_pred[synth_id] = {}
+                wire_formats[syn.label] = wire
+            snode = nodes[synth_id]
+            snode.ranks = tuple(sorted(set(snode.ranks) | {t}))
+            ready_pred[synth_id][t] = chain[-1] if chain else None
+            chain.append(synth_id)
+        chains[t] = chain
+
+    pdag = StepDAG(
+        step=dag.step, t0_us=dag.t0_us, nodes=nodes, chains=chains,
+        ready_pred=ready_pred,
+        rank_base_us={t: dag.rank_base_us.get(src_of[t], 0.0)
+                      for t in range(spec.world)},
+        measured_span_us={t: dag.measured_span_us.get(src_of[t], 0.0)
+                          for t in range(spec.world)},
+        world=spec.world,
+    )
+    info = {
+        "mode": mode,
+        "wire_formats": wire_formats,
+        "synthesized_comm": bool(synth),
+        "synth_bytes": int(synth_bytes) if synth else None,
+    }
+    return pdag, info
+
+
+def project_step(dag: StepDAG, src_cm: CostModel, spec: TopologySpec,
+                 mode: Optional[str] = None,
+                 synth_bytes: Optional[int] = None,
+                 source_world: Optional[int] = None,
+                 baseline_us: Optional[float] = None) -> dict:
+    """One projection row: re-materialize, schedule, attribute.
+    ``baseline_us`` reuses a caller-computed source-DAG makespan so a
+    multi-row sweep doesn't re-replay the unchanged source per row."""
+    pdag, info = project_dag(dag, src_cm, spec, mode=mode,
+                             synth_bytes=synth_bytes,
+                             source_world=source_world)
+    sched = schedule(pdag)
+    attr = attribute(pdag, sched)
+    baseline = baseline_us if baseline_us is not None \
+        else schedule(dag).makespan
+    ranks = attr["per_rank"].values()
+
+    def mean(key: str) -> float:
+        return round(sum(a[key] for a in ranks) / max(len(ranks), 1), 3)
+
+    row = {
+        "world": spec.world,
+        "local_size": spec.local_size,
+        "spec": spec.to_dict(),
+        "projected_step_us": round(sched.makespan, 3),
+        "baseline_replay_us": round(baseline, 3),
+        "scaling_efficiency": round(baseline / sched.makespan, 4)
+        if sched.makespan > 0 else None,
+        "phases": {k: mean(f"{k}_us") for k in
+                   ("compute", "comm", "negotiation", "idle")},
+    }
+    row.update(info)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the --project driver
+# ---------------------------------------------------------------------------
+def source_world_of(result) -> int:
+    """The job size the trace stands for — the base of ``Nx`` factors.
+    A single-process SPMD trace is one rank dir standing for a whole
+    mesh, so the Recorder's ``metadata.json`` size wins when larger."""
+    world = result.dags[-1].world
+    meta = result.artifacts.metadata.get("size")
+    if isinstance(meta, int) and meta > world:
+        return meta
+    return world
+
+
+def _source_mfu(trace_dir: str) -> Optional[float]:
+    """Mean profiled MFU across ranks (compute.json anatomies), or None
+    when the trace was captured without the compute-anatomy profiler."""
+    try:
+        from ..profiler import load_compute_json
+
+        mfus = [a["mfu"] for a in load_compute_json(trace_dir).values()
+                if isinstance(a, dict) and a.get("mfu") is not None]
+    except Exception:  # noqa: BLE001 — anatomy is optional garnish
+        return None
+    return round(sum(mfus) / len(mfus), 4) if mfus else None
+
+
+def project_analysis(result, specs: List[Tuple[str, TopologySpec]],
+                     mode: Optional[str] = None,
+                     cost_model: Optional[CostModel] = None) -> dict:
+    """The projection summary for a ``ReplayResult``: the newest stitched
+    step projected onto every spec, plus the source anchor (baseline
+    replay, measured step, profiled MFU).  ``projected_mfu`` scales the
+    source MFU by the step-time ratio — per-rank work is held fixed, so
+    utilization moves inversely with the projected step."""
+    mode = mode or project_mode_from_env()
+    art = result.artifacts
+    dag = result.dags[-1]
+    sw = source_world_of(result)
+    cm = cost_model or CostModel.from_topology(
+        base_spec_from_env(dag.world).with_world(dag.world))
+    synth = synthesized_comm_bytes(art)
+    baseline = schedule(dag).makespan
+    mfu = _source_mfu(art.trace_dir)
+    rows = []
+    for name, spec in specs:
+        row = project_step(dag, cm, spec, mode=mode, synth_bytes=synth,
+                           source_world=sw, baseline_us=baseline)
+        row["name"] = name
+        if mfu is not None and row["projected_step_us"] > 0:
+            row["projected_mfu"] = round(
+                mfu * baseline / row["projected_step_us"], 4)
+        else:
+            row["projected_mfu"] = None
+        rows.append(row)
+    return {
+        "trace_dir": art.trace_dir,
+        "mode": mode,
+        "source": {
+            "world": dag.world,
+            "size": sw,
+            "ranks": sorted(dag.chains),
+            "step": dag.step,
+            "baseline_replay_us": round(baseline, 3),
+            "measured_step_us": round(dag.measured_step_us, 3),
+            "mfu": mfu,
+        },
+        "projections": rows,
+    }
+
+
+# ---------------------------------------------------------------------------
+# projected-vs-measured accuracy (the tracked observable)
+# ---------------------------------------------------------------------------
+def projection_error_pct(projected_us: float, measured_us: float) -> float:
+    return round((projected_us - measured_us) / measured_us * 100.0, 2)
+
+
+def validate(source_dir: str, measured_dir: str,
+             spec: Optional[TopologySpec] = None,
+             mode: Optional[str] = None,
+             source_result=None) -> dict:
+    """Pin the twin's accuracy on a world we CAN run: project
+    ``source_dir``'s trace onto ``measured_dir``'s topology and compare
+    against what that world actually measured.  Medians across steps on
+    both sides (the first step of a fresh program carries its compile).
+    ``source_result`` reuses an already-analyzed ``ReplayResult`` for
+    ``source_dir`` (the CLI has one in hand) instead of re-stitching.
+    Returns the record fed to ``hvd_projection_err_pct``."""
+    from . import analyze
+
+    src = source_result or analyze(source_dir, plan_search=False)
+    tgt = analyze(measured_dir, plan_search=False)
+    target_world = source_world_of(tgt)
+    if spec is None:
+        spec = base_spec_from_env(target_world)
+    src_world = source_world_of(src)
+    cm = CostModel.from_topology(
+        base_spec_from_env(src_world).with_world(src_world))
+    synth = synthesized_comm_bytes(src.artifacts)
+
+    def _projected_us(d: StepDAG) -> float:
+        pdag, _ = project_dag(d, cm, spec, mode=mode, synth_bytes=synth,
+                              source_world=src_world)
+        return schedule(pdag).makespan
+
+    projected = statistics.median(_projected_us(d) for d in src.dags)
+    measured = statistics.median(d.measured_step_us for d in tgt.dags)
+    return {
+        "source_dir": src.artifacts.trace_dir,
+        "measured_dir": tgt.artifacts.trace_dir,
+        "source_world": src_world,
+        "target_world": spec.world,
+        "spec": spec.to_dict(),
+        "projected_step_us": round(projected, 3),
+        "measured_step_us": round(measured, 3),
+        "err_pct": projection_error_pct(projected, measured)
+        if measured > 0 else None,
+    }
+
+
+def live_trace(root: str, *, steps: int = 7, global_batch: int = 128,
+               in_dim: int = 256, classes: int = 4, width: int = 256,
+               seed: int = 0, clock=None) -> str:
+    """Trace an MLP train step in the current world and write the capture
+    layout under ``root`` (``<root>/<rank>/``: STEP envelopes at the
+    measured wall durations, the gradient manifest the synthesized
+    collective prices, ``metadata.json`` with the world size); returns
+    ``root``.  Every rank of the world calls it.
+
+    The step is ``make_train_step(donate=False)``: each call returns a
+    new state and leaves the caller's as it was.  The GLOBAL batch is
+    held fixed across worlds (module docstring of the reference's
+    ``live_validation``): each rank takes its ``global_batch / size``
+    rows.  Each step is timed to completion (``loss.item()``; ``clock``
+    defaults to ``time.perf_counter``), since the in-job timeline's STEP
+    spans cover only the issue of a call."""
+    import time
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ... import core
+    from ...models.mlp import MLP
+    from ...optim.transforms import sgd
+    from ...training import init_train_state, make_train_step, shard_batch
+
+    clock = clock or time.perf_counter
+    model = MLP(in_dim, (width, classes),
+                generator=torch.Generator().manual_seed(seed))
+    opt = sgd(0.05)
+    rng = np.random.default_rng(seed)
+    step = make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                           optimizer=opt, donate=False)
+    state = init_train_state(model, opt)
+    x = shard_batch(torch.from_numpy(rng.normal(size=(
+        global_batch, in_dim)).astype(np.float32)))
+    y = shard_batch(torch.from_numpy(rng.integers(0, classes, size=(
+        global_batch,)).astype(np.int64)))
+    durs_us = []
+    for _ in range(steps):
+        t0 = clock()
+        state, loss = step(state, x, y)
+        loss.item()
+        durs_us.append((clock() - t0) * 1e6)
+    shapes = {f"g{i}": list(p.shape)
+              for i, p in enumerate(state.params.values())}
+    dtypes = {f"g{i}": str(p.dtype).replace("torch.", "")
+              for i, p in enumerate(state.params.values())}
+    rank_dir = os.path.join(root, str(core.rank()))
+    os.makedirs(rank_dir, exist_ok=True)
+    events, cursor = [], 0.0
+    for i, dur in enumerate(durs_us):
+        events.append({"name": "STEP", "cat": f"step_{i}", "ph": "X",
+                       "ts": cursor, "dur": dur, "pid": core.rank(),
+                       "tid": "step"})
+        cursor += dur
+    for fname, payload in (
+            ("comm.json", events),
+            ("tensor_shapes.json", shapes),
+            ("tensor_dtypes.json", dtypes),
+            ("gradient_name_list.json", sorted(shapes)),
+            ("metadata.json", {"rank": core.rank(), "size": core.size(),
+                               "model": "projection-live"})):
+        with open(os.path.join(rank_dir, fname), "w") as f:
+            json.dump(payload, f, indent=1)
+    return root
+
+
+def live_validation(source_dir: str, target_dir: str,
+                    steps: Optional[int] = None,
+                    global_batch: Optional[int] = None) -> dict:
+    """The end-to-end accuracy record of two :func:`live_trace` runs:
+    ``source_dir`` traced in a small world, ``target_dir`` in a big one,
+    the source projected onto the target's world and compared with what
+    it measured (:func:`validate`).
+
+    The reference's ``live_validation(small, big)`` traces both worlds
+    itself, on a 1- and an 8-device CPU mesh of one process.  A rank of
+    the port is a process, so a world is a job: each world's ranks call
+    :func:`live_trace`, and this function compares the two traces."""
+    out = validate(source_dir, target_dir)
+    if steps is not None:
+        out["steps"] = steps
+    if global_batch is not None:
+        out["global_batch"] = global_batch
+    return out
+
+
+# The serving-plane hook (projected p99 headroom per replica delta)
+# lives in utils/slo.py — pure arithmetic with no replay dependencies,
+# so the serving autoscaler can consult it without importing this
+# stack — and is re-exported above as part of the projection API.
+
+
+# ---------------------------------------------------------------------------
+# gauge export
+# ---------------------------------------------------------------------------
+def export_projection_gauges(summary: dict,
+                             err_pct: Optional[float] = None) -> None:
+    """Surface the projection on the metrics plane: per-world
+    ``hvd_projection_step_us`` / ``hvd_projection_efficiency`` plus the
+    tracked ``hvd_projection_err_pct`` accuracy.  Never raises — the
+    twin must not take down the job it describes."""
+    try:
+        from ... import metrics
+
+        if not metrics.on():
+            return
+        for row in summary.get("projections", ()):
+            world = str(row.get("world"))
+            metrics.PROJECTION_STEP_US.labels(world).set(
+                float(row["projected_step_us"]))
+            if row.get("scaling_efficiency") is not None:
+                metrics.PROJECTION_EFFICIENCY.labels(world).set(
+                    float(row["scaling_efficiency"]))
+        if err_pct is None:
+            err_pct = (summary.get("validation") or {}).get("err_pct")
+        if err_pct is not None:
+            metrics.PROJECTION_ERR_PCT.set(float(err_pct))
+    except Exception:  # noqa: BLE001
+        pass

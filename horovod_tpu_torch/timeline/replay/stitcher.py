@@ -1,0 +1,516 @@
+"""Stitcher: per-step GLOBAL DAG from merged traces + Recorder artifacts:
+the port of ``horovod_tpu/timeline/replay/stitcher.py``, over the port's
+own trace directory (``timeline/timeline.py``, ``timeline/recorder.py``,
+``timeline/profiler.py``).
+
+The capture layer leaves three disconnected artifact families per rank
+(the byteprofile contract the fork exists for): ``comm.json`` span
+streams, the Recorder's ``dag.gml`` / ``tensor_shapes.json`` /
+``gradient_name_list.json`` model structure, and (since the clock
+handshake) a ``clock_sync.json`` offset sidecar.  This module fuses them
+into the object dPRO replays: one directed acyclic graph per training
+step spanning every rank, where
+
+* each rank contributes a serial chain of **compute segments** (the gaps
+  between its communication spans — host/device work the trace doesn't
+  itemize further) in its own timeline order;
+* each collective becomes ONE **global comm node** shared by all
+  participating ranks, with an incoming readiness edge from every rank's
+  chain (the position of its ``NEGOTIATE_<OP>`` "B" — the moment that
+  rank arrived).  Negotiation waits are deliberately NOT nodes: a wait
+  is a *consequence* of arrival skew, and modeling it as a fixed-length
+  task would freeze the very quantity what-if scenarios change.  In
+  simulation the comm node starts at ``max`` over its readiness edges
+  and the wait re-emerges per rank as ``start - own_ready`` — which is
+  exactly what lets "remove the straggler" shrink it;
+* tensor names on comm spans are joined against the gradient manifest /
+  ``tensor_shapes.json`` / ``dag.gml`` node labels, attaching byte
+  counts so the simulator can re-cost collectives with the α–β model.
+
+``stitch(trace_dir)`` is the entry point: artifacts + one
+:class:`StepDAG` per step observed on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..merge import clock_shifts, discover_ranks, load_rank_events
+
+#: top-level comm span name (timeline.span activity) -> α–β model op name
+COMM_OPS = {
+    "ALLREDUCE": "all-reduce",
+    "ALLGATHER": "all-gather",
+    "REDUCESCATTER": "reduce-scatter",
+    "ALLTOALL": "all-to-all",
+    "BROADCAST": "broadcast",
+    "COLLECTIVE_PERMUTE": "collective-permute",
+    "GRAD_ALLREDUCE": "all-reduce",
+}
+
+NEGOTIATE_PREFIX = "NEGOTIATE_"
+
+# dtype name (torch's without its ``torch.`` prefix, which the port's
+# recorder writes, and numpy's) -> wire bytes
+_DTYPE_BYTES = {
+    "float32": 4, "float64": 8, "float16": 2, "bfloat16": 2,
+    "int8": 1, "uint8": 1, "int16": 2, "uint16": 2, "int32": 4,
+    "uint32": 4, "int64": 8, "uint64": 8, "bool": 1,
+    "complex64": 8, "complex128": 16,
+    "float8_e4m3fn": 1, "float8_e5m2": 1,
+}
+
+
+@dataclasses.dataclass
+class Node:
+    """One schedulable unit of the global step DAG."""
+
+    nid: int
+    kind: str                       # "compute" | "comm"
+    dur_us: float
+    rank: Optional[int] = None      # owning rank (None for global comm)
+    tensor: Optional[str] = None
+    op: Optional[str] = None        # α–β op name for comm nodes
+    nbytes: Optional[int] = None
+    ranks: Tuple[int, ...] = ()     # participants (comm nodes)
+    label: str = ""                 # compute-segment identity, cross-rank
+    dag_label: Optional[str] = None  # joined dag.gml node label
+    dtype: Optional[str] = None     # payload dtype (compression pricing)
+
+
+@dataclasses.dataclass
+class StepDAG:
+    """Global DAG for one step: per-rank serial chains threaded through
+    shared comm nodes.  Edges are derived (critical_path.build_edges) so
+    scenarios can restructure (overlap, fusion) without re-stitching."""
+
+    step: int
+    t0_us: float                            # aligned step start (abs µs)
+    nodes: List[Node]
+    chains: Dict[int, List[int]]            # rank -> ordered node ids
+    ready_pred: Dict[int, Dict[int, Optional[int]]]  # comm -> rank -> pred
+    rank_base_us: Dict[int, float]          # rank start rel. to t0
+    measured_span_us: Dict[int, float]      # rank envelope duration
+    world: int
+
+    def node(self, nid: int) -> Node:
+        return self.nodes[nid]
+
+    @property
+    def measured_step_us(self) -> float:
+        """Observed step makespan: latest rank envelope end rel. t0."""
+        return max(self.rank_base_us[r] + self.measured_span_us[r]
+                   for r in self.rank_base_us)
+
+
+@dataclasses.dataclass
+class Artifacts:
+    """Everything the stitcher read out of one trace dir."""
+
+    trace_dir: str
+    ranks: List[int]
+    events: Dict[int, List[dict]]           # clock-aligned, per rank
+    clock_offsets_us: Dict[int, float]
+    clock_aligned: bool
+    shapes: Dict[str, list]
+    dtypes: Dict[str, str]
+    gradient_names: List[str]
+    dag_nodes: List[dict]                   # parsed dag.gml nodes
+    dag_edges: List[Tuple[int, int]]
+    metadata: dict
+    #: per-rank compute-anatomy profiler events (compute.json,
+    #: timeline/profiler.py), clock-aligned like the comm events; empty
+    #: for ranks that never profiled
+    profile_events: Dict[int, List[dict]] = dataclasses.field(
+        default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# artifact loading
+# ---------------------------------------------------------------------------
+_GML_NODE = re.compile(r"node\s*\[(.*?)\]", re.S)
+_GML_EDGE = re.compile(
+    r"edge\s*\[\s*source\s+(\d+)\s+target\s+(\d+)\s*\]", re.S)
+_GML_ATTR = re.compile(r'(\w+)\s+(?:"([^"]*)"|(\S+))')
+
+
+def read_gml(path: str) -> Tuple[List[dict], List[Tuple[int, int]]]:
+    """Minimal reader for the Recorder's dag.gml (inverse of
+    recorder.write_gml; tolerant of the nx.read_gml-compatible subset)."""
+    with open(path) as f:
+        txt = f.read()
+    nodes: List[dict] = []
+    for m in _GML_NODE.finditer(txt):
+        attrs: Dict[str, Any] = {}
+        for am in _GML_ATTR.finditer(m.group(1)):
+            key = am.group(1)
+            val = am.group(2) if am.group(2) is not None else am.group(3)
+            attrs[key] = val
+        if "id" not in attrs:
+            continue
+        node = {"id": int(attrs["id"]),
+                "label": attrs.get("label", ""),
+                "kind": attrs.get("kind", "")}
+        if "shape" in attrs:
+            node["shape"] = [int(d) for d in
+                             re.findall(r"\d+", attrs["shape"])]
+        if "dtype" in attrs:
+            node["dtype"] = attrs["dtype"]
+        nodes.append(node)
+    edges = [(int(s), int(t)) for s, t in _GML_EDGE.findall(txt)]
+    return nodes, edges
+
+
+def _load_json(path: str, default):
+    if not os.path.isfile(path):
+        return default
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (ValueError, OSError):
+        return default
+
+
+def load_artifacts(trace_dir: str) -> Artifacts:
+    """Read every rank's events (clock-aligned when all sidecars exist)
+    plus the first rank's Recorder artifacts (the model structure is
+    SPMD-identical across ranks — per-rank copies are redundancy, not
+    information)."""
+    ranks = discover_ranks(trace_dir)
+    # same all-or-nothing policy as merge_traces (one shared helper, so
+    # the Chrome trace and the replay DAG can never disagree)
+    aligned, shift, offsets = clock_shifts(trace_dir, ranks)
+    events: Dict[int, List[dict]] = {}
+    for rank, path in ranks.items():
+        evs = []
+        for ev in load_rank_events(path):
+            ev = dict(ev)
+            if "ts" in ev:
+                ev["ts"] = float(ev["ts"]) + shift[rank]
+            evs.append(ev)
+        events[rank] = evs
+
+    # compute-anatomy segments (compute.json, timeline/profiler.py):
+    # per rank, shifted onto the same clock as its comm events so the
+    # stitcher can split compute chains at segment boundaries.  An
+    # artifact recorded on the profiler's own 'local' clock shares no
+    # origin with comm.json — splitting at its (meaningless here)
+    # boundaries would misattribute blocks, so the chain stays opaque.
+    profile_events: Dict[int, List[dict]] = {}
+    for rank in ranks:
+        cj = _load_json(os.path.join(trace_dir, str(rank),
+                                     "compute.json"), {})
+        if not isinstance(cj, dict) or cj.get("clock") == "local":
+            cj = {}
+        evs = []
+        for ev in cj.get("events", []):
+            ev = dict(ev)
+            if "ts" in ev:
+                ev["ts"] = float(ev["ts"]) + shift[rank]
+            evs.append(ev)
+        if evs:
+            profile_events[rank] = evs
+
+    shapes: Dict[str, list] = {}
+    dtypes: Dict[str, str] = {}
+    grad_names: List[str] = []
+    dag_nodes: List[dict] = []
+    dag_edges: List[Tuple[int, int]] = []
+    metadata: dict = {}
+    for rank in ranks:
+        d = os.path.join(trace_dir, str(rank))
+        if not shapes:
+            shapes = _load_json(os.path.join(d, "tensor_shapes.json"), {})
+        if not dtypes:
+            dtypes = _load_json(os.path.join(d, "tensor_dtypes.json"), {})
+        if not grad_names:
+            grad_names = _load_json(
+                os.path.join(d, "gradient_name_list.json"), [])
+        if not metadata:
+            metadata = _load_json(os.path.join(d, "metadata.json"), {})
+        gml = os.path.join(d, "dag.gml")
+        if not dag_nodes and os.path.isfile(gml):
+            dag_nodes, dag_edges = read_gml(gml)
+    return Artifacts(
+        trace_dir=os.path.abspath(trace_dir),
+        ranks=sorted(ranks),
+        events=events,
+        clock_offsets_us=offsets,
+        clock_aligned=aligned,
+        shapes=shapes,
+        dtypes=dtypes,
+        gradient_names=grad_names,
+        dag_nodes=dag_nodes,
+        dag_edges=dag_edges,
+        metadata=metadata,
+        profile_events=profile_events,
+    )
+
+
+# ---------------------------------------------------------------------------
+# tensor-name joins
+# ---------------------------------------------------------------------------
+def _dtype_bytes(dtype: Optional[str]) -> int:
+    return _DTYPE_BYTES.get(str(dtype), 4)  # unknown → f32 assumption
+
+
+def join_tensor(tensor: str, art: Artifacts) -> Tuple[Optional[int],
+                                                      Optional[str],
+                                                      Optional[str]]:
+    """``(nbytes, dag_label, dtype)`` for a comm span's tensor name, joined
+    against the Recorder artifacts: exact ``tensor_shapes.json`` key
+    first, then a manifest suffix match (eager dispatch names are often
+    the trailing path component of ``gradients/...`` manifest names),
+    then ``dag.gml`` node labels (``allreduce/<t>`` / ``grad/<t>`` from
+    the structure DAG, or any shaped node whose label matches)."""
+    shape = art.shapes.get(tensor)
+    dtype = art.dtypes.get(tensor)
+    label: Optional[str] = None
+    if shape is None:
+        for name, s in art.shapes.items():
+            if name.endswith("/" + tensor) or name.split(".")[0] == tensor:
+                shape, dtype = s, art.dtypes.get(name)
+                break
+    if shape is None:
+        for node in art.dag_nodes:
+            nl = str(node.get("label", ""))
+            if nl == tensor or nl in (f"allreduce/{tensor}",
+                                      f"grad/{tensor}") \
+                    or nl.endswith("/" + tensor):
+                label = nl
+                if "shape" in node:
+                    shape = node["shape"]
+                    dtype = node.get("dtype", dtype)
+                    break
+    else:
+        # comm spans join the collective op node first, then the bare
+        # tensor, then the gradient input (structure_dag vocabulary)
+        labels = {str(n.get("label", "")) for n in art.dag_nodes}
+        for cand in (f"allreduce/{tensor}", tensor, f"grad/{tensor}"):
+            if cand in labels:
+                label = cand
+                break
+    if shape is None:
+        return None, label, dtype
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n * _dtype_bytes(dtype), label, dtype
+
+
+# ---------------------------------------------------------------------------
+# per-rank span extraction
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _CommSpan:
+    tensor: str
+    op: str                   # α–β name
+    start_us: float
+    dur_us: float
+    ready_us: float           # this rank's NEGOTIATE "B" (arrival)
+
+
+def _rank_step_windows(events: List[dict]) -> List[Tuple[int, float, float]]:
+    """(step_no, t0, t1) windows from STEP spans; a trace without STEP
+    spans is treated as one step 0 covering everything."""
+    wins = []
+    lo, hi = None, None
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        ts = float(ev.get("ts", 0.0))
+        end = ts + float(ev.get("dur", 0.0))
+        lo = ts if lo is None else min(lo, ts)
+        hi = end if hi is None else max(hi, end)
+        if ev.get("name") == "STEP":
+            m = re.search(r"(\d+)$", str(ev.get("cat", "")))
+            step_no = int(m.group(1)) if m else len(wins)
+            wins.append((step_no, ts, end))
+    if wins:
+        return sorted(wins)
+    if lo is None:
+        return []
+    return [(0, lo, hi)]
+
+
+def _extract_comm_spans(events: List[dict], t0: float,
+                        t1: float) -> List[_CommSpan]:
+    """Ordered comm spans inside one step window, each paired with the
+    latest same-tensor NEGOTIATE arrival at or before its start (no
+    negotiation recorded → ready at span start)."""
+    readies: Dict[str, List[float]] = {}
+    spans: List[_CommSpan] = []
+    for ev in events:
+        name = str(ev.get("name", ""))
+        ts = float(ev.get("ts", 0.0))
+        if not (t0 - 1e-6 <= ts <= t1 + 1e-6):
+            continue
+        tensor = str(ev.get("cat") or ev.get("tid") or "")
+        if name.startswith(NEGOTIATE_PREFIX):
+            ph = ev.get("ph")
+            if ph in ("B", "X"):     # X: complete-span negotiation form
+                readies.setdefault(tensor, []).append(ts)
+            continue
+        if ev.get("ph") == "X" and name in COMM_OPS:
+            spans.append(_CommSpan(
+                tensor=tensor, op=COMM_OPS[name], start_us=ts,
+                dur_us=float(ev.get("dur", 0.0)), ready_us=ts))
+    spans.sort(key=lambda s: s.start_us)
+    for s in spans:
+        cands = [r for r in readies.get(s.tensor, ())
+                 if r <= s.start_us + 1e-6]
+        if cands:
+            r = max(cands)
+            readies[s.tensor].remove(r)
+            s.ready_us = r
+    return spans
+
+
+# ---------------------------------------------------------------------------
+# DAG construction
+# ---------------------------------------------------------------------------
+def _profile_segments(events: List[dict]) -> List[Tuple[str, float, float]]:
+    """``(name, start, end)`` of one rank's profiler segment spans
+    (compute.json events minus the STEP envelopes), start-ordered."""
+    segs = []
+    for ev in events:
+        name = str(ev.get("name", ""))
+        if ev.get("ph") != "X" or not name or name == "STEP":
+            continue
+        ts = float(ev.get("ts", 0.0))
+        segs.append((name, ts, ts + float(ev.get("dur", 0.0))))
+    segs.sort(key=lambda s: s[1])
+    return segs
+
+
+def _split_compute(segs: List[Tuple[str, float, float]], lo: float,
+                   hi: float, base_label: str) -> List[Tuple[str, float]]:
+    """Split one compute range ``[lo, hi)`` at the profiler-segment
+    boundaries inside it: each overlapping segment becomes its own
+    ``<base>|<name>`` piece (clipped to the range) and uncovered time
+    becomes ``<base>|host<j>`` — so the replay DAG, the critical path,
+    and what-ifs like remove_straggler attribute to *blocks*, not
+    opaque per-rank chains.  Piece durations always sum to ``hi − lo``
+    (the measured totals the calibrated replay depends on); with no
+    overlapping segments the range stays ONE node under its original
+    label, so unprofiled traces stitch exactly as before."""
+    pieces: List[Tuple[str, float]] = []
+    cursor, host_i = lo, 0
+    for name, s, e in segs:
+        if e <= lo + 1e-9 or s >= hi - 1e-9:
+            continue
+        s2, e2 = max(s, cursor), min(e, hi)
+        if e2 <= s2 + 1e-9:
+            continue
+        if s2 > cursor + 1e-9:
+            pieces.append((f"{base_label}|host{host_i}", s2 - cursor))
+            host_i += 1
+        pieces.append((f"{base_label}|{name}", e2 - s2))
+        cursor = e2
+    if not pieces:
+        return [(base_label, hi - lo)]
+    if hi > cursor + 1e-9:
+        pieces.append((f"{base_label}|host{host_i}", hi - cursor))
+    return pieces
+
+
+def build_step_dag(art: Artifacts, step_no: int,
+                   windows: Dict[int, Tuple[float, float]]) -> StepDAG:
+    """One global DAG for ``step_no`` given each rank's step window."""
+    t0 = min(w[0] for w in windows.values())
+    nodes: List[Node] = []
+    chains: Dict[int, List[int]] = {}
+    ready_pred: Dict[int, Dict[int, Optional[int]]] = {}
+    rank_base: Dict[int, float] = {}
+    span_us: Dict[int, float] = {}
+    # comm key (tensor, occurrence) -> comm node id
+    comm_ids: Dict[Tuple[str, int], int] = {}
+
+    def add(node: Node) -> int:
+        node.nid = len(nodes)
+        nodes.append(node)
+        return node.nid
+
+    for rank in art.ranks:
+        r_t0, r_t1 = windows[rank]
+        rank_base[rank] = r_t0 - t0
+        span_us[rank] = r_t1 - r_t0
+        spans = _extract_comm_spans(art.events[rank], r_t0, r_t1)
+        prof_segs = _profile_segments(art.profile_events.get(rank, []))
+        chain: List[int] = []
+        occ: Dict[str, int] = {}
+        cursor = r_t0
+        for s in spans:
+            k = occ.get(s.tensor, 0)
+            occ[s.tensor] = k + 1
+            seg = s.ready_us - cursor
+            if seg > 1e-9:
+                for lbl, dur in _split_compute(prof_segs, cursor,
+                                               s.ready_us,
+                                               f"pre:{s.tensor}:{k}"):
+                    chain.append(add(Node(0, "compute", dur, rank=rank,
+                                          label=lbl)))
+            key = (s.tensor, k)
+            if key not in comm_ids:
+                nbytes, dag_label, dtype = join_tensor(s.tensor, art)
+                comm_ids[key] = add(Node(
+                    0, "comm", s.dur_us, tensor=s.tensor, op=s.op,
+                    nbytes=nbytes, dag_label=dag_label, dtype=dtype,
+                    label=f"comm:{s.tensor}:{k}"))
+                ready_pred[comm_ids[key]] = {}
+            cid = comm_ids[key]
+            cnode = nodes[cid]
+            cnode.dur_us = max(cnode.dur_us, s.dur_us)  # sync collective
+            cnode.ranks = tuple(sorted(set(cnode.ranks) | {rank}))
+            ready_pred[cid][rank] = chain[-1] if chain else None
+            chain.append(cid)
+            cursor = s.start_us + s.dur_us
+        tail = r_t1 - cursor
+        if tail > 1e-9:
+            for lbl, dur in _split_compute(prof_segs, cursor, r_t1,
+                                           "tail"):
+                chain.append(add(Node(0, "compute", dur, rank=rank,
+                                      label=lbl)))
+        chains[rank] = chain
+
+    return StepDAG(
+        step=step_no, t0_us=t0, nodes=nodes, chains=chains,
+        ready_pred=ready_pred, rank_base_us=rank_base,
+        measured_span_us=span_us, world=len(art.ranks),
+    )
+
+
+def stitch(trace_dir: str,
+           last_steps: Optional[int] = None
+           ) -> Tuple[Artifacts, List[StepDAG]]:
+    """Artifacts + one StepDAG per step observed on EVERY rank (a step
+    captured on a subset of ranks — a truncated trace — can't be
+    globally replayed and is dropped).
+
+    ``last_steps`` builds DAGs for only the N newest common steps — the
+    in-job tuner's window-cadence path, where constructing the whole
+    accumulated history each window would grow with the job.  (The
+    per-rank event files are still parsed in full; the DAG builds are
+    the dominant cost.)"""
+    art = load_artifacts(trace_dir)
+    per_rank_windows: Dict[int, Dict[int, Tuple[float, float]]] = {}
+    for rank in art.ranks:
+        per_rank_windows[rank] = {
+            step: (lo, hi)
+            for step, lo, hi in _rank_step_windows(art.events[rank])
+        }
+    common = None
+    for rank, wins in per_rank_windows.items():
+        common = set(wins) if common is None else common & set(wins)
+    wanted = sorted(common or ())
+    if last_steps is not None and last_steps > 0:
+        wanted = wanted[-last_steps:]
+    dags = []
+    for step_no in wanted:
+        windows = {r: per_rank_windows[r][step_no] for r in art.ranks}
+        dags.append(build_step_dag(art, step_no, windows))
+    return art, dags

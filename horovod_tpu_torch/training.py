@@ -51,17 +51,35 @@ as a segment, ``in_graph_steps`` times a call.  They update the same
 state tensors in place that the captured graph reads, so the replays
 after the window resume from the updated state.
 
-Knobs whose slice has not landed yet (``autotune``, ``profile_guided``,
-``donate=False``, and their ``HVD_*`` environment defaults) raise
-``NotImplementedError``; none is silently ignored.
+The tuners move the step's knobs through one rebuild seam (the
+reference's re-jit): ``autotune=True`` (``HVD_AUTOTUNE``) runs the GP
+``ParameterManager`` (``optim/autotune.py``) over the fusion threshold
+and hierarchical flag (and, with ``HVD_AUTOTUNE_COMPUTE``, the fused
+optimizer and remat), and ``profile_guided=True``
+(``HVD_AUTOTUNE_PROFILE_GUIDED``) the replay-driven loop
+(``optim/profile_guided.py``: measure a window, plan from the job's own
+trace and the profiler's anatomy, apply, verify or roll back).  A
+rebuild builds a fresh :class:`_CompiledStep` for the new knobs —
+threshold, named buckets, per-bucket compression, hierarchical, the
+fused optimizer, remat — which captures its CUDA graph again on its
+second call, and releases the old graph and its memory pool; a knob set
+whose build equals the live one (only the host-side loss-fetch cadence
+moved) keeps the live step.  While a tuner measures, every call is
+synced with ``loss.item()`` for honest timing.
+
+``donate=False`` runs the step on a private copy of the state through
+``torch.func.functional_call``: each call returns a new state and leaves
+the caller's untouched.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -87,6 +105,9 @@ from .utils.logging import get_logger
 from .utils.tree import tree_flatten
 
 log = get_logger(__name__)
+
+#: the tuners' clock (the interval between calls, a call's time)
+_clock = time.perf_counter
 
 
 class TrainState(NamedTuple):
@@ -262,6 +283,9 @@ class _CompiledStep:
         self.k = k
         self.calls = calls if calls is not None \
             else {"eager": 0, "capture": 0, "replay": 0}
+        #: this step's own calls by kind (``calls`` may be shared by the
+        #: steps one train step rebuilds)
+        self.own_calls = {"eager": 0, "capture": 0, "replay": 0}
         self.epoch = core.epoch() if core.is_initialized() else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: tuple = ()
@@ -271,6 +295,20 @@ class _CompiledStep:
         self.recorded = False
         self.bound: List[int] = []
         self.loss: Optional[torch.Tensor] = None
+
+    def _count(self, kind: str) -> None:
+        self.calls[kind] += 1
+        self.own_calls[kind] += 1
+
+    def release(self) -> None:
+        """Drop the captured graph, its memory pool and its static
+        inputs (a rebuild replaced this step)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.inputs = ()
+        self.loss = None
+        self.bound = []
 
     def check_world(self) -> None:
         """A step built for a world that reinit() has replaced raises: its
@@ -284,7 +322,7 @@ class _CompiledStep:
 
     def eager(self, state: TrainState, x, y, record: bool = False):
         self.check_world()
-        self.calls["eager"] += 1
+        self._count("eager")
         self.warm = True
         with metrics.traced_recording(record):
             return self.entry(state, x, y)
@@ -302,7 +340,7 @@ class _CompiledStep:
         return self._capture(state, x, y)
 
     def _warm_up(self, state, x, y):
-        side = torch.cuda.Stream()
+        side = _side_stream(torch.cuda.current_device())
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             state, loss = self.eager(state, x, y)
@@ -320,7 +358,7 @@ class _CompiledStep:
         self.recorded = True
         self.graph = graph
         graph.replay()
-        self.calls["capture"] += 1
+        self._count("capture")
         return state, self.loss.clone()
 
     def _replay(self, state, x, y):
@@ -337,26 +375,21 @@ class _CompiledStep:
                     f"{tuple(given.shape)} and {given.dtype}")
             static.copy_(given)
         self.graph.replay()
-        self.calls["replay"] += 1
+        self._count("replay")
         return state._replace(step=state.step + self.k), self.loss.clone()
 
 
-def _not_ported(knob: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"make_train_step: {knob} is not ported yet (it lands with a later "
-        "slice of horovod_tpu_torch)")
+#: the warm-up side stream of each card, one for every step built: a
+#: new stream a step would give cuBLAS a new workspace, which it keeps
+#: for each stream it meets for the life of the process — 65 MiB more
+#: memory allocated a rebuild on an H100
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
-def _refuse_unported(*, autotune, profile_guided, donate):
-    if autotune or (autotune is None
-                    and env_util.get_bool(env_util.HVD_AUTOTUNE)):
-        raise _not_ported("autotune")
-    if profile_guided or (profile_guided is None and env_util.get_bool(
-            env_util.HVD_AUTOTUNE_PROFILE_GUIDED)):
-        raise _not_ported("profile_guided tuning")
-    if not donate:
-        raise _not_ported("donate=False (the port updates the state in "
-                          "place)")
+def _side_stream(device: int) -> "torch.cuda.Stream":
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 def _per_leaf(fn: Callable, grads: Dict[str, torch.Tensor]):
@@ -445,6 +478,15 @@ def make_train_step(
       the matrix products' outputs and recomputes the rest).
     * ``loss_fetch_steps`` (default ``HVD_LOSS_FETCH_STEPS``, 16) drives
       ``step.loss_fetcher``.
+    * ``donate`` (default True) updates the caller's state in place;
+      False leaves it untouched and returns a new state (module
+      docstring).
+    * ``autotune`` (default ``HVD_AUTOTUNE``) and ``profile_guided``
+      (default ``HVD_AUTOTUNE_PROFILE_GUIDED``) run the tuners through
+      the rebuild seam (module docstring); ``step.parameter_manager`` and
+      ``step.profile_guided_tuner`` are they (None when off),
+      ``step.builds`` the knob sets built so far, the first the initial
+      one; ``autotune_log_file`` is the GP's CSV log.
 
     * ``profile`` (default ``HVD_PROFILE``) runs the compute-anatomy
       profiler over its window (module docstring); ``step.profiler`` is
@@ -458,25 +500,13 @@ def make_train_step(
     ``replay``; a profiled call is none of them).  A step built before
     :func:`core.reinit` raises on its next call.
     """
-    del has_batch_stats, autotune_log_file
+    del has_batch_stats
     if compression is None:
         compression = _compression_from_env()
     if two_level is None:
         two_level = use_two_level_default()
-    _refuse_unported(autotune=autotune, profile_guided=profile_guided,
-                     donate=donate)
     if op != Adasum:
         collectives.reduce_op(op)  # an unknown op raises here
-    # error feedback threads the residual on the fused path only; the
-    # leaf-by-leaf two-level path gives the inner compressor, the
-    # hierarchical one none (as in the reference)
-    ef = isinstance(compression, ErrorFeedback) and not hierarchical \
-        and not two_level
-    if ef and op == Adasum:
-        raise ValueError(
-            "error-feedback compression composes with Sum/Average "
-            "allreduce, not Adasum (the scale-invariant merge is not "
-            "linear in the residual)")
     fusable = isinstance(optimizer, FusedOptimizer)
     if not fusable and not isinstance(optimizer, Transform):
         raise TypeError(
@@ -497,27 +527,23 @@ def make_train_step(
     fetcher = TrailingLossFetcher(loss_fetch_steps)
     k = max(in_graph_steps, 1)
     profiler = _profiler(profile)
+    # donate=False: the step runs on a private copy of the state through
+    # torch.func.functional_call (module tensor names by flax key)
+    private = None if donate else _PrivateState(apply_fn)
+
+    def _forward(x):
+        if private is None:
+            return apply_fn(x)
+        return torch.func.functional_call(apply_fn, private.tensors(), (x,))
 
     def _compute_loss(x, y):
-        return loss_fn(apply_fn(x), y)
+        return loss_fn(_forward(x), y)
 
     def _module_buffers() -> List[torch.Tensor]:
+        if private is not None:
+            return private.buffers()
         return list(apply_fn.buffers()) if isinstance(apply_fn, nn.Module) \
             else []
-
-    compute_loss = _remat_wrap(_compute_loss, remat, _module_buffers)
-
-    def _apply_update(state: TrainState, grads) -> TrainState:
-        if fused_optimizer:
-            params, opt_state = optimizer.fused_update(
-                grads, state.opt_state, state.params)
-        else:
-            updates, opt_state = optimizer.update(
-                grads, state.opt_state, state.params)
-            apply_updates(state.params, updates)
-            params = state.params
-        return TrainState(params, opt_state, state.model_state,
-                          state.step + 1, state.residual)
 
     def _grads(state: TrainState, loss):
         names = list(state.params)
@@ -535,26 +561,44 @@ def make_train_step(
                 residual=ErrorFeedback.init_state(state.params))
         return state
 
-    def build(comp, ef_on: bool) -> _CompiledStep:
-        """The compiled step reducing with ``comp`` (error feedback when
-        ``ef_on``), with its blocks as the profiler's segments
-        (``.segments``)."""
+    def build(kn: Dict[str, Any]) -> _CompiledStep:
+        """The compiled step for one knob set ``kn`` (the rebuild seam's
+        unit: threshold, named buckets, per-bucket compression,
+        hierarchical / two-level, the fused optimizer, remat), with its
+        blocks as the profiler's segments (``.segments``)."""
+        comp, ef_on = kn["compression"], kn["ef"]
+        compute_loss = _remat_wrap(_compute_loss, kn["remat"],
+                                   _module_buffers)
+
+        def _apply_update(state: TrainState, grads) -> TrainState:
+            if kn["fused"]:
+                params, opt_state = optimizer.fused_update(
+                    grads, state.opt_state, state.params)
+            else:
+                updates, opt_state = optimizer.update(
+                    grads, state.opt_state, state.params)
+                apply_updates(state.params, updates)
+                params = state.params
+            return TrainState(params, opt_state, state.model_state,
+                              state.step + 1, state.residual)
+
         def _reduce_grads(grads, residual):
-            if two_level:
+            if kn["two_level"]:
                 return _per_leaf(lambda g: two_level_allreduce(
                     g, op=op, compression=comp), grads)
-            if hierarchical:
+            if kn["hierarchical"]:
                 return _per_leaf(lambda g: hierarchical_allreduce(
                     g, op=op), grads)
             if op == Adasum:
                 return _per_leaf(lambda g: collectives.allreduce(
                     g, op=Adasum, compression=comp), grads)
+            fuse = {"op": op, "compression": comp,
+                    "threshold_bytes": kn["threshold"],
+                    "named_buckets": kn["named"],
+                    "bucket_compression": kn["bucket_compression"]}
             if not ef_on:
-                return allreduce_pytree(grads, op=op, compression=comp,
-                                        threshold_bytes=threshold_bytes)
-            grads, new = allreduce_pytree(
-                grads, op=op, compression=comp,
-                threshold_bytes=threshold_bytes, residual=residual)
+                return allreduce_pytree(grads, **fuse)
+            grads, new = allreduce_pytree(grads, residual=residual, **fuse)
             with torch.no_grad():  # in place: a captured graph is bound
                 for r, n in zip(tree_flatten(residual)[0],
                                 tree_flatten(new)[0]):
@@ -600,8 +644,123 @@ def make_train_step(
         return compiled
 
     calls = {"eager": 0, "capture": 0, "replay": 0}
-    box = {"compiled": build(compression, ef), "ef": ef, "calls": 0,
-           "guard": None}
+    #: the live build and its knobs: ``compiled``, the knob set of the
+    #: last rebuild (``threshold``, ``hier``, ``plan``), the base compute
+    #: knobs the GP moves (``fused_base``, ``remat_base``), the wire
+    #: format (``compression``; none after a guard trip) and the build's
+    #: signature (``build_sig``)
+    box: Dict[str, Any] = {"fused_base": fused_optimizer,
+                           "remat_base": remat, "compression": compression,
+                           "compiled": None, "ef": False, "calls": 0,
+                           "guard": None, "profiled_last": False}
+    #: one entry a build: its knobs (the first is the initial build)
+    builds: List[Dict[str, Any]] = []
+    fetcher_base_every = fetcher.every
+
+    def _rebuild(threshold_b, hier, plan=None, fused=None, remat_p=None):
+        """(Re)build the compiled step for a knob set: the reference's
+        re-jit seam, where the port builds a fresh ``_CompiledStep`` (its
+        CUDA graph is captured again on its second call) and releases
+        the old one's graph and memory pool.  ``plan`` is a
+        profile-guided ``FusionPlanSpec``: its explicit buckets override
+        the scalar threshold, its per-bucket ``compression`` names the
+        wire formats, and its ``compute`` dict the compute knobs (a
+        compute-only plan has no buckets).  ``fused`` / ``remat_p`` move
+        the base compute knobs (the GP tuner's categorical dimensions);
+        None leaves them.  A knob set whose build would be the same as
+        the live one (a plan that moves only the host-side loss-fetch
+        cadence, or its rollback) keeps the live step: no capture."""
+        if fused is not None:
+            box["fused_base"] = fused
+        if remat_p is not None:
+            box["remat_base"] = None if remat_p == "none" else remat_p
+        pc = (getattr(plan, "compute", None) or {}) \
+            if plan is not None else {}
+        fused_eff = bool(pc.get("fused_optimizer", box["fused_base"])) \
+            and fusable
+        remat_eff = _resolve_remat(pc.get("remat_policy",
+                                          box["remat_base"]) or "none")
+        # the loss-fetch cadence is host-side: the plan moves it without
+        # a rebuild, rollback restores the base
+        fetcher.every = max(int(pc.get("loss_fetch_steps",
+                                       fetcher_base_every)), 0)
+        named = plan.buckets if plan is not None and plan.buckets \
+            else None
+        bucket_comp = getattr(plan, "compression", None) \
+            if plan is not None else None
+        if bucket_comp is not None and box.get("guard_tripped"):
+            # the guard condemned compression in this job: later plans
+            # keep their fusion layout but ship uncompressed
+            bucket_comp = None
+        if bucket_comp is not None and any(bucket_comp) and k > 1:
+            log.info("profile-guided plan carries per-bucket compression "
+                     "but in_graph_steps > 1 has no residual carry — "
+                     "applying the fusion layout uncompressed")
+            bucket_comp = None
+        comp = box["compression"]
+        # an explicit bucket plan owns the comm layout: the hierarchical
+        # and two-level paths reduce per leaf and would drop it
+        hier_eff = bool(hier) and named is None
+        tlvl = bool(two_level) and named is None
+        plan_comp = bucket_comp is not None and any(bucket_comp) \
+            and env_util.get_bool(env_util.HVD_COMPRESSION_ERROR_FEEDBACK,
+                                  True)
+        ef_on = (isinstance(comp, ErrorFeedback) or plan_comp) \
+            and not hier_eff and not tlvl
+        if ef_on and op == Adasum:
+            raise ValueError(
+                "error-feedback compression composes with Sum/Average "
+                "allreduce, not Adasum (the scale-invariant merge is not "
+                "linear in the residual)")
+        sig = (threshold_b, hier_eff,
+               tuple(tuple(b) for b in named) if named else None,
+               tuple(bucket_comp) if bucket_comp else None, id(comp), tlvl,
+               fused_eff, remat_eff)
+        if sig == box.get("build_sig"):
+            box["plan"] = plan
+            return
+        knobs = {"threshold": threshold_b, "named": named,
+                 "bucket_compression": bucket_comp, "compression": comp,
+                 "ef": ef_on, "hierarchical": hier_eff, "two_level": tlvl,
+                 "fused": fused_eff, "remat": remat_eff}
+        old = box["compiled"]
+        box.update(compiled=build(knobs), threshold=threshold_b, hier=hier,
+                   plan=plan, ef=ef_on, build_sig=sig)
+        if old is not None:
+            old.release()
+        builds.append({**{k_: v for k_, v in knobs.items()
+                          if k_ != "compression"},
+                       "calls": box["compiled"].own_calls})
+
+    if autotune is None:
+        autotune = env_util.get_bool(env_util.HVD_AUTOTUNE)
+    pm = None
+    if autotune:
+        from .optim.autotune import ParameterManager, TunableParams
+
+        initial = TunableParams(
+            fusion_threshold_bytes=threshold_bytes
+            or env_util.fusion_threshold_bytes(),
+            hierarchical_allreduce=hierarchical,
+            fused_optimizer=fused_optimizer if fusable else None,
+            remat_policy=remat,
+        )
+        # HVD_AUTOTUNE_COMPUTE widens the GP rotation to the compute
+        # knobs — fused_optimizer only where the optimizer can fuse
+        tune_compute = env_util.get_bool(env_util.HVD_AUTOTUNE_COMPUTE)
+        pm = ParameterManager(
+            enabled=True, log_file=autotune_log_file, initial=initial,
+            tune_fused_optimizer=tune_compute and fusable,
+            tune_remat=tune_compute,
+        )
+        pm.on_update = lambda p: _rebuild(
+            p.fusion_threshold_bytes, p.hierarchical_allreduce,
+            p.fusion_plan, fused=p.fused_optimizer, remat_p=p.remat_policy)
+        _rebuild(initial.fusion_threshold_bytes,
+                 initial.hierarchical_allreduce)
+    else:
+        _rebuild(threshold_bytes, hierarchical)
+
     guard_steps = env_util.get_int(env_util.HVD_COMPRESSION_GUARD_STEPS,
                                    env_util.DEFAULT_COMPRESSION_GUARD_STEPS)
     #: the guard's reads of the residual norm, its trips, the last norm
@@ -632,8 +791,8 @@ def make_train_step(
         """Every ``guard_steps`` calls with error feedback on: one read of
         the residual's norm (one sync, after the call), exported as
         ``hvd_compression_residual_norm``; a divergence rebuilds the step
-        without compression, counted and recorded as a
-        ``compression.fallback`` event."""
+        without compression (the live plan keeps its fusion layout),
+        counted and recorded as a ``compression.fallback`` event."""
         if not box["ef"] or guard_steps <= 0:
             return
         box["calls"] += 1
@@ -671,8 +830,12 @@ def make_train_step(
             raise
         except Exception:  # noqa: BLE001 — recording is best-effort
             pass
-        box["ef"] = False
-        box["compiled"] = build(Compression.none, False)
+        box["guard_tripped"] = True
+        box["compression"] = Compression.none
+        plan = box.get("plan")
+        if plan is not None and getattr(plan, "compression", None):
+            plan = dataclasses.replace(plan, compression=None)
+        _rebuild(box["threshold"], box["hier"], plan)
 
     profile_losses: List[float] = []
 
@@ -743,11 +906,15 @@ def make_train_step(
                 _record_step_metrics(x)
             # a call in the profiler's window takes the decomposed path,
             # inside the same timeline STEP span as any other call
-            if profiler is not None and profiler.on_step():
+            box["profiled_last"] = profiler is not None \
+                and profiler.on_step()
+            if box["profiled_last"]:
                 run = _profiled_step
             else:
                 compiled = box["compiled"]
                 run = compiled.eager if eager else compiled
+            if private is not None:
+                state = private.load(state)
             if timeline.active:
                 timeline.record_step(owner="train_step")
                 timeline.mark_cycle_start()
@@ -757,18 +924,219 @@ def make_train_step(
                 state, loss = run(state, x, y)
             _maybe_guard(state)
             fetcher.push(loss)
+            if private is not None:
+                state = private.store(state)
             return state, loss
 
         return call
 
     step = fetching(False)
+
+    # the profile-guided loop (optim/profile_guided.py): analyze the job's
+    # own trace window, apply the winning plan through the same rebuild
+    # seam, verify realized against predicted over the next window
+    if profile_guided is None:
+        profile_guided = env_util.get_bool(
+            env_util.HVD_AUTOTUNE_PROFILE_GUIDED)
+    tuner = None
+    if profile_guided:
+        from .optim.profile_guided import tuner_from_env
+
+        trace_dir = env_util.get_str(env_util.HVD_TIMELINE) or \
+            env_util.get_str(env_util.HVD_TRACE_DIR)
+
+        def _analyze():
+            if not trace_dir:
+                return None
+            from .timeline.replay import analyze
+
+            # the latest step only: every rank's steps share one DAG
+            # shape, and a per-window caller must not replay the whole
+            # accumulated trace
+            return analyze(trace_dir, last_steps=1).summary
+
+        def _apply_plan(plan):
+            if pm is not None:
+                if plan is not None:
+                    pm.apply_plan(plan)
+                else:
+                    pm.clear_plan()
+            else:
+                _rebuild(box["threshold"], box["hier"], plan)
+
+        def _anatomy():
+            """The compute tier's plan source: the in-job profiler's
+            anatomy when a window has finalized, else this rank's
+            compute.json from an earlier run of the same trace dir."""
+            if profiler is not None and profiler.anatomy is not None:
+                return profiler.anatomy
+            if trace_dir:
+                from .timeline.profiler import own_rank_anatomy
+
+                return own_rank_anatomy(trace_dir)
+            return None
+
+        # knobs the base config already has on are not plan candidates;
+        # loss_fetch_steps never is in-job: the tuner's windows sync
+        # every step for honest timing, which is what the knob removes
+        active = {"loss_fetch_steps": fetcher.every}
+        if fused_optimizer:
+            active["fused_optimizer"] = True
+        tuner = tuner_from_env(_analyze, _apply_plan, anatomy_fn=_anatomy,
+                               fused_available=fusable,
+                               active_compute=active)
+        if not trace_dir:
+            log.warning(
+                "profile-guided tuning enabled without HVD_TIMELINE/"
+                "HVD_TRACE_DIR: no trace window to analyze, the tuner "
+                "will idle in its baseline phase")
+
+    if pm is not None or tuner is not None:
+        step = _autotuned(step, box, pm, tuner, k)
     step.eager = fetching(True)
     step.calls = calls
     step.loss_fetcher = fetcher
     step.guard = guard
     step.profiler = profiler
     step.profile_losses = profile_losses
+    step.builds = builds
+    step.parameter_manager = pm
+    step.profile_guided_tuner = tuner
     return step
+
+
+def _autotuned(inner: Callable, box: Dict[str, Any], pm, tuner,
+               k: int) -> Callable:
+    """``inner`` (the step) under the tuners: the profile-guided loop
+    gets the interval between calls (the profiler's window calls left
+    out), and the step syncs its loss while that loop measures; while
+    the GP tunes, every call is synced (``loss.item()``) and timed, the
+    time averaged across processes so every rank scores the same and
+    moves its knobs identically, and fed to the ParameterManager as
+    gradient bytes over seconds."""
+    warm_start = env_util.get_bool(env_util.HVD_AUTOTUNE_WARM_START, True)
+    last = [0.0]
+
+    def step_autotuned(state: TrainState, x, y):
+        if tuner is not None and tuner.active:
+            now = _clock()
+            if last[0] and not box["profiled_last"]:
+                tuner.on_step(now - last[0])
+            last[0] = now
+        if pm is None or pm.frozen:
+            state, loss = inner(state, x, y)
+            if tuner is not None and tuner.measuring:
+                loss.item()  # honest timing in the measuring windows
+            return state, loss
+        if "grad_bytes" not in box:
+            # per-call all-reduce volume: the gradients' bytes, once per
+            # step of the call
+            box["grad_bytes"] = float(_nbytes(state.params)) * k
+        if warm_start and not box.get("warm_started"):
+            # seed the GP with the α–β model's predicted scores
+            box["warm_started"] = True
+            from .optim.profile_guided import warm_start_manager
+
+            warm_start_manager(pm, box["grad_bytes"])
+        t0 = _clock()
+        state, loss = inner(state, x, y)
+        loss.item()  # honest timing while tuning
+        dt = _clock() - t0
+        if box["profiled_last"]:
+            # a profiler-window call ran the decomposed path: not this
+            # knob vector's step time
+            return state, loss
+        if core.process_size() > 1:
+            # synchronize the measurement instead of the decision
+            from . import eager
+
+            dt = float(eager.process_allreduce(
+                np.asarray([dt], np.float64), op=Average,
+                name="autotune.step_time")[0])
+        pm.record_step(box["grad_bytes"], dt)
+        return state, loss
+
+    return step_autotuned
+
+
+class _PrivateState:
+    """The state ``donate=False`` steps run on: the step's own copy of
+    the caller's state (parameters, statistics, optimizer state and
+    residual), made on the first call and overwritten from the caller's
+    on every later one, so a captured graph stays bound to it.  The model
+    runs on it through ``torch.func.functional_call``; the module's
+    buffers that the state does not hold (BatchNorm's
+    ``num_batches_tracked``, or statistics without ``has_batch_stats``)
+    are copied once and live here too.  Each call returns a new state,
+    a copy of this one, and leaves the caller's as it was."""
+
+    def __init__(self, model):
+        if not isinstance(model, nn.Module):
+            raise TypeError("donate=False runs the model through "
+                            "torch.func.functional_call: apply_fn must be "
+                            "an nn.Module")
+        self.model = model
+        ids = {id(t): n for n, t in model.named_parameters()}
+        self.param_names = {key: ids[id(t)] for key, t in
+                            canonical_params(model).items()}
+        bufs = {id(t): n for n, t in model.named_buffers()}
+        self.buffer_names = {key: bufs[id(t)] for key, t in
+                             canonical_batch_stats(model).items()}
+        self.state: Optional[TrainState] = None
+        self.extra: Dict[str, torch.Tensor] = {}
+
+    def load(self, given: TrainState) -> TrainState:
+        if self.state is None:
+            self.state = _copy_state(given)
+            held = {self.buffer_names[key] for key in given.model_state}
+            self.extra = {n: b.detach().clone() for n, b in
+                          self.model.named_buffers() if n not in held}
+        else:
+            with torch.no_grad():
+                for dst, src in zip(_state_tensors(self.state),
+                                    _state_tensors(given)):
+                    dst.copy_(src)
+            self.state = self.state._replace(step=given.step)
+        return self.state
+
+    def store(self, out: TrainState) -> TrainState:
+        self.state = out
+        return _copy_state(out)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        t = {self.param_names[key]: p for key, p in self.state.params.items()}
+        t.update({self.buffer_names[key]: b
+                  for key, b in self.state.model_state.items()})
+        t.update(self.extra)
+        return t
+
+    def buffers(self) -> List[torch.Tensor]:
+        return [*self.state.model_state.values(), *self.extra.values()]
+
+
+def _copy_tree(node):
+    """``node`` (nested dicts, lists, tuples and named tuples of tensors)
+    with every tensor copied, structure and order kept."""
+    if torch.is_tensor(node):
+        return node.detach().clone()
+    if isinstance(node, dict):
+        return {key: _copy_tree(v) for key, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_copy_tree(v) for v in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_copy_tree(v) for v in node)
+    return node
+
+
+def _copy_state(state: TrainState) -> TrainState:
+    """A state of new tensors equal to ``state``'s (parameters stay
+    leaves that require grad)."""
+    return TrainState(
+        params={key: p.detach().clone().requires_grad_(p.requires_grad)
+                for key, p in state.params.items()},
+        opt_state=_copy_tree(state.opt_state),
+        model_state=_copy_tree(state.model_state),
+        step=state.step, residual=_copy_tree(state.residual))
 
 
 def init_train_state(model: nn.Module,

@@ -1,10 +1,11 @@
 """Environment-variable knobs the port reads, and their parsing.
 
-The port's own copy of the part of ``horovod_tpu/utils/env.py`` this
-slice needs: the same knob names, defaults and parsing rules, so one
-environment drives either package.  Knobs of features that have not been
-ported yet are listed too, because the port refuses them when they are
-set instead of ignoring them (``training.make_train_step``).
+The port's own copy of the part of ``horovod_tpu/utils/env.py`` the
+port needs: the same knob names and parsing rules, so one environment
+drives either package.  The defaults are the reference's, but the link
+model's, which are the H100's (``timeline/comm_report.py``).  Knobs of
+features that have not been ported yet are listed too, because the port
+refuses them when they are set instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -72,13 +73,34 @@ HVD_EVENTS = "HVD_EVENTS"                              # 0 disables the recorder
 HVD_EVENTS_RING_CAP = "HVD_EVENTS_RING_CAP"            # per-process ring capacity, events (default 1024)
 HVD_EVENTS_FLUSH_SECONDS = "HVD_EVENTS_FLUSH_SECONDS"  # worker-side flusher cadence (pushes: not ported)
 HVD_EVENTS_SERVER_CAP = "HVD_EVENTS_SERVER_CAP"        # server-side retained event cap per source
-# the replay engine's clock handshake against the rendezvous server
+# the replay engine (timeline/replay/): the clock handshake against the
+# rendezvous server, and the α–β link model's overrides (defaults:
+# timeline/comm_report.py, NVLink 4 and NDR InfiniBand)
 HVD_REPLAY_CLOCK_SYNC = "HVD_REPLAY_CLOCK_SYNC"        # 0 skips the init-time clock handshake
 HVD_REPLAY_CLOCK_SAMPLES = "HVD_REPLAY_CLOCK_SAMPLES"  # handshake round trips (default 8)
+HVD_REPLAY_ICI_GBPS = "HVD_REPLAY_ICI_GBPS"            # what-if intra-node link bandwidth, GB/s (default 450)
+HVD_REPLAY_HOP_US = "HVD_REPLAY_HOP_US"                # what-if intra-node per-hop latency, µs (default 0.6)
+HVD_REPLAY_DCN_GBPS = "HVD_REPLAY_DCN_GBPS"            # two-level what-if cross-node bandwidth, GB/s (default 50)
+HVD_REPLAY_DCN_HOP_US = "HVD_REPLAY_DCN_HOP_US"        # two-level what-if cross-node hop latency, µs (default 2.7)
+HVD_REPLAY_LOCAL_SIZE = "HVD_REPLAY_LOCAL_SIZE"        # two-level what-if group size (default HVD_LOCAL_SIZE)
+HVD_PROJECT_MODE = "HVD_PROJECT_MODE"                  # chain replication: distribution|slowest (default distribution)
 
-# -- knobs of features still to be ported: refused when switched on ----------
-HVD_AUTOTUNE = "HVD_AUTOTUNE"
-HVD_AUTOTUNE_PROFILE_GUIDED = "HVD_AUTOTUNE_PROFILE_GUIDED"
+# -- the tuners (optim/autotune.py, optim/profile_guided.py) and the loader --
+HVD_AUTOTUNE = "HVD_AUTOTUNE"                          # 1 runs the GP autotuner in make_train_step
+HVD_AUTOTUNE_LOG = "HVD_AUTOTUNE_LOG"                  # CSV of the GP's samples
+HVD_AUTOTUNE_WARMUP_SAMPLES = "HVD_AUTOTUNE_WARMUP_SAMPLES"  # samples discarded first (default 3)
+HVD_AUTOTUNE_STEPS_PER_SAMPLE = "HVD_AUTOTUNE_STEPS_PER_SAMPLE"  # steps a sample (default 10)
+HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"  # samples before freezing (default 10 a category)
+HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"  # GP noise (default 0.8)
+HVD_AUTOTUNE_PYTHON = "HVD_AUTOTUNE_PYTHON"            # 1 keeps the NumPy tuner over the native one
+HVD_AUTOTUNE_COMPUTE = "HVD_AUTOTUNE_COMPUTE"          # 1 lets the GP rotate the compute knobs too
+HVD_AUTOTUNE_PROFILE_GUIDED = "HVD_AUTOTUNE_PROFILE_GUIDED"  # 1 enables the profile-guided loop
+HVD_AUTOTUNE_WINDOW_STEPS = "HVD_AUTOTUNE_WINDOW_STEPS"      # steps per measure/verify window (default 20)
+HVD_AUTOTUNE_GUARD_BAND_PCT = "HVD_AUTOTUNE_GUARD_BAND_PCT"  # realized-vs-predicted tolerance (default 10)
+HVD_AUTOTUNE_ROLLBACK = "HVD_AUTOTUNE_ROLLBACK"              # 0 keeps regressed plans (default 1)
+HVD_AUTOTUNE_WARM_START = "HVD_AUTOTUNE_WARM_START"          # 0 skips the α–β GP prior (default 1)
+HVD_AUTOTUNE_CYCLE_FLUSH_STEPS = "HVD_AUTOTUNE_CYCLE_FLUSH_STEPS"  # re-plan a verified plan every N steps (0 = pin forever)
+HVD_PREFETCH_DEPTH = "HVD_PREFETCH_DEPTH"              # device prefetch queue depth in data/loader.py (default 2; 0 disables)
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # 64 MiB, reference common.h:69
 FUSION_BUFFER_ATOMIC_UNIT = 64                     # reference common.h:94
@@ -99,6 +121,12 @@ DEFAULT_TIMESERIES_FACTOR = 8                      # per-tier downsample factor
 DEFAULT_EVENTS_RING_CAP = 1024                     # observe/events.py per-process ring capacity
 DEFAULT_EVENTS_FLUSH_SECONDS = 5.0                 # worker-side event flusher cadence
 DEFAULT_EVENTS_SERVER_CAP = 4096                   # server-side retained events per source
+DEFAULT_AUTOTUNE_WINDOW_STEPS = 20                 # profile-guided measure/verify window
+DEFAULT_AUTOTUNE_GUARD_BAND_PCT = 10.0             # rollback when realized lags predicted by more
+DEFAULT_AUTOTUNE_CYCLE_FLUSH_STEPS = 0             # verified plans pinned forever unless set
+DEFAULT_DCN_GBPS = 50.0                            # cross-node link, GB/s (NDR InfiniBand, comm_report.py)
+DEFAULT_DCN_HOP_US = 2.7                           # cross-node hop latency, µs (NCCL's ring model, comm_report.py)
+DEFAULT_PREFETCH_DEPTH = 2                         # device prefetch queue depth (data/loader.py)
 
 
 def get_int(name: str, default: int) -> int:

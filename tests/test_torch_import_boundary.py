@@ -84,8 +84,85 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.runtime.native",
               "horovod_tpu_torch.timeline.timeline",
               "horovod_tpu_torch.timeline.recorder",
-              "horovod_tpu_torch.timeline.profiler"):
+              "horovod_tpu_torch.timeline.profiler",
+              "horovod_tpu_torch.utils.slo",
+              "horovod_tpu_torch.timeline.comm_report",
+              "horovod_tpu_torch.timeline.merge",
+              "horovod_tpu_torch.timeline.replay",
+              "horovod_tpu_torch.timeline.replay.clock",
+              "horovod_tpu_torch.timeline.replay.stitcher",
+              "horovod_tpu_torch.timeline.replay.critical_path",
+              "horovod_tpu_torch.timeline.replay.simulator",
+              "horovod_tpu_torch.timeline.replay.fixture",
+              "horovod_tpu_torch.timeline.replay.projection",
+              "horovod_tpu_torch.optim.autotune",
+              "horovod_tpu_torch.optim.profile_guided",
+              "horovod_tpu_torch.optim.compute_knobs",
+              "horovod_tpu_torch.data",
+              "horovod_tpu_torch.data.loader"):
         assert m in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def _lazy_imports(path: Path):
+    """The modules a file imports inside its functions, resolved to
+    absolute names (relative ones against the file's package)."""
+    pkg = ".".join(path.relative_to(REPO).with_suffix("").parts[:-1])
+    out = set()
+    for fn in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Import):
+                out |= {a.name for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                base = pkg.split(".")
+                if node.level:
+                    base = base[:len(base) - node.level + 1]
+                    name = ".".join(base + ([node.module]
+                                            if node.module else []))
+                else:
+                    name = node.module
+                out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("module,reaches", [
+    ("optim/profile_guided.py", {"horovod_tpu_torch.timeline.replay",
+                                 "horovod_tpu_torch.timeline.comm_report"}),
+    ("optim/compute_knobs.py", {"horovod_tpu_torch.data.loader"}),
+])
+def test_lazy_imports_stay_within_the_port(module, reaches):
+    """The tuners import the replay engine, the comm model and the
+    loader inside their functions: those imports resolve into the port
+    (statically), and running them in a fresh interpreter brings in no
+    JAX and nothing of the JAX package."""
+    lazy = _lazy_imports(PKG / module)
+    assert reaches <= lazy
+    assert [m for m in lazy if _forbidden(m)] == []
+    code = f"""
+import json, sys, tempfile
+import horovod_tpu_torch as htt
+from horovod_tpu_torch.optim import compute_knobs, profile_guided
+from horovod_tpu_torch.optim.autotune import TunableParams
+from horovod_tpu_torch.timeline.replay.fixture import (
+    write_autotune_fixture_trace)
+if {module!r} == "optim/profile_guided.py":
+    d = tempfile.mkdtemp()
+    write_autotune_fixture_trace(d)
+    assert profile_guided.plan_from_trace(d) is not None
+    profile_guided.predicted_score_fn(1e8, 8)(TunableParams())
+else:
+    htt.init(device="cpu")
+    compute_knobs.run_bench_fixture(steps=1, host_delay_s=0.0,
+                                    profile_steps=1)
+print(json.dumps(sorted(sys.modules)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert reaches <= set(mods)
     assert [m for m in mods if _forbidden(m)] == []
 
 

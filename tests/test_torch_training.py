@@ -18,9 +18,12 @@ relative precision of their own.
   that rounding into differences as large as the update itself.
 * MLP on 2 gloo processes against the reference on a 2-device mesh with
   the same global batch.
-* the synthetic benchmark's ``run`` on the CPU, and the knobs still
-  refused (autotune, profile-guided tuning, donate=False); the profiler
-  (``profile=True``) runs, ``tests/test_torch_profiler.py``.
+* the synthetic benchmark's ``run`` on the CPU; the tuners and
+  ``donate=False`` build a step that trains (``donate=False`` leaves the
+  caller's state as it was and equals ``donate=True``), and only the
+  profile-guided loop's plan push, which needs the rendezvous server,
+  still raises; the profiler (``profile=True``) runs,
+  ``tests/test_torch_profiler.py``.
 * the wire tier in the step, world 1: int8 and bf16 compression with
   and without error feedback against the reference's step (losses and
   parameter changes to 1e-5, the residual to 1e-7 absolute: it is the
@@ -311,18 +314,84 @@ def test_trailing_loss_fetcher_reads_one_cadence_behind():
     assert off.flush() is None
 
 
+#: the rendezvous server's address, which the profile-guided loop's plan
+#: push needs
+_KV = {"HVD_METRICS_KV_ADDR": "localhost", "HVD_METRICS_KV_PORT": "1"}
+
+
 @pytest.mark.parametrize("kw,env", [
-    ({"autotune": True}, {}),
-    ({"profile_guided": True}, {}),
-    ({}, {"HVD_AUTOTUNE_PROFILE_GUIDED": "1"}),
-    ({"donate": False}, {}),
+    ({"profile_guided": True}, _KV),
+    ({}, {"HVD_AUTOTUNE_PROFILE_GUIDED": "1", **_KV}),
 ])
 def test_unported_knobs_raise(monkeypatch, kw, env):
+    """What still waits for the rendezvous server (ROADMAP item 17): the
+    profile-guided loop's plan push, asked for by the server's address."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
                                  optimizer=fused_sgd(0.1), **kw)
+
+
+@pytest.mark.parametrize("kw,env", [
+    ({"autotune": True}, {}),
+    ({"profile_guided": True}, {}),
+    ({}, {"HVD_AUTOTUNE_PROFILE_GUIDED": "1", "HVD_AUTOTUNE": "1"}),
+    ({"donate": False}, {}),
+])
+def test_tuner_and_donate_knobs_build_a_step(port_cpu_world, monkeypatch,
+                                             kw, env):
+    """The tuners and ``donate=False`` are ported: each builds a step that
+    trains (tests/test_torch_autotune.py and test_torch_profile_guided.py
+    hold them against the reference)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    model = MLP(4, (3,))
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=fused_sgd(0.1), **kw)
+    state = training.init_train_state(model, fused_sgd(0.1))
+    x, y = torch.ones(2, 4), torch.zeros(2, dtype=torch.long)
+    for _ in range(3):
+        state, loss = step(state, x, y)
+    assert state.step == 3 and np.isfinite(loss.item())
+    assert (step.parameter_manager is not None) == bool(
+        kw.get("autotune") or env.get("HVD_AUTOTUNE"))
+    assert (step.profile_guided_tuner is not None) == bool(
+        kw.get("profile_guided") or env.get("HVD_AUTOTUNE_PROFILE_GUIDED"))
+
+
+def test_donate_false_leaves_the_callers_state_and_equals_donate(
+        port_cpu_world):
+    """``donate=False``: every call returns a new state and leaves the
+    one it was given as it was; the trajectory equals ``donate=True``'s
+    bit for bit, BatchNorm statistics included (narrow ResNet-18)."""
+    runs = []
+    for donate in (True, False):
+        torch.manual_seed(0)
+        model = ResNet18(num_classes=4, num_filters=4).double()
+        opt = fused_sgd(0.1, momentum=0.9)
+        state = training.init_train_state(model, opt, has_batch_stats=True)
+        step = training.make_train_step(
+            apply_fn=model, loss_fn=F.cross_entropy, optimizer=opt,
+            has_batch_stats=True, donate=donate)
+        gen = torch.Generator().manual_seed(1)
+        x = torch.randn(4, 32, 32, 3, generator=gen, dtype=torch.float64)
+        y = torch.tensor([0, 1, 2, 3])
+        losses = []
+        for _ in range(2):
+            before = [t.clone() for t in training._state_tensors(state)]
+            new, loss = step(state, x, y)
+            after = training._state_tensors(state)
+            if not donate:
+                assert all(torch.equal(a, b) for a, b in zip(before, after))
+                assert all(a.data_ptr() != b.data_ptr() for a, b in
+                           zip(training._state_tensors(new), after))
+            state = new
+            losses.append(loss.item())
+        runs.append((losses, [t.detach().clone()
+                              for t in training._state_tensors(state)]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 @pytest.mark.parametrize("how", ["argument", "env"])

@@ -154,12 +154,13 @@ def _task_fusion(workdir: Path):
     return out
 
 
-def _train_mlp(htt, inputs: dict, steps: int, **kw):
+def _train_mlp(htt, inputs: dict, steps: int, keep: dict = None, **kw):
     """``steps`` steps of the MLP on this rank's shard, from the
     reference's initial weights (inputs: params as flax-layout arrays
     ``p:<path>``, x, y); ``kw`` go to make_train_step, and a
     ``compression`` also to init_train_state.  Returns the flax-layout
-    parameters as ``p:<path>`` and the losses."""
+    parameters as ``p:<path>`` and the losses; ``keep["step"]`` is the
+    train step when ``keep`` is given."""
     import torch
     import torch.nn.functional as F
 
@@ -188,6 +189,8 @@ def _train_mlp(htt, inputs: dict, steps: int, **kw):
     for _ in range(steps):
         state, loss = step(state, x, y)
         losses.append(loss.item())
+    if keep is not None:
+        keep["step"] = step
     out = {f"p:{k}": v for k, v in export_flax_variables(
         state.params, canonical_layouts(model)).items()}
     out["losses"] = np.asarray(losses)
@@ -955,6 +958,54 @@ def _task_trace(workdir: Path):
     return out
 
 
+def _task_replay(workdir: Path):
+    """The trace the replay tests read: :func:`eager_drive` with the
+    timeline on (``<workdir>/trace``, closed before returning), then the
+    projection's live trace of this world (``<workdir>/live``)."""
+    os.environ["HVD_TIMELINE"] = str(workdir / "trace")
+    import horovod_tpu_torch as htt
+    import horovod_tpu_torch.torch as frontend
+    from horovod_tpu_torch import eager
+    from horovod_tpu_torch.timeline.replay.projection import live_trace
+    from horovod_tpu_torch.timeline.timeline import timeline
+
+    htt.init(device="cpu")
+    eager_drive(eager, frontend, htt.rank())
+    timeline.shutdown()
+    live_trace(str(workdir / "live"), steps=3, global_batch=16, in_dim=8,
+               classes=4, width=16)
+    htt.shutdown()
+    return {}
+
+
+#: GP sample settings of the autotune task: one warm-up sample, then a
+#: new knob vector every AUTOTUNE_SPS steps
+AUTOTUNE_SPS = 2
+AUTOTUNE_STEPS = 12
+
+
+def _task_autotune(workdir: Path):
+    """The MLP trained AUTOTUNE_STEPS steps with ``autotune=True`` and
+    again untuned: both runs' losses, and the tuned run's knob sets
+    (threshold and hierarchical flag of each build)."""
+    os.environ.update({"HVD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                       "HVD_AUTOTUNE_STEPS_PER_SAMPLE": str(AUTOTUNE_SPS)})
+    import horovod_tpu_torch as htt
+
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    htt.init(device="cpu")
+    keep: dict = {}
+    tuned = _train_mlp(htt, inputs, AUTOTUNE_STEPS, keep=keep,
+                       autotune=True)
+    plain = _train_mlp(htt, inputs, AUTOTUNE_STEPS)
+    builds = keep["step"].builds
+    htt.shutdown()
+    return {"tuned": tuned["losses"], "plain": plain["losses"],
+            "thresholds": np.asarray([b["threshold"] for b in builds]),
+            "hierarchical": np.asarray([b["hierarchical"]
+                                        for b in builds])}
+
+
 def _task_fail(workdir: Path):
     """Rank 1 fails before it joins; rank 0 waits for it in init."""
     import horovod_tpu_torch as htt
@@ -970,6 +1021,7 @@ TASKS = {"core": _task_core, "fail": _task_fail, "fusion": _task_fusion,
          "wire": _task_wire, "train_wire": _task_train_wire,
          "ring": _task_ring, "tp": _task_tp, "pp": _task_pp,
          "moe": _task_moe, "drives": _task_drives, "trace": _task_trace,
+         "replay": _task_replay, "autotune": _task_autotune,
          "sp_bench_gpt": lambda w: _task_sp_bench(w, "gpt"),
          "sp_bench_bert": lambda w: _task_sp_bench(w, "bert")}
 
