@@ -259,6 +259,28 @@ Phases, each printing one JSON line:
    speedup), the critical path's split of the step and the simulator's
    ranked scenarios (run after trace_plane).
 
+29. launcher — ``python -m horovod_tpu_torch.run -np 1`` starts the GPT
+   bench at its defaults (as gpt_main_path) with ``--cuda-trace``,
+   pointed at a rendezvous server this script runs (the external-server
+   path, every scope journaled), ``HVD_TRACE_DIR`` with the launcher's
+   ``--trace-start-step 3 --trace-end-step 5``, ``HVD_PROFILE=1`` over
+   calls 8-9 and a 1 s push interval.  Checks: the launcher exits 0
+   and its worker ran on ``cuda:0``; signed ``GET /metrics`` holds rank
+   0's families with ``hvd_steps_total`` 17 and a finite
+   ``hvd_train_loss``, and at least 2 snapshots landed; ``GET /profile``
+   holds rank 0's anatomy of 2 steps; ``GET /events`` the bench's
+   ``bench.result``; ``GET /health`` no lease (world 1 runs no
+   heartbeat) and no abort; the journal replays to the server's store,
+   its ``metrics`` scope included; ``comm.json`` holds the window's 3
+   ``STEP`` spans and ``clock_sync.json``'s offset maps them inside the
+   launch, to within half its round trip; the worker issued K1 Adam and
+   K2-K4 (on ``wgmma``) as gpt_main_path's and the profiled window's
+   calls account for, and the window's trace shows K1 1 and K2-K4 12
+   each a step in its 3 graphed replays; iteration 3's rate (calls
+   13-17, replays only) within LAUNCH_RATE_SHARE of gpt_main_path's.
+   Prints that share, the seconds from the launch to the first step and
+   the phase's wall time.
+
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
 on the card and on the CPU as in parity, and bert_tiny (flash attention
@@ -287,7 +309,8 @@ K5, and prints no last line.  ``--trace-plane-only`` runs the device and
 build phases, gpt_main_path and trace_plane (without the frontend's
 untraced rate), and prints no last line.  ``--autotune-only`` runs the
 device, build, gpt_main_path and autotune phases, and prints no last
-line.
+line.  ``--launcher-only`` runs the device, build, gpt_main_path and
+launcher phases, and prints no last line.
 """
 
 import contextlib
@@ -4663,6 +4686,234 @@ VARIANT_COUNTERS = {"K6": "scale_bias_relu", "K6'": "relu_grad",
                     "K10": "plain"}
 
 
+# ---------------------------------------------------------------------------
+# the launcher: the GPT bench started by the port's own launcher
+# ---------------------------------------------------------------------------
+#: the launched GPT bench's trace window (graphed replays under a CUDA
+#: trace: the bench's --cuda-trace) and its profiler window (the anatomy
+#: GET /profile serves).  The profiler's window opens after the timeline
+#: closed (at its end step + 1 the timeline finalizes every profiler
+#: whose window is open, one just opened included), so iteration 1
+#: (calls 3-7) holds the trace window, iteration 2 (calls 8-12) the
+#: profiler's, and the launched rate is iteration 3's (calls 13-17),
+#: replays only
+LAUNCH_WINDOW = (3, 5)
+LAUNCH_PROFILE = (8, 9)
+#: the launched rate may trail gpt_main_path's graphed rate by this share
+LAUNCH_RATE_SHARE = 0.05
+#: the worker's push interval: several snapshots land during the run
+LAUNCH_PUSH_S = 1.0
+#: where the launcher phase writes its trace directory and journal
+LAUNCH_DIR = Path(__file__).resolve().parent / "build" / "launcher"
+#: seconds the launched job may take, the kernels' load included
+LAUNCH_TIMEOUT_S = 300
+
+
+def _worker_summary(stdout: str) -> dict:
+    """The launched bench's last JSON line (rank 0's, tagged ``[0]`` by
+    the launcher)."""
+    for line in reversed(stdout.splitlines()):
+        _, _, body = line.partition("<stdout>: ")
+        if body.startswith('{"gpt_synthetic_benchmark"'):
+            return json.loads(body)["gpt_synthetic_benchmark"]
+    return {}
+
+
+def phase_launcher(kernels, card, none) -> dict:
+    """``python -m horovod_tpu_torch.run -np 1`` starting the GPT bench
+    at its defaults (b 4, s 1024, bf16, K2-K4 flash, K1 fused Adam) with
+    this process's rendezvous server as its external server
+    (``HVD_METRICS_KV_*``, every scope journaled), ``HVD_TRACE_DIR`` with
+    the launcher's ``--trace-start-step`` / ``--trace-end-step`` window
+    of calls LAUNCH_WINDOW under the bench's ``--cuda-trace``, and
+    ``HVD_PROFILE`` over LAUNCH_PROFILE.  ``--journal`` is passed as a
+    user passes it, but with an external server the launcher stands up
+    none (as the reference's does not), so the journal checked is the
+    one this script's server writes.  Checks what reached the server,
+    the trace directory, the journal and the worker's output;
+    ``none`` is gpt_main_path's result, whose graphed rate the launched
+    one is held to."""
+    import shutil
+    import threading
+
+    from horovod_tpu_torch.run import http_client, journal
+    from horovod_tpu_torch.run.http_server import RendezvousServer
+    from horovod_tpu_torch.run.store import ShardedKVStore
+    from horovod_tpu_torch.timeline.profiler import CUDA_TRACE_DIR
+
+    what = "launcher"
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    trace_dir, jpath = LAUNCH_DIR / "trace", LAUNCH_DIR / "rdv.journal"
+    secret = os.urandom(16)
+    srv = RendezvousServer(secret=secret)
+    port = srv.start()
+    # every scope journaled (the default leaves out the reconstructible
+    # ones, metrics among them), so the replay is held to them all
+    jr = journal.Journal(str(jpath), exclude=frozenset())
+    srv.store.journal = jr
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HVD_")}
+    env.update({"HVD_METRICS_KV_ADDR": "127.0.0.1",
+                "HVD_METRICS_KV_PORT": str(port),
+                "HVD_METRICS_SECRET": secret.hex(),
+                "HVD_METRICS_PUSH_SECONDS": str(LAUNCH_PUSH_S),
+                "HVD_TRACE_DIR": str(trace_dir), "HVD_PROFILE": "1",
+                "HVD_PROFILE_START_STEP": str(LAUNCH_PROFILE[0]),
+                "HVD_PROFILE_END_STEP": str(LAUNCH_PROFILE[1])})
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1",
+           "--journal", str(jpath),
+           "--trace-start-step", str(LAUNCH_WINDOW[0]),
+           "--trace-end-step", str(LAUNCH_WINDOW[1]),
+           sys.executable, "-m",
+           "horovod_tpu_torch.examples.gpt_synthetic_benchmark",
+           "--cuda-trace"]
+    snapshots, stop = set(), threading.Event()
+
+    def poll():   # the distinct snapshots that landed while the job ran
+        while not stop.wait(0.1):
+            raw = srv.get("metrics", "0")
+            if raw is not None:
+                snapshots.add(json.loads(raw).get("ts"))
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t_wall, t_perf = time.time(), time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=LAUNCH_TIMEOUT_S,
+                              cwd=Path(__file__).resolve().parent)
+    finally:
+        t_end = time.perf_counter()
+        stop.set()
+        poller.join()
+    (LAUNCH_DIR / "launcher.out").write_text(proc.stdout + proc.stderr)
+    try:
+        prom = http_client.get_metrics("127.0.0.1", port, secret=secret)
+        profile = http_client.get_profile("127.0.0.1", port, secret=secret)
+        evs = http_client.get_events("127.0.0.1", port, secret=secret)
+        health = http_client.get_health("127.0.0.1", port, secret=secret)
+        metrics_scope = srv.store.prefix_items("/metrics/")
+        held = srv.store.items()
+    finally:
+        srv.stop()
+        jr.close()
+    wall = time.perf_counter() - t_perf
+    tail = (proc.stdout + proc.stderr)[-3000:]
+
+    # 1. the launcher exited 0 and its worker ran on the card
+    summary = _worker_summary(proc.stdout)
+    if proc.returncode != 0 or not summary:
+        fail(f"{what}: the launcher exited {proc.returncode} (worker "
+             f"summary {bool(summary)}):\n{tail}")
+    if summary["device"] != "cuda:0" or summary["size"] != 1:
+        fail(f"{what}: the worker ran on {summary['device']} in a world of "
+             f"{summary['size']}, want cuda:0 alone")
+    # 2. signed GET /metrics: rank 0's families, the step counter, a
+    # finite loss; and the pusher's snapshots kept landing
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+
+    args = gb.parse_args([])
+    steps = args.num_warmup_batches + \
+        args.num_batches_per_iter * args.num_iters
+    lines = [ln for ln in prom.splitlines() if 'rank="0"' in ln]
+    families = {ln.split("{")[0] for ln in lines}
+    loss = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+            if ln.startswith("hvd_train_loss{")]
+    if f'hvd_steps_total{{rank="0"}} {steps}' not in prom or \
+            len(loss) != 1 or not math.isfinite(loss[0]) or \
+            len(snapshots) < 2:
+        fail(f"{what}: GET /metrics holds {len(families)} families of rank "
+             f"0, hvd_train_loss {loss}, {len(snapshots)} snapshots seen "
+             f"(want hvd_steps_total {steps}, a finite loss, >= 2)")
+    # 3. GET /profile: rank 0's anatomy of the profiled window
+    anatomy = (profile.get("ranks") or {}).get("0")
+    if not isinstance(anatomy, dict) or anatomy.get("steps") != \
+            LAUNCH_PROFILE[1] - LAUNCH_PROFILE[0] + 1:
+        fail(f"{what}: GET /profile holds {profile.get('ranks')}")
+    # 4. GET /events: the rank's bench.result event, and the journal
+    kinds = [e.get("kind") for e in evs.get("events", [])]
+    if "bench.result" not in kinds:
+        fail(f"{what}: GET /events holds {kinds}, want bench.result")
+    replayed = ShardedKVStore()
+    journal.replay(str(jpath), replayed)
+    if replayed.prefix_items("/metrics/") != metrics_scope or \
+            replayed.items() != held:
+        fail(f"{what}: the journal replays to {sorted(replayed.items())}, "
+             f"the server holds {sorted(held)}")
+    # 5. GET /health: world 1 runs no heartbeat, and no abort was set
+    if health != {"ranks": {}, "abort": None}:
+        fail(f"{what}: GET /health answered {health}")
+    # 6. comm.json and clock_sync.json: mapped onto the server's clock
+    # (this process's monotonic clock), the worker's spans fall inside
+    # the launch, to within half the handshake's round trip
+    rank_dir = trace_dir / "0"
+    comm = json.loads((rank_dir / "comm.json").read_text())
+    sync = json.loads((rank_dir / "clock_sync.json").read_text())
+    stamps = [e["ts"] + sync["offset_us"] for e in comm if "ts" in e]
+    half = sync["rtt_us"] / 2
+    if not stamps or not 0 <= sync["rtt_us"] < 1e5 or \
+            min(stamps) < t_perf * 1e6 - half or \
+            max(stamps) > t_end * 1e6 + half:
+        fail(f"{what}: clock_sync.json {sync} maps comm.json's "
+             f"{len(stamps)} events outside the launch")
+    step_spans = [e for e in comm if e.get("name") == "STEP"]
+    if len(step_spans) != LAUNCH_WINDOW[1] - LAUNCH_WINDOW[0] + 1:
+        fail(f"{what}: comm.json holds {len(step_spans)} STEP spans, want "
+             f"calls {LAUNCH_WINDOW[0]}-{LAUNCH_WINDOW[1]}")
+    # 7. K1 Adam and K2-K4 issued (the eager call, the capture and the
+    # profiled window's chains), and the window's graphed replays ran
+    # K1 once and K2-K4 12 times each a step
+    layers, profiled = 12, LAUNCH_PROFILE[1] - LAUNCH_PROFILE[0] + 1
+    chains = profiled + 1
+    want_k1 = {"sgd": 0, "momentum": 0, "adam": 2 + chains}
+    want_flash = {"fwd.wgmma": layers * (2 + 2 * chains),
+                  "bwd_dq.wgmma": layers * (2 + chains),
+                  "bwd_dkv.wgmma": layers * (2 + chains)}
+    if summary["k1_launches_issued"] != want_k1 or \
+            summary["flash_launches_issued"] != want_flash:
+        fail(f"{what}: the worker issued K1 {summary['k1_launches_issued']}"
+             f" and K2-K4 {summary['flash_launches_issued']}, want "
+             f"{want_k1} and {want_flash}")
+    trace = json.loads((rank_dir / CUDA_TRACE_DIR / "trace.json")
+                       .read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans = [(e.get("ts", 0.0), e.get("ts", 0.0) + e.get("dur", 0.0),
+              e.get("name", "")) for e in events if e.get("cat") == "kernel"]
+    in_window = trace_launches(spans)
+    n = LAUNCH_WINDOW[1] - LAUNCH_WINDOW[0] + 1
+    want = {key: n * v for key, v in step_trace(flash=layers).items()}
+    if in_window != want:
+        fail(f"{what}: the window's trace ran {in_window}, want {want} "
+             f"({n} graphed replays)")
+    # 8. the control plane's cost: the launched graphed rate (iteration
+    # 3) against gpt_main_path's, in this run
+    launched = summary["rates"][2]
+    share = launched / none["seq_sec_per_chip"] - 1
+    startup = summary["first_step_at"] - t_wall
+    out = {"phase": what, "command": " ".join(cmd[2:]),
+           "window": list(LAUNCH_WINDOW), "profile_window":
+           list(LAUNCH_PROFILE), "exit_code": proc.returncode,
+           "device": summary["device"],
+           "k1_launches_issued": summary["k1_launches_issued"],
+           "flash_launches_issued": summary["flash_launches_issued"],
+           "window_trace": in_window, "metrics_families": len(families),
+           "snapshots_seen": len(snapshots), "train_loss": loss[0],
+           "profile_steps": anatomy["steps"], "events": kinds,
+           "journal_records": len(held), "clock_sync": sync,
+           "launched_seq_sec_per_chip": launched,
+           "launched_iterations": summary["rates"],
+           "main_path_seq_sec_per_chip": none["seq_sec_per_chip"],
+           "rate_share_vs_main_path": share,
+           "startup_s_to_first_step": startup, "wall_s": wall,
+           "final_loss": summary["final_loss"], "card": card}
+    emit(out)
+    if share < -LAUNCH_RATE_SHARE:
+        fail(f"{what}: launched {launched:.3f} seq/s against gpt_main_path's"
+             f" {none['seq_sec_per_chip']:.3f} ({share:+.2%}, limit "
+             f"-{LAUNCH_RATE_SHARE:.0%})")
+    return out
+
+
 def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                        default_img_sec) -> dict:
     """The phases of K6-K10: each kernel against its plain version, the
@@ -4715,6 +4966,9 @@ def main() -> None:
     ap.add_argument("--autotune-only", action="store_true",
                     help="run the device and build phases, gpt_main_path "
                          "and autotune")
+    ap.add_argument("--launcher-only", action="store_true",
+                    help="run the device and build phases, gpt_main_path "
+                         "and launcher")
     ap.add_argument("--model-parallel-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K5 and model parallelism (ring_kernels, "
@@ -4769,6 +5023,11 @@ def main() -> None:
         phase_autotune(htt, kernels, card)
         htt.shutdown()
         return
+    if cli.launcher_only:
+        _, _, gpt_none = phase_gpt_main_path(htt, kernels, card)
+        phase_launcher(kernels, card, gpt_none)
+        htt.shutdown()
+        return
     if cli.model_parallel_only:
         results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
                                             card)
@@ -4800,6 +5059,7 @@ def main() -> None:
     phase_trace_plane(htt, kernels, fa, card, gpt_none,
                       frontend_rates["plain"])
     phase_autotune(htt, kernels, card)
+    phase_launcher(kernels, card, gpt_none)
     k1_launches["adam"] = gpt_trace["k1"]["adam"]
     for rule, by_dtype in k1_launches.items():
         results[rule]["launches"] = by_dtype["float32"]

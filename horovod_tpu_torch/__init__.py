@@ -18,6 +18,8 @@ none: the code every rank runs is the SPMD region, and a process holds
 only its own rank's values (``ROADMAP.md``, "Decisions").
 """
 
+__version__ = "0.1.0"  # the reference's (horovod_tpu/__init__.py)
+
 from .core import (  # noqa: F401
     AXIS, CROSS_AXIS, LOCAL_AXIS, Adasum, Average, Max, Min, Sum,
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
@@ -40,6 +42,7 @@ from .ops.sparse import (  # noqa: F401
 from .parallel.hierarchical import two_level_allreduce  # noqa: F401
 from .eager import allgather_object, broadcast_object  # noqa: F401
 from .elastic.join import join, join_allreduce  # noqa: F401
+from .elastic import HorovodAbortError, abort  # noqa: F401
 from .optim.distributed import (  # noqa: F401
     DistributedGradientTape, DistributedOptimizer, broadcast_optimizer_state,
     broadcast_parameters, broadcast_variables,

@@ -18,12 +18,16 @@ at most ``HVD_START_TIMEOUT`` seconds (60 by default) for the others to
 join, then raises, so a rank that never arrives fails the job with its
 error instead of hanging it.
 
+The launcher (``python -m horovod_tpu_torch.run``) serves the store
+itself and says so with ``HVD_COORDINATOR_SERVER=external``: then every
+rank joins it as a client (``run/run.py``).
+
 ``init`` opens the per-rank timeline when ``HVD_TIMELINE`` /
 ``HVD_TRACE_DIR`` is set, as the reference's does, and ``shutdown``
-closes it (writing ``metrics.json`` beside ``comm.json``).  An
-environment that names the launcher's rendezvous server for the metrics
-pushes (``HVD_METRICS_KV_ADDR`` / ``HVD_METRICS_KV_PORT``) makes
-``init`` raise: those pushes are not ported yet.
+closes it (writing ``metrics.json`` beside ``comm.json``).  After the
+group is joined it starts the control plane the launcher wired
+(``HVD_METRICS_KV_*``): the relay, the metrics pusher and time-series
+flusher keyed by this rank, and the heartbeat leases.
 """
 
 from __future__ import annotations
@@ -91,12 +95,6 @@ def init(device=None, backend: Optional[str] = None) -> None:
     global _world, _init_kwargs, _epoch
     if _world is not None:
         return
-    from . import metrics
-    from .metrics import timeseries
-
-    # before joining: a refused environment leaves no group behind
-    metrics.start_pusher_from_env(0)
-    timeseries.start_flusher_from_env(0)
     size = env_util.get_int(env_util.HVD_NUM_PROCESSES, 1)
     rank = env_util.get_int(env_util.HVD_PROCESS_ID, 0)
     local_size = env_util.get_int(env_util.HVD_LOCAL_SIZE, size)
@@ -143,20 +141,67 @@ def init(device=None, backend: Optional[str] = None) -> None:
     from .timeline.timeline import timeline
 
     timeline.initialize()
+    _start_control_plane(rank)
+
+
+def _start_control_plane(rank: int) -> None:
+    """The launcher-wired control plane, started after the group is
+    joined, in the reference's order (``horovod_tpu/core.py:276-314``):
+    the per-host relay (``HVD_RELAY=1``, local rank 0), the metrics
+    pusher and the time-series flusher keyed by this process's ``rank``
+    (``HVD_METRICS_KV_*``), and heartbeat leases with the abort poll (a
+    world of more than one process).  Each is a no-op without its
+    wiring; a setup failure is logged and never fails ``init``.  The
+    stall inspector's thread starts too (``HVD_STALL_CHECK_DISABLE=1``
+    keeps it off)."""
+    from .elastic import heartbeat
+    from .metrics import push, timeseries
+    from .run import relay
+    from .runtime.stall_inspector import inspector
+
+    inspector.start()
+    # the relay is elected by HVD_LOCAL_RANK and the lease keyed by
+    # HVD_PROCESS_ID, as in the reference
+    for what, start in (
+            ("relay", relay.start_from_env),
+            ("metrics pusher", lambda: push.start_pusher_from_env(rank)),
+            ("timeseries flusher",
+             lambda: timeseries.start_flusher_from_env(rank)),
+            ("heartbeat", heartbeat.start_from_env)):
+        try:
+            start()
+        except NotImplementedError:
+            shutdown()  # an unported plane the environment asks for:
+            raise       # leave no group behind
+        except Exception as e:  # noqa: BLE001 — the control plane must
+            log.warning("%s setup failed: %s", what, e)  # never block init
 
 
 def _rendezvous(addr: str, rank: int, size: int) -> dist.TCPStore:
-    """The job's store at ``host:port``: rank 0 serves it (or joins a
-    server this process already runs there), and every rank counts itself
-    in.  Rank 0 waits until all ``size`` ranks have, the others until they
-    reach the server, each at most ``HVD_START_TIMEOUT`` seconds; past
-    that the constructor raises."""
+    """The job's store at ``host:port``, each rank waiting at most
+    ``HVD_START_TIMEOUT`` seconds for the others; past that it raises.
+
+    With ``HVD_COORDINATOR_SERVER=external`` the launcher serves the
+    store (``run/run.py``, on a port it bound itself) and every rank
+    joins as a client, then counts itself in under a key of this world
+    (:func:`epoch`) and waits until all ``size`` have.  Otherwise rank 0
+    serves it (or joins a server this process already runs there) and
+    waits in the constructor until all ``size`` ranks have reached it."""
     host, _, port = addr.rpartition(":")
-    timeout = env_util.get_float(env_util.HVD_START_TIMEOUT,
-                                 env_util.DEFAULT_START_TIMEOUT_SECONDS)
-    return dist.TCPStore(host, int(port), size, is_master=rank == 0,
-                         timeout=datetime.timedelta(seconds=timeout),
-                         wait_for_workers=True, multi_tenant=True)
+    timeout = datetime.timedelta(seconds=env_util.get_float(
+        env_util.HVD_START_TIMEOUT, env_util.DEFAULT_START_TIMEOUT_SECONDS))
+    if env_util.get_str(env_util.HVD_COORDINATOR_SERVER) != "external":
+        return dist.TCPStore(host, int(port), size, is_master=rank == 0,
+                             timeout=timeout, wait_for_workers=True,
+                             multi_tenant=True)
+    store = dist.TCPStore(host, int(port), size, is_master=False,
+                          timeout=timeout)
+    joined, ready = (f"hvd/init/{_epoch + 1}/{k}" for k in ("joined",
+                                                            "ready"))
+    if store.add(joined, 1) == size:
+        store.set(ready, "1")
+    store.wait([ready], timeout)
+    return store
 
 
 def shutdown() -> None:
@@ -167,9 +212,27 @@ def shutdown() -> None:
     from .timeline.timeline import timeline
 
     timeline.shutdown()
+    _stop_control_plane()
     if dist.is_initialized():
         dist.destroy_process_group()
     _world = None
+
+
+def _stop_control_plane() -> None:
+    """Stop what :func:`_start_control_plane` started, each flushing
+    once more (the reference's ``shutdown``)."""
+    from .elastic import heartbeat
+    from .metrics.push import stop_pusher
+    from .metrics.timeseries import stop_flusher
+    from .run import relay
+    from .runtime.stall_inspector import inspector
+
+    for stop in (stop_pusher, stop_flusher, heartbeat.stop, relay.stop,
+                 inspector.stop):
+        try:
+            stop()
+        except Exception as e:  # noqa: BLE001
+            log.debug("control-plane stop failed: %s", e)
 
 
 def reinit() -> None:

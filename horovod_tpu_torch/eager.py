@@ -44,6 +44,8 @@ import torch.distributed as dist
 
 from . import core, metrics
 from .core import Adasum, Average, Max, Min, Sum
+from .elastic import heartbeat as _heartbeat
+from .runtime.stall_inspector import inspector
 from .timeline.timeline import timeline
 
 _OPS = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
@@ -85,13 +87,16 @@ def next_name(prefix: str) -> str:
 @contextlib.contextmanager
 def _host_guard(name: str, activity: str, op: str, transport: str,
                 nbytes: int):
-    """The timeline span and the metrics of one host-plane collective
-    (the reference's ``eager._host_guard``, without its stall watchdog,
-    which is not ported)."""
+    """The abort seam, the stall watchdog, the timeline span and the
+    metrics of one host-plane collective (the reference's
+    ``eager._host_guard``, with the abort check of its
+    ``_dispatch_guard``: a coordinated abort raises here, before this
+    rank enters a collective its dead peer will never join)."""
+    _heartbeat.maybe_raise_abort()
     mon = metrics.on()
     t0 = time.perf_counter() if mon else 0.0
     try:
-        with timeline.span(name, activity):
+        with inspector.watch(name), timeline.span(name, activity):
             yield
     finally:
         if mon:

@@ -36,12 +36,21 @@ the second captures ``--num-in-graph-steps`` steps into a CUDA graph,
 the rest replay it), so at the default two warm-up batches the timed
 window holds only replays.
 
+``--cuda-trace`` captures a torch.profiler trace of the timeline's step
+window (``HVD_TRACE_DIR`` with ``HVD_TRACE_START_STEP`` /
+``HVD_TRACE_END_STEP``), which on a card shows what the graph's replays
+ran.  Run as a program, rank 0 prints the result as one JSON line last,
+with the launches of K1-K4 that the wrappers issued, and every rank
+records it as a ``bench.result`` flight-recorder event.
+
 Run:  python -m horovod_tpu_torch.examples.gpt_synthetic_benchmark --seq-len 1024
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from typing import Callable, Optional
 
@@ -86,6 +95,11 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="'cpu' to run on the CPU; default: this "
                              "rank's CUDA device")
+    parser.add_argument("--cuda-trace", action="store_true",
+                        help="capture a torch.profiler trace of the "
+                             "timeline's step window (HVD_TRACE_DIR, "
+                             "HVD_TRACE_START_STEP / _END_STEP) into "
+                             "<trace dir>/<rank>/cuda_trace/trace.json")
     return parser.parse_args(argv)
 
 
@@ -100,6 +114,36 @@ def _attention_fn(args):
     if args.attn == "flash":
         return None  # the model's default: causal flash attention
     return lambda q, k, v, m: softmax_attention(q, k, v, causal=True)
+
+
+def window_traced(run_step: Callable) -> Callable:
+    """``run_step`` with a torch.profiler capture (the profiler's
+    ``_start_cuda_trace``, CUPTI on a card) over the calls of the
+    timeline's step window, written to ``<rank dir>/cuda_trace/
+    trace.json`` after the window's last call: on a card, the kernels
+    the graph's replays ran.  Without an open timeline it traces
+    nothing."""
+    from ..timeline.profiler import (
+        CUDA_TRACE_DIR, _start_cuda_trace, _stop_cuda_trace,
+    )
+    from ..timeline.timeline import timeline
+
+    box = {"prof": None, "dir": None}
+
+    def call(state, x, y):
+        n = timeline.steps + 1        # the number record_step gives it
+        start, end = timeline.window
+        if timeline.active and n == start and box["dir"] is None:
+            box["dir"] = timeline.rank_dir
+            box["prof"] = _start_cuda_trace()
+        out = run_step(state, x, y)
+        if box["prof"] is not None and n == end:
+            _stop_cuda_trace(box["prof"],
+                             os.path.join(box["dir"], CUDA_TRACE_DIR))
+            box["prof"] = None
+        return out
+
+    return call
 
 
 def run(args, eager: bool = False,
@@ -136,6 +180,8 @@ def run(args, eager: bool = False,
                            optimizer=opt, in_graph_steps=k)
     state = init_train_state(model, opt)
     run_step = step.eager if eager else step
+    if getattr(args, "cuda_trace", False):
+        run_step = window_traced(run_step)
 
     def log(s):
         if core.rank() == 0:
@@ -144,6 +190,7 @@ def run(args, eager: bool = False,
     log(f"Model: gpt-{args.model}  seq {args.seq_len}  attn {args.attn}  "
         f"sp {args.seq_parallel}  device {core.device()}")
     # Reading the loss waits for the whole chain of steps queued before it.
+    first_step_at = time.time()
     for _ in range(max(args.num_warmup_batches, 1)):
         state, loss = run_step(state, ids, ids)
     loss.item()
@@ -172,8 +219,33 @@ def run(args, eager: bool = False,
     return {"seq_sec_per_chip": per_chip, "mfu": mfu,
             "rates": [r / core.size() for r in rates],
             "final_loss": final_loss, "step_calls": calls,
+            "first_step_at": first_step_at, "device": str(core.device()),
             **({"then": after} if then is not None else {})}
 
 
+def summary(result: dict) -> dict:
+    """The run's result with the launches its wrappers issued (K1 by
+    rule, K2-K4 by kind and mainloop): the line a launched worker prints
+    last, for whoever launched it."""
+    from .. import kernels
+
+    return {"gpt_synthetic_benchmark": {
+        **result, "rank": core.rank(), "size": core.size(),
+        "k1_launches_issued": kernels.launch_totals(
+            kernels.fused_update_launches),
+        "flash_launches_issued": {k: v for k, v in
+                                  kernels.flash_launches.items() if v}}}
+
+
 if __name__ == "__main__":
-    run(parse_args())
+    from ..observe import events
+
+    _args = parse_args()
+    _result = run(_args)
+    # the run's result in the flight recorder too: under a launcher its
+    # flusher lands it in the rendezvous server's events scope
+    events.record_event("bench.result", payload={
+        "model": _args.model, "seq_sec_per_chip": _result["seq_sec_per_chip"],
+        "final_loss": _result["final_loss"], "device": _result["device"]})
+    if core.rank() == 0:
+        print(json.dumps(summary(_result)), flush=True)

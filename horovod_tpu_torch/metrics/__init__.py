@@ -16,11 +16,11 @@ and, in a profiler window, once more when the window's segments first
 run; a collective called outside any train step is recorded on every
 call (:func:`traced_recording`).
 
-The pushes to the launcher (``metrics/push.py``: the interval pusher,
-delta snapshots, the time-series flusher) need the rendezvous server,
-which the port does not have yet: an environment that asks for them
-(``HVD_METRICS_KV_ADDR`` / ``HVD_METRICS_KV_PORT``) makes
-:func:`start_pusher_from_env` raise instead of recording nowhere.
+The pusher (``push.py``) ships each rank's snapshot to the launcher's
+rendezvous server (``run/http_server.py`` ``GET /metrics``) when the
+environment names it (``HVD_METRICS_KV_ADDR`` / ``HVD_METRICS_KV_PORT``),
+as the reference's does; ``timeseries.py`` ships the history the same
+way.
 
 Metric families (all prefixed ``hvd_``; the launcher injects a ``rank``
 label when it aggregates):
@@ -561,36 +561,9 @@ def dump_metrics_json(path: str) -> None:
     registry.dump(path)
 
 
-def rendezvous_requested() -> bool:
-    """Whether the environment names the launcher's rendezvous server
-    (``HVD_METRICS_KV_ADDR`` / ``HVD_METRICS_KV_PORT``)."""
-    return bool(env_util.get_str(env_util.HVD_METRICS_KV_ADDR)
-                or env_util.get_int(env_util.HVD_METRICS_KV_PORT, 0))
-
-
-def refuse_rendezvous(what: str) -> None:
-    """Raise ``NotImplementedError`` for ``what``, a push or handshake
-    with the launcher's rendezvous server, which is not ported yet."""
-    raise NotImplementedError(
-        f"{what} needs the launcher's rendezvous server "
-        f"({env_util.HVD_METRICS_KV_ADDR}/{env_util.HVD_METRICS_KV_PORT} "
-        "are set), which is not ported yet (the rendezvous plane, run/ "
-        "and runtime/: ROADMAP queue 1, item 17)")
-
-
-def start_pusher(addr: str, port: int, rank: int, secret=None,
-                 interval: float = 5.0):
-    """The reference's interval pusher: refused (not ported yet)."""
-    del addr, port, rank, secret, interval
-    refuse_rendezvous("the metrics pusher (metrics/push.py)")
-
-
-def start_pusher_from_env(rank: int) -> None:
-    """No-op without the rendezvous wiring, as the reference's; with it,
-    raises (the pusher is not ported yet)."""
-    del rank
-    if rendezvous_requested() and registry.enabled:
-        refuse_rendezvous("the metrics pusher (metrics/push.py)")
-
-
+from .push import (  # noqa: E402,F401  (import after instruments exist)
+    start_pusher,
+    start_pusher_from_env,
+    stop_pusher,
+)
 from . import timeseries  # noqa: E402  (ring-buffer history plane)

@@ -1,5 +1,5 @@
-"""Always-on telemetry time-series: bounded ring-buffer history — the
-local half of ``horovod_tpu/metrics/timeseries.py``.
+"""Always-on telemetry time-series: bounded ring-buffer history, and
+its flusher: the port of ``horovod_tpu/metrics/timeseries.py``.
 
 The registry answers "what is the value NOW"; this module answers "what
 was it over the last N steps".  Each series holds
@@ -9,14 +9,20 @@ is raw, tier *i+1* keeps one mean-folded sample per
 cap × tiers while the merged history reaches far back.  Appends never
 raise into callers; call sites gate on :func:`on`.
 
-The flusher that ships each rank's history to the launcher
-(``TimeseriesPusher``) needs the rendezvous server, which the port does
-not have yet: :func:`start_flusher_from_env` raises when the environment
-asks for it.
+A pusher thread (started from ``core.init`` next to the metrics
+pusher) ships each rank's history to the launcher's ``timeseries`` KV
+scope, as the reference's does: deltas on the direct path (only the raw
+samples appended since the last acknowledged push, tagged with the
+server incarnation ``base_id`` and the series' ``seq``; a restart 409s
+the next delta and the pusher resyncs with one full snapshot), full
+snapshots through a per-host relay (run/relay.py).  Each flush also
+polls the ``observe/arm`` record (observe/autoarm.py).  ``GET
+/timeseries`` serves the aggregate.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -194,20 +200,167 @@ def record(name: str, value: float, step: Optional[int] = None) -> None:
     store.record(name, value, step=step)
 
 
-def start_flusher(addr: str, port: int, rank: int, secret=None,
-                  interval: float = 5.0):
-    """The reference's history flusher: refused (not ported yet)."""
-    del addr, port, rank, secret, interval
-    from . import refuse_rendezvous
+# ---------------------------------------------------------------------------
+# flush: per-rank pusher thread (delta protocol mirroring metrics/push.py)
+# ---------------------------------------------------------------------------
+class TimeseriesPusher(threading.Thread):
+    """Ship this rank's history to the launcher's ``timeseries`` scope.
 
-    refuse_rendezvous("the time-series flusher (metrics/timeseries.py)")
+    Each flush also polls the ``observe/arm`` broadcast and applies any
+    pending auto-armed trace+profile window (observe/autoarm.py) — the
+    worker-side half of the alert→diagnosis loop, deliberately on this
+    thread so the step path itself never gains a KV read."""
+
+    def __init__(self, addr: str, port: int, rank: int,
+                 secret: Optional[bytes], interval: float) -> None:
+        super().__init__(daemon=True, name="hvd-timeseries-pusher")
+        self.addr = addr
+        self.port = port
+        self.rank = rank
+        self.secret = secret
+        self.interval = max(float(interval), 0.5)
+        self._server_id: Optional[str] = None
+        self._acked: Dict[str, int] = {}   # series -> acked seq
+        self.delta_pushes = 0
+        self.full_pushes = 0
+        self.resyncs = 0
+        self._stop = threading.Event()
+
+    def _delta_body(self) -> Optional[bytes]:
+        series = {}
+        for name in store.names():
+            samples, dropped = store.series(name).raw_since(
+                self._acked.get(name, 0))
+            if samples or dropped:
+                entry = {"samples": [[s, v] for s, v in samples],
+                         "seq": store.series(name).seq}
+                if dropped:
+                    entry["dropped"] = dropped
+                series[name] = entry
+        if not series:
+            return None
+        return json.dumps({
+            "__tsdelta__": True,
+            "base_id": self._server_id,
+            "series": series,
+        }).encode()
+
+    def push(self) -> bool:
+        """One flush; returns success, never raises."""
+        import urllib.error
+
+        from ..run import relay
+        from ..run.http_client import put_kv_reply
+
+        try:
+            ep = relay.control_endpoint()
+            via_relay = ep is not None and ep[2]
+            use_delta = not via_relay and self._server_id is not None
+            reply = None
+            if use_delta:
+                body = self._delta_body()
+                if body is None:
+                    return True   # nothing new; skip the round trip
+                try:
+                    reply = put_kv_reply(
+                        self.addr, self.port, "timeseries",
+                        str(self.rank), body, secret=self.secret)
+                    self.delta_pushes += 1
+                    _record_flush("delta")
+                except urllib.error.HTTPError as e:
+                    if e.code != 409:
+                        raise
+                    self.resyncs += 1
+                    _record_flush("resync")
+                    use_delta = False
+            if not use_delta:
+                snap = store.snapshot()
+                body = json.dumps(snap).encode()
+                reply = relay.control_put(
+                    self.addr, self.port, "timeseries", str(self.rank),
+                    body, secret=self.secret, want_reply=True)
+                self.full_pushes += 1
+                _record_flush("full")
+            answered_by_relay = isinstance(reply, dict) \
+                and bool(reply.get("relay"))
+            sid = reply.get("server_id") if isinstance(reply, dict) else None
+            if answered_by_relay or sid is None:
+                self._server_id = None
+                self._acked = {}
+            else:
+                self._server_id = sid
+                self._acked = {n: store.series(n).seq
+                               for n in store.names()}
+            return True
+        except Exception as e:  # noqa: BLE001 — losing history must
+            log.debug("timeseries push failed: %s", e)  # not fail the job
+            return False
+
+    def _poll_arm(self) -> None:
+        try:
+            from ..observe import autoarm
+
+            autoarm.poll_and_apply(self.addr, self.port,
+                                   secret=self.secret)
+        except Exception as e:  # noqa: BLE001
+            log.debug("auto-arm poll failed: %s", e)
+
+    def run(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.push()
+            self._poll_arm()
+
+    def stop(self, final_push: bool = True) -> None:
+        self._stop.set()
+        if final_push:
+            self.push()
 
 
-def start_flusher_from_env(rank: int) -> None:
-    """No-op without the rendezvous wiring, as the reference's; with it,
-    raises (the flusher is not ported yet)."""
-    del rank
-    from . import refuse_rendezvous, rendezvous_requested
+def _record_flush(mode: str) -> None:
+    try:
+        from .. import metrics
 
-    if rendezvous_requested() and store.enabled:
-        refuse_rendezvous("the time-series flusher (metrics/timeseries.py)")
+        if metrics.on():
+            metrics.TIMESERIES_FLUSHES.labels(mode).inc()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+_pusher: Optional[TimeseriesPusher] = None
+_plock = threading.Lock()
+
+
+def start_flusher(addr: str, port: int, rank: int,
+                  secret: Optional[bytes] = None,
+                  interval: float = 5.0) -> TimeseriesPusher:
+    global _pusher
+    with _plock:
+        if _pusher is not None:
+            _pusher.stop(final_push=False)
+        _pusher = TimeseriesPusher(addr, port, rank, secret, interval)
+        _pusher.start()
+        return _pusher
+
+
+def start_flusher_from_env(rank: int) -> Optional[TimeseriesPusher]:
+    """Launcher-driven activation (core.init), mirroring
+    metrics.push.start_pusher_from_env: no-op unless the launcher set
+    the ``HVD_METRICS_KV_*`` wiring and the history is enabled."""
+    addr = env_util.get_str(env_util.HVD_METRICS_KV_ADDR)
+    port = env_util.get_int(env_util.HVD_METRICS_KV_PORT, 0)
+    if not addr or not port or not store.enabled:
+        return None
+    secret_hex = env_util.get_str(env_util.HVD_METRICS_SECRET)
+    secret = bytes.fromhex(secret_hex) if secret_hex else None
+    interval = env_util.get_float(
+        env_util.HVD_TIMESERIES_FLUSH_SECONDS,
+        env_util.get_float(env_util.HVD_METRICS_PUSH_SECONDS, 5.0))
+    return start_flusher(addr, port, rank, secret, interval)
+
+
+def stop_flusher() -> None:
+    global _pusher
+    with _plock:
+        if _pusher is not None:
+            _pusher.stop(final_push=True)
+            _pusher = None

@@ -1,30 +1,44 @@
-"""Control-plane flight recorder: correlated events — the local half of
+"""Control-plane flight recorder: correlated events — the port of
 ``horovod_tpu/observe/events.py``.
 
 Every lifecycle actor emits structured events through one API::
 
     from horovod_tpu_torch.observe import events
-    eid = events.record_event("compression.fallback", severity="warning",
-                              payload={"residual_norm": ...})
+    eid = events.record_event("abort.publish", severity="critical",
+                              payload={"reason": ...},
+                              cause_id=lease_expiry_id)
 
 Each event is ``{id, ts, host, rank, kind, severity, correlation_id,
 cause_id, payload}`` with ids ``<host>-<pid>-<seq>``.  ``cause_id``
-links events into causal chains; ``correlation_id`` names the whole
-incident — inherited from the cause when this process recorded it, and
-the event's own id at a chain root.  Events append to a bounded
-per-process ring (overflow drops the oldest and counts
-``hvd_events_dropped_total``; the recorder never blocks a step).
+links events into causal chains (abort flag → restart → ...);
+``correlation_id`` names the whole incident — it is inherited from the
+cause when one is known (even across processes, via ids carried in
+abort flags) and is the event's own id at a chain root.
 
-The sinks that drain the ring into the launcher's journaled ``events``
-scope (``attach_server``, the worker-side flusher, ``PUT /batch``) need
-the rendezvous server, which the port does not have yet: asking for
-them raises.  Knobs: ``HVD_EVENTS``, ``HVD_EVENTS_RING_CAP``.
+Transport: events append to a bounded per-process ring (overflow drops
+the oldest and counts ``hvd_events_dropped_total`` — the recorder must
+never block a step).  In the launcher process the recorder is attached
+directly to the :class:`~horovod_tpu_torch.run.http_server.RendezvousServer`
+(``attach_server``) and each event lands in the journaled ``events``
+scope immediately — surviving warm-standby failover like membership
+does.  In worker processes a flusher thread (modeled on
+metrics/push.py) drains the ring through the relay/batch path
+(run/relay.py: ``events`` is a batch scope — every event has a unique
+key, so last-writer-wins coalescing can never merge two distinct
+events) with permanent fallback to the primary when the relay dies.
+
+Consumers: signed ``GET /events`` with cursor reads
+(``scope_since("events", v)``).  Knobs:
+``HVD_EVENTS`` / ``HVD_EVENTS_RING_CAP`` / ``HVD_EVENTS_FLUSH_SECONDS``
+/ ``HVD_EVENTS_SERVER_CAP`` (docs/observe.md).
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import itertools
+import json
 import os
 import socket
 import threading
@@ -32,8 +46,11 @@ import time
 from typing import Dict, List, Optional
 
 from ..utils import env as env_util
+from ..utils.logging import get_logger
 
-#: rendezvous KV scope the reference's recorder flushes into
+log = get_logger(__name__)
+
+#: rendezvous KV scope the recorder flushes into (journaled, cursor-read)
 EVENTS_SCOPE = "events"
 
 #: kinds are dotted "<subsystem>.<action>" names; the inventory below is
@@ -68,8 +85,9 @@ def _record_metric(name: str, labels=None, n: int = 1) -> None:
 
 
 class Recorder:
-    """One process's flight-recorder state: the bounded ring and the
-    id → correlation map that threads chains."""
+    """One process's flight-recorder state: the bounded ring, the
+    id → correlation map that threads chains, and whichever sink
+    (in-process server or relay-routed flusher) drains it."""
 
     def __init__(self, cap: Optional[int] = None):
         self.cap = int(cap if cap is not None else env_util.get_int(
@@ -87,6 +105,9 @@ class Recorder:
             collections.OrderedDict()
         self.dropped = 0
         self.recorded = 0
+        self._server = None  # attached RendezvousServer (launcher)
+        self._direct_puts = 0
+        self._flusher: Optional["EventFlusher"] = None
 
     # -- the hot path -----------------------------------------------------
     def record(self, kind: str, severity: str = "info",
@@ -126,21 +147,48 @@ class Recorder:
             else:
                 dropped = False
             self.recorded += 1
+            server = self._server
         _record_metric("EVENTS_TOTAL", (kind, severity))
         if dropped:
             _record_metric("EVENTS_DROPPED")
+        if server is not None:
+            self._drain_to_server(server)
         return eid
 
+    # -- sinks ------------------------------------------------------------
+    def attach_server(self, server) -> None:
+        """Launcher-side sink: events land in the server's journaled
+        ``events`` scope immediately (no flusher thread, no HTTP)."""
+        self._server = server
+        if server is not None:
+            self._drain_to_server(server)
+
+    def _drain_to_server(self, server) -> None:
+        for event in self.drain():
+            try:
+                server.put(EVENTS_SCOPE, event["id"],
+                           json.dumps(event).encode())
+                self._direct_puts += 1
+            except Exception as e:  # noqa: BLE001 — recording is best-effort
+                log.debug("event put failed: %s", e)
+        # bound the server-side scope so an always-on recorder cannot
+        # grow the store (and its journal replay) without limit
+        if self._direct_puts and self._direct_puts % 512 == 0:
+            try:
+                prune_scope(server)
+            except Exception:  # noqa: BLE001
+                pass
+
     def drain(self) -> List[dict]:
-        """Pop every buffered event."""
+        """Pop every buffered event (flusher / attached-server sink)."""
         with self._lock:
             out = list(self._ring)
             self._ring.clear()
         return out
 
     def requeue(self, events: List[dict]) -> None:
-        """Put undrained events back at the front of the ring (newer
-        appends win the ring slots if it overflows)."""
+        """Put undelivered events back at the front for the next flush
+        (newer appends win the ring slots if it overflows)."""
         with self._lock:
             for event in reversed(events):
                 self._ring.appendleft(event)
@@ -152,6 +200,104 @@ class Recorder:
     def pending(self) -> int:
         with self._lock:
             return len(self._ring)
+
+
+def prune_scope(server, cap: Optional[int] = None) -> int:
+    """Trim the server's ``events`` scope to the newest ``cap`` events
+    (``HVD_EVENTS_SERVER_CAP``); returns how many were dropped."""
+    cap = int(cap if cap is not None else env_util.get_int(
+        env_util.HVD_EVENTS_SERVER_CAP,
+        env_util.DEFAULT_EVENTS_SERVER_CAP))
+    items = server.scope_items(EVENTS_SCOPE)
+    if len(items) <= cap:
+        return 0
+    def _ts(kv):
+        try:
+            return float(json.loads(kv[1]).get("ts") or 0.0)
+        except (ValueError, TypeError):
+            return 0.0
+    excess = sorted(items.items(), key=_ts)[:len(items) - cap]
+    for key, _ in excess:
+        server.delete(EVENTS_SCOPE, key)
+    return len(excess)
+
+
+class EventFlusher:
+    """Worker-side flusher thread (metrics/push.py template): drains the
+    ring every ``HVD_EVENTS_FLUSH_SECONDS`` through the relay when one
+    is resolved — each event is one loopback PUT the relay coalesces
+    into its upstream batch — with permanent fallback to the primary
+    (``mark_relay_failed``) when the relay dies; the direct path ships
+    the whole drain as one signed ``PUT /batch``.  Never raises."""
+
+    def __init__(self, recorder: Recorder, addr: str, port: int,
+                 secret: Optional[bytes] = None,
+                 interval: Optional[float] = None):
+        self.recorder = recorder
+        self.addr = addr
+        self.port = int(port)
+        self.secret = secret
+        self.interval = float(interval if interval is not None
+                              else env_util.get_float(
+                                  env_util.HVD_EVENTS_FLUSH_SECONDS,
+                                  env_util.get_float(
+                                      env_util.HVD_METRICS_PUSH_SECONDS,
+                                      env_util.DEFAULT_EVENTS_FLUSH_SECONDS)))
+        self.flushes = 0
+        self.events_flushed = 0
+        self.errors = 0
+        self._stop_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def flush_now(self) -> bool:
+        events = self.recorder.drain()
+        if not events:
+            return True
+        from ..run import relay as relay_mod
+        from ..run.http_client import put_batch
+
+        try:
+            ep = relay_mod.control_endpoint()
+            if ep is not None and ep[2]:
+                # relay path: loopback PUTs the relay batches upstream;
+                # control_put flips to the direct path permanently on a
+                # dead relay, so no event is silently lost behind one
+                for event in events:
+                    relay_mod.control_put(
+                        self.addr, self.port, EVENTS_SCOPE, event["id"],
+                        json.dumps(event).encode(), secret=self.secret)
+            else:
+                put_batch(self.addr, self.port,
+                          [(f"/{EVENTS_SCOPE}/{e['id']}",
+                            json.dumps(e).encode()) for e in events],
+                          secret=self.secret, retry=True)
+        except Exception as e:  # noqa: BLE001 — keep them for next flush
+            self.errors += 1
+            log.debug("event flush failed (%d kept): %s", len(events), e)
+            self.recorder.requeue(events)
+            return False
+        self.flushes += 1
+        self.events_flushed += len(events)
+        return True
+
+    def _loop(self) -> None:
+        while not self._stop_event.wait(self.interval):
+            self.flush_now()
+        self.flush_now()  # final drain
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="hvd-events-flush")
+        self._thread.start()
+        atexit.register(self.stop)
+
+    def stop(self, final_flush: bool = True) -> None:
+        self._stop_event.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        if final_flush:
+            self.flush_now()
 
 
 # ---------------------------------------------------------------------------
@@ -180,27 +326,52 @@ def record_event(kind: str, severity: str = "info",
                  cause_id: Optional[str] = None,
                  rank: Optional[int] = None) -> Optional[str]:
     """The one emission API (module docstring).  Returns the event id,
-    or None when the recorder is off.  Raises when the environment names
-    the rendezvous server, whose flusher is not ported yet."""
+    or None when the recorder is off (callers embed the id in flags /
+    epoch records; None serializes harmlessly)."""
     if not on():
         return None
-    from .. import metrics
+    rec = recorder()
+    eid = rec.record(kind, severity=severity, payload=payload,
+                     correlation_id=correlation_id, cause_id=cause_id,
+                     rank=rank)
+    if rec._server is None and rec._flusher is None:
+        _maybe_start_flusher(rec)
+    return eid
 
-    if metrics.rendezvous_requested():
-        metrics.refuse_rendezvous("the flight recorder's flusher "
-                                  "(observe/events.py)")
-    return recorder().record(kind, severity=severity, payload=payload,
-                             correlation_id=correlation_id,
-                             cause_id=cause_id, rank=rank)
+
+def _maybe_start_flusher(rec: Recorder) -> None:
+    """Lazily start the worker-side flusher the first time an event is
+    recorded in a process with rendezvous wiring but no attached
+    server (workers; the launcher attaches directly)."""
+    with _recorder_lock:
+        if rec._flusher is not None or rec._server is not None:
+            return
+        addr = env_util.get_str(env_util.HVD_METRICS_KV_ADDR)
+        port = env_util.get_int(env_util.HVD_METRICS_KV_PORT, 0)
+        if not addr or not port:
+            return
+        secret_hex = env_util.get_str(env_util.HVD_METRICS_SECRET)
+        secret = bytes.fromhex(secret_hex) if secret_hex else None
+        rec._flusher = EventFlusher(rec, addr, port, secret=secret)
+        rec._flusher.start()
 
 
 def attach_server(server) -> None:
-    """The reference's launcher-side sink: refused (not ported yet)."""
-    del server
-    from .. import metrics
+    """Wire the launcher's recorder straight into its rendezvous server
+    (run/run.py launch_job)."""
+    if on():
+        recorder().attach_server(server)
 
-    metrics.refuse_rendezvous("attaching the flight recorder to a "
-                              "rendezvous server")
+
+def flush() -> None:
+    """Force a synchronous drain (tests, shutdown paths)."""
+    rec = _recorder
+    if rec is None:
+        return
+    if rec._server is not None:
+        rec._drain_to_server(rec._server)
+    elif rec._flusher is not None:
+        rec._flusher.flush_now()
 
 
 def correlation_of(event_id: Optional[str]) -> Optional[str]:
@@ -216,6 +387,8 @@ def correlation_of(event_id: Optional[str]) -> Optional[str]:
 def _reset_for_tests() -> None:
     global _recorder
     with _recorder_lock:
+        if _recorder is not None and _recorder._flusher is not None:
+            _recorder._flusher.stop(final_flush=False)
         _recorder = None
 
 

@@ -20,10 +20,9 @@ trace window,
    and its CUDA graph is captured again);
 4. **verify** — the next window's realized step time is compared against
    the simulator's prediction; both sides are exported as the
-   ``hvd_autotune_{predicted,realized}_speedup`` gauges (the reference
-   also pushes them to the rendezvous ``GET /autotune`` table; the port
-   has no rendezvous server yet, and a push target raises
-   ``NotImplementedError``), and a realized speedup more
+   ``hvd_autotune_{predicted,realized}_speedup`` gauges and pushed, a
+   record each, to the rendezvous ``GET /autotune`` table
+   (``put_autotune_plan``), and a realized speedup more
    than ``HVD_AUTOTUNE_GUARD_BAND_PCT`` below the prediction triggers
    automatic rollback to threshold bucketing.
 
@@ -298,13 +297,6 @@ class ProfileGuidedTuner:
         self.window_sync = window_sync
         self.plan_sync = plan_sync
         self.plan_root = plan_root
-        if push_target is not None:
-            # the reference pushes every record to the rendezvous
-            # server's /autotune table (put_autotune_plan)
-            from .. import metrics
-
-            metrics.refuse_rendezvous("the autotune plan push "
-                                      "(put_autotune_plan)")
         self.push_target = push_target
         self.phase = self.PHASE_BASELINE
         self.plan: Optional[FusionPlanSpec] = None
@@ -581,6 +573,16 @@ class ProfileGuidedTuner:
         rec = dict(rec, plan_id=rec.get("plan_id", self._plan_seq))
         self.history.append(rec)
         self._record_flight_event(rec)
+        if self.push_target is None:
+            return
+        try:
+            from ..run.http_client import put_autotune_plan
+
+            addr, port, secret = self.push_target
+            put_autotune_plan(addr, port, len(self.history), rec,
+                              secret=secret)
+        except Exception as e:  # noqa: BLE001
+            log.debug("autotune push failed: %s", e)
 
     def _record_flight_event(self, rec: dict) -> None:
         """Mirror apply/verify/rollback outcomes into the control-plane
@@ -650,8 +652,7 @@ def tuner_from_env(analyze_fn, apply_fn, anatomy_fn=None,
                    fused_available=True,
                    active_compute=None) -> ProfileGuidedTuner:
     """A tuner wired to the job's rendezvous server (push target from the
-    metrics-pusher env triple, which raises ``NotImplementedError`` until
-    the server is ported) — the training.py construction path.
+    metrics-pusher env triple) — the training.py construction path.
 
     Multi-process jobs get the window/plan sync hooks (process-mean
     measurement + process-0 decision broadcast) so every rank applies

@@ -28,11 +28,11 @@ accounting and host-gap detection — the port of
 * :func:`aggregate_anatomies` — the cross-rank reduction: per-segment
   slowest rank, mean/max host gap, mean MFU.
 
-The summary push to the launcher's ``profile`` scope needs the
-rendezvous server, which the port does not have yet: with
-``HVD_METRICS_KV_*`` set, finalizing a window raises.  The dormant
-profiler the reference's watchdog arms is not ported either;
-:func:`from_env` returning None means no profiler.
+Finalizing a window pushes the anatomy to the launcher's ``profile``
+scope when ``HVD_METRICS_KV_*`` names the rendezvous server
+(``GET /profile``).  The dormant profiler the reference's watchdog arms
+comes with the watchdog (ROADMAP item 15); :func:`from_env` returning
+None means no profiler.
 """
 
 from __future__ import annotations
@@ -743,16 +743,23 @@ class ComputeProfiler:
             log.debug("profiler gauge export failed: %s", e)
 
     def _push_summary(self) -> None:
-        """The reference publishes the anatomy under the rendezvous
-        ``profile`` scope here.  Skipped without the server's address,
-        as there; with it, raises: the push is not ported yet."""
+        """Publish the anatomy under the rendezvous ``profile`` scope
+        (key = rank) so the launcher's signed ``GET /profile`` serves
+        the cross-rank aggregate.  Same env wiring as the metrics
+        pusher; never fatal."""
         addr = env_util.get_str(env_util.HVD_METRICS_KV_ADDR)
         port = env_util.get_int(env_util.HVD_METRICS_KV_PORT, 0)
         if not addr or not port or self.anatomy is None:
             return
-        from .. import metrics
+        secret_hex = env_util.get_str(env_util.HVD_METRICS_SECRET)
+        secret = bytes.fromhex(secret_hex) if secret_hex else None
+        try:
+            from ..run.http_client import put_profile_summary
 
-        metrics.refuse_rendezvous("the profiler's summary push")
+            put_profile_summary(addr, port, self.rank, self.anatomy,
+                                secret=secret)
+        except Exception as e:  # noqa: BLE001
+            log.debug("profile push skipped: %s", e)
 
 
 def from_env(rank: Optional[int] = None) -> Optional[ComputeProfiler]:

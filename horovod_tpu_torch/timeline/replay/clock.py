@@ -18,17 +18,12 @@ polluted by queueing — estimating::
 
     offset_us = server_us - (t0 + t1) / 2        # local → server clock
 
-The reference's ``Timeline.initialize`` runs this handshake once per
-trace and persists the result as ``<dir>/<rank>/clock_sync.json``;
-``merge_traces`` shifts each rank's events by its offset so the whole job
-shares the server's clock.
-
-The port has no rendezvous server yet (``run/``, ROADMAP queue 1, item
-17), so it has no ``GET /clock`` client: :func:`sample_offset` and
-:func:`estimate_offset` take the server's clock as a callable
-(``server_clock_us``) and raise ``NotImplementedError`` without one, and
-the port's ``Timeline`` writes no ``clock_sync.json``.  The merge and the
-stitcher already treat a trace without sidecars as unaligned.  The error bound is ±rtt/2 — LAN round trips are tens of µs,
+``Timeline.initialize`` runs this handshake once per trace and persists
+the result as ``<dir>/<rank>/clock_sync.json``; ``merge_traces`` shifts
+each rank's events by its offset so the whole job shares the server's
+clock.  :func:`sample_offset` / :func:`estimate_offset` take an optional
+``server_clock_us`` in place of ``GET /clock`` (a test's injected
+clock).  The error bound is ±rtt/2 — LAN round trips are tens of µs,
 far below the negotiation skews (hundreds of µs to ms) the replay
 engine attributes.
 """
@@ -47,12 +42,13 @@ def _server_clock(addr: str, port: int, secret: Optional[bytes],
                   timeout: float,
                   server_clock_us: Optional[Callable[[], float]]
                   ) -> Callable[[], float]:
+    """``server_clock_us`` when given (a test's injected clock), else
+    the server's ``GET /clock`` over HTTP."""
     if server_clock_us is not None:
         return server_clock_us
-    del addr, port, secret, timeout
-    from ... import metrics
+    from ...run.http_client import get_clock
 
-    metrics.refuse_rendezvous("the replay clock handshake (GET /clock)")
+    return lambda: get_clock(addr, port, secret=secret, timeout=timeout)
 
 
 def sample_offset(addr: str, port: int,
@@ -62,10 +58,9 @@ def sample_offset(addr: str, port: int,
                   server_clock_us: Optional[Callable[[], float]] = None
                   ) -> Dict[str, float]:
     """One handshake leg: ``{"offset_us", "rtt_us"}`` for a single
-    round trip to the server's clock, midpoint-approximated.
-    ``server_clock_us()`` reads the server's clock in µs; without it the
-    call raises ``NotImplementedError`` (the rendezvous client is not
-    ported yet)."""
+    ``GET /clock`` round trip, midpoint-approximated.
+    ``server_clock_us()``, when given, reads the server's clock in µs in
+    its place."""
     server = _server_clock(addr, port, secret, timeout, server_clock_us)
     clock = local_clock_us or _default_clock_us
     t0 = clock()
@@ -86,8 +81,8 @@ def estimate_offset(addr: str, port: int,
                     ) -> Dict[str, float]:
     """Best-of-N offset estimate: run ``samples`` handshake legs and
     keep the minimum-RTT one (its midpoint assumption has the least
-    queueing asymmetry to hide behind).  Raises on total failure, and
-    ``NotImplementedError`` without ``server_clock_us``."""
+    queueing asymmetry to hide behind).  Raises on total failure —
+    callers (Timeline.initialize) treat the handshake as best-effort."""
     server = _server_clock(addr, port, secret, timeout, server_clock_us)
     samples = max(1, int(samples))
     best: Optional[Dict[str, float]] = None

@@ -22,9 +22,10 @@ and the metrics registry dumped (``metrics.json``) next to
 with ``HVD_PROFILE_XLA=1``, a torch.profiler capture); this timeline
 covers the host-side spans.
 
-The clock-offset handshake against the launcher's rendezvous server
-(``clock_sync.json``) is not ported yet: without ``HVD_METRICS_KV_*``
-it is skipped as in the reference, with them it raises.
+Opening a trace with ``HVD_METRICS_KV_*`` set runs the clock-offset
+handshake against the launcher's rendezvous server and writes
+``clock_sync.json`` beside ``comm.json`` (timeline/replay/clock.py);
+without them it is skipped, as in the reference.
 """
 
 from __future__ import annotations
@@ -190,20 +191,35 @@ class Timeline:
             self._record_clock_sync(os.path.dirname(path), rank)
 
     def _record_clock_sync(self, rank_dir: str, rank: int) -> None:
-        """The reference estimates this rank's trace-clock→server-clock
-        offset against the rendezvous server here (``clock_sync.json``).
-        Skipped without the server's address, as there; with it, raises:
-        the handshake is not ported yet."""
-        del rank_dir, rank
+        """Estimate this rank's trace-clock→server-clock offset against
+        the rendezvous server and persist it as ``clock_sync.json``
+        (timeline/replay/clock.py; applied by merge_traces).  Written as
+        a sidecar, not a trace event, so it survives the native writer's
+        fixed event schema."""
         if not env_util.get_bool(env_util.HVD_REPLAY_CLOCK_SYNC, True):
             return
         addr = env_util.get_str(env_util.HVD_METRICS_KV_ADDR)
         port = env_util.get_int(env_util.HVD_METRICS_KV_PORT, 0)
         if not addr or not port:
             return
-        from .. import metrics
+        secret_hex = env_util.get_str(env_util.HVD_METRICS_SECRET)
+        secret = bytes.fromhex(secret_hex) if secret_hex else None
+        try:
+            from .replay.clock import estimate_offset
 
-        metrics.refuse_rendezvous("the timeline's clock handshake")
+            est = estimate_offset(
+                addr, port, secret=secret,
+                samples=env_util.get_int(
+                    env_util.HVD_REPLAY_CLOCK_SAMPLES, 8),
+                local_clock_us=self._ts_us,
+            )
+            est["rank"] = rank
+            with open(os.path.join(rank_dir, "clock_sync.json"), "w") as f:
+                json.dump(est, f, indent=1)
+            log.debug("clock sync: offset %.1f us (rtt %.1f us)",
+                      est["offset_us"], est["rtt_us"])
+        except Exception as e:  # noqa: BLE001
+            log.debug("clock sync skipped: %s", e)
 
     def shutdown(self) -> None:
         # flush any open compute-anatomy profiler BEFORE the writer
@@ -251,6 +267,22 @@ class Timeline:
     @property
     def enabled(self) -> bool:
         return self._writer is not None and self._in_window()
+
+    @property
+    def steps(self) -> int:
+        """The calls recorded since the writer opened (the window's
+        counter)."""
+        return self._step
+
+    @property
+    def window(self) -> tuple:
+        """The step window ``(start, end)``, both inclusive."""
+        return self._start_step, self._end_step
+
+    @property
+    def rank_dir(self) -> Optional[str]:
+        """This rank's trace directory while a writer is open."""
+        return self._dir
 
     def _in_window(self) -> bool:
         return self._start_step <= self._step <= self._end_step

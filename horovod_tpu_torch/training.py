@@ -99,6 +99,7 @@ from .optim.distributed import broadcast_parameters
 from .optim.fused_update import FusedOptimizer, apply_updates
 from .optim.transforms import Transform
 from .metrics import timeseries as _timeseries
+from .elastic import heartbeat as _heartbeat
 from .timeline.timeline import timeline
 from .utils import env as env_util
 from .utils.logging import get_logger
@@ -527,6 +528,12 @@ def make_train_step(
     fetcher = TrailingLossFetcher(loss_fetch_steps)
     k = max(in_graph_steps, 1)
     profiler = _profiler(profile)
+    if profiler is not None:
+        # an arm record polled by the time-series flusher moves its
+        # window with the timeline's (observe/autoarm.py)
+        from .observe import autoarm
+
+        autoarm.register_profiler(profiler)
     # donate=False: the step runs on a private copy of the state through
     # torch.func.functional_call (module tensor names by flax key)
     private = None if donate else _PrivateState(apply_fn)
@@ -826,8 +833,6 @@ def make_train_step(
                 payload={"residual_norm": float(norm),
                          "factor": box["guard"].factor,
                          "step": cadence["calls"]})
-        except NotImplementedError:
-            raise
         except Exception:  # noqa: BLE001 — recording is best-effort
             pass
         box["guard_tripped"] = True
@@ -902,6 +907,10 @@ def make_train_step(
 
     def fetching(eager: bool) -> Callable:
         def call(state: TrainState, x, y):
+            # failure-domain seam: a coordinated abort raises
+            # HorovodAbortError here, before this rank dispatches a step
+            # its dead peer will never join (elastic/heartbeat.py)
+            _heartbeat.maybe_raise_abort()
             if metrics.on():
                 _record_step_metrics(x)
             # a call in the profiler's window takes the decomposed path,

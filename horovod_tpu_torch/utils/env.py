@@ -54,8 +54,8 @@ HVD_PROFILE_XLA = "HVD_PROFILE_XLA"                    # 1 also captures a torch
 HVD_PROFILE_GAP_THRESHOLD_US = "HVD_PROFILE_GAP_THRESHOLD_US"  # inter-dispatch gap flagged as a host-gap span past this (default 25)
 # metrics plane (metrics/): the registry, its time series and the pushes
 HVD_METRICS = "HVD_METRICS"                            # 0 disables the registry
-HVD_METRICS_KV_ADDR = "HVD_METRICS_KV_ADDR"            # launcher rendezvous host (pushes: not ported)
-HVD_METRICS_KV_PORT = "HVD_METRICS_KV_PORT"            # launcher rendezvous port (pushes: not ported)
+HVD_METRICS_KV_ADDR = "HVD_METRICS_KV_ADDR"            # launcher rendezvous host the pushes go to
+HVD_METRICS_KV_PORT = "HVD_METRICS_KV_PORT"            # launcher rendezvous port
 HVD_METRICS_SECRET = "HVD_METRICS_SECRET"              # hex HMAC secret for pushes
 HVD_METRICS_PUSH_SECONDS = "HVD_METRICS_PUSH_SECONDS"  # push interval (default 5)
 HVD_METRICS_DELTA = "HVD_METRICS_DELTA"                # 0 forces full metric snapshots every push
@@ -67,11 +67,11 @@ HVD_TIMESERIES = "HVD_TIMESERIES"                      # 0 disables the ring-buf
 HVD_TIMESERIES_CAP = "HVD_TIMESERIES_CAP"              # raw-tier ring capacity, samples (default 512)
 HVD_TIMESERIES_TIERS = "HVD_TIMESERIES_TIERS"          # downsampling tiers incl. raw (default 3)
 HVD_TIMESERIES_FACTOR = "HVD_TIMESERIES_FACTOR"        # per-tier downsample factor (default 8)
-HVD_TIMESERIES_FLUSH_SECONDS = "HVD_TIMESERIES_FLUSH_SECONDS"  # flush interval (pushes: not ported)
+HVD_TIMESERIES_FLUSH_SECONDS = "HVD_TIMESERIES_FLUSH_SECONDS"  # time-series flush interval (default HVD_METRICS_PUSH_SECONDS)
 # flight recorder (observe/events.py)
 HVD_EVENTS = "HVD_EVENTS"                              # 0 disables the recorder (default on)
 HVD_EVENTS_RING_CAP = "HVD_EVENTS_RING_CAP"            # per-process ring capacity, events (default 1024)
-HVD_EVENTS_FLUSH_SECONDS = "HVD_EVENTS_FLUSH_SECONDS"  # worker-side flusher cadence (pushes: not ported)
+HVD_EVENTS_FLUSH_SECONDS = "HVD_EVENTS_FLUSH_SECONDS"  # worker-side flusher cadence (default HVD_METRICS_PUSH_SECONDS or 5)
 HVD_EVENTS_SERVER_CAP = "HVD_EVENTS_SERVER_CAP"        # server-side retained event cap per source
 # the replay engine (timeline/replay/): the clock handshake against the
 # rendezvous server, and the α–β link model's overrides (defaults:
@@ -102,6 +102,54 @@ HVD_AUTOTUNE_WARM_START = "HVD_AUTOTUNE_WARM_START"          # 0 skips the α–
 HVD_AUTOTUNE_CYCLE_FLUSH_STEPS = "HVD_AUTOTUNE_CYCLE_FLUSH_STEPS"  # re-plan a verified plan every N steps (0 = pin forever)
 HVD_PREFETCH_DEPTH = "HVD_PREFETCH_DEPTH"              # device prefetch queue depth in data/loader.py (default 2; 0 disables)
 
+# -- the rendezvous plane and the launcher (run/, runtime/, elastic/) --------
+# per-slot topology the launcher exports (the reference's HOROVOD_RANK/SIZE/...)
+HVD_RANK = "HVD_RANK"
+HVD_SIZE = "HVD_SIZE"
+HVD_LOCAL_RANK = "HVD_LOCAL_RANK"
+HVD_CROSS_RANK = "HVD_CROSS_RANK"
+HVD_CROSS_SIZE = "HVD_CROSS_SIZE"
+# "external": the launcher serves the job's TCPStore at HVD_COORDINATOR_ADDR
+# and every rank joins it as a client (run/run.py); unset: rank 0 serves it
+HVD_COORDINATOR_SERVER = "HVD_COORDINATOR_SERVER"
+HVD_CONTROLLER = "HVD_CONTROLLER"                      # auto|xla|native eager control plane
+HVD_CPU_OPERATIONS = "HVD_CPU_OPERATIONS"
+HVD_NETWORK_INTERFACE = "HVD_NETWORK_INTERFACE"        # NIC names the host data plane advertises on
+HVD_CYCLE_TIME = "HVD_CYCLE_TIME"                      # ms; HOROVOD_CYCLE_TIME
+HVD_CACHE_CAPACITY = "HVD_CACHE_CAPACITY"
+HVD_RING_MIN_BYTES = "HVD_RING_MIN_BYTES"              # host-plane ring/star crossover
+HVD_HIERARCHICAL_ALLGATHER = "HVD_HIERARCHICAL_ALLGATHER"
+HVD_STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
+HVD_STALL_CHECK_TIME_SECONDS = "HVD_STALL_CHECK_TIME_SECONDS"
+HVD_STALL_SHUTDOWN_TIME_SECONDS = "HVD_STALL_SHUTDOWN_TIME_SECONDS"
+# failure-domain runtime (elastic/heartbeat.py, elastic/abort.py, run/run.py)
+HVD_HEARTBEAT_INTERVAL_SECONDS = "HVD_HEARTBEAT_INTERVAL_SECONDS"  # lease renewal (default 2)
+HVD_HEARTBEAT_DISABLE = "HVD_HEARTBEAT_DISABLE"        # 1 turns the lease/abort plane off
+HVD_TERM_GRACE_SECONDS = "HVD_TERM_GRACE_SECONDS"      # SIGTERM→SIGKILL escalation grace (default 5)
+HVD_HTTP_RETRIES = "HVD_HTTP_RETRIES"                  # rendezvous HTTP retry budget (default 2)
+HVD_HTTP_BACKOFF_MS = "HVD_HTTP_BACKOFF_MS"            # base retry backoff, ms (default 50)
+HVD_HTTP_KEEPALIVE = "HVD_HTTP_KEEPALIVE"              # 0 disables pooled keep-alive connections (debug)
+HVD_RESTART_COUNT = "HVD_RESTART_COUNT"                # incarnation index set by the supervisor
+HVD_RESTART_BACKOFF_SECONDS = "HVD_RESTART_BACKOFF_SECONDS"  # restart backoff base (default 1)
+HVD_ELASTIC = "HVD_ELASTIC"                            # 1 = elastic driver supervises the job (not ported)
+HVD_ELASTIC_WORKER_ID = "HVD_ELASTIC_WORKER_ID"        # stable worker identity across epochs
+HVD_ELASTIC_MIN_NP = "HVD_ELASTIC_MIN_NP"              # floor world size before giving up (default 1)
+HVD_SERVE = "HVD_SERVE"                                # 1 = serving plane on (not ported)
+HVD_SERVE_MAX_BATCH = "HVD_SERVE_MAX_BATCH"            # batcher admits up to this many requests (default 8)
+HVD_SERVE_MAX_WAIT_MS = "HVD_SERVE_MAX_WAIT_MS"        # flush deadline from first admitted request (default 5)
+HVD_SERVE_SLO_MS = "HVD_SERVE_SLO_MS"                  # p99 latency objective (default 100)
+HVD_SERVE_AUTOSCALE = "HVD_SERVE_AUTOSCALE"            # 1 = autoscaler drives the elastic driver
+HVD_WATCH = "HVD_WATCH"                                # the launcher-side watchdog (not ported: a true value raises)
+HVD_WATCH_ARM = "HVD_WATCH_ARM"                        # 0 stops arm records from moving trace windows (default 1)
+# the KV plane (run/store.py, run/http_server.py, run/relay.py)
+HVD_CP_SHARDS = "HVD_CP_SHARDS"                        # KV store shard count (default 8)
+HVD_RENDEZVOUS_ADDRS = "HVD_RENDEZVOUS_ADDRS"          # ordered host:port,host:port failover list (primary first)
+HVD_RENDEZVOUS_JOURNAL = "HVD_RENDEZVOUS_JOURNAL"      # mutation-journal path; enables warm-standby replay
+HVD_RELAY = "HVD_RELAY"                                # 1 = local-rank-0 runs the per-host relay daemon
+HVD_RELAY_PORT = "HVD_RELAY_PORT"                      # relay listen port (default 0 = ephemeral)
+HVD_RELAY_FLUSH_MS = "HVD_RELAY_FLUSH_MS"              # relay upstream batch-flush cadence, ms (default 500)
+HVD_TIMESERIES_SERVER_CAP = "HVD_TIMESERIES_SERVER_CAP"  # per-series sample cap in the server's per-rank doc (default 2048)
+
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # 64 MiB, reference common.h:69
 FUSION_BUFFER_ATOMIC_UNIT = 64                     # reference common.h:94
 DEFAULT_START_TIMEOUT_SECONDS = 60.0               # rendezvous bound (core.init)
@@ -127,6 +175,15 @@ DEFAULT_AUTOTUNE_CYCLE_FLUSH_STEPS = 0             # verified plans pinned forev
 DEFAULT_DCN_GBPS = 50.0                            # cross-node link, GB/s (NDR InfiniBand, comm_report.py)
 DEFAULT_DCN_HOP_US = 2.7                           # cross-node hop latency, µs (NCCL's ring model, comm_report.py)
 DEFAULT_PREFETCH_DEPTH = 2                         # device prefetch queue depth (data/loader.py)
+DEFAULT_STALL_WARNING_SECONDS = 60.0               # reference stall_inspector.h:72
+DEFAULT_HEARTBEAT_INTERVAL_SECONDS = 2.0           # elastic/heartbeat.py lease renewal
+DEFAULT_TERM_GRACE_SECONDS = 5.0                   # run/run.py SIGTERM→SIGKILL grace
+DEFAULT_HTTP_RETRIES = 2                           # run/http_client.py retry budget
+DEFAULT_HTTP_BACKOFF_MS = 50.0                     # run/http_client.py backoff base
+DEFAULT_RESTART_BACKOFF_SECONDS = 1.0              # run/run.py restart backoff base
+DEFAULT_CP_SHARDS = 8                              # run/store.py KV shard count
+DEFAULT_RELAY_FLUSH_MS = 500.0                     # run/relay.py upstream batch cadence
+DEFAULT_TIMESERIES_SERVER_CAP = 2048               # per-series cap in the server's per-rank doc
 
 
 def get_int(name: str, default: int) -> int:

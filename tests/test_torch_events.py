@@ -4,7 +4,11 @@ dicts (ids ``<host>-<pid>-<seq>`` — one process, so the same ids), ring
 cap and drop counts, correlation chains, metrics, and chain extraction
 over the reference's fixture corpus; the error-feedback guard's trip
 records ``compression.fallback`` as the reference's does.  The sinks
-that need the rendezvous server raise."""
+land events in the rendezvous server's ``events`` scope (the port's and
+the reference's): the worker's flusher and the launcher's attached
+recorder."""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -226,13 +230,33 @@ def test_guard_fallback_records_the_references_event(monkeypatch,
                                w["payload"]["residual_norm"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("env", [{"HVD_METRICS_KV_ADDR": "localhost"},
-                                 {"HVD_METRICS_KV_PORT": "9"}])
+@pytest.mark.parametrize("env", [{"server": "port"},
+                                 {"server": "reference"}])
 def test_the_rendezvous_sinks_raise(monkeypatch, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port.record_event("epoch.commit")
-    with pytest.raises(NotImplementedError, match="rendezvous"):
-        port.attach_server(object())
-    assert port.recorder().pending() == 0
+    """Named for what it held before the rendezvous plane was ported (the
+    sinks raised); now both land events in the ``events`` scope of the
+    port's server (env0) and the reference's (env1): a worker's flusher
+    through ``PUT /batch``, the launcher's recorder attached in
+    process."""
+    from torch_rdv import kv_env, serving
+
+    port._reset_for_tests()
+    try:
+        with serving(env["server"]) as srv:
+            kv_env(monkeypatch, srv)
+            eid = port.record_event("epoch.commit", payload={"epoch": 1})
+            assert port.recorder()._flusher is not None
+            port.flush()
+            assert port.recorder().pending() == 0
+            got = srv.events_report()["events"]
+            assert [e["kind"] for e in got if e["id"] == eid] == \
+                ["epoch.commit"]
+            port._reset_for_tests()
+            port.attach_server(srv)
+            eid = port.record_event("restart.attempt", cause_id=eid)
+            assert json.loads(srv.get("events", eid))["cause_id"] is not None
+            assert port.recorder().pending() == 0
+    finally:
+        port._reset_for_tests()
+
+

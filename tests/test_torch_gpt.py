@@ -489,7 +489,8 @@ def test_gpt_benchmark_runs_on_cpu(monkeypatch):
     finally:
         core.shutdown()
     assert set(out) == {"seq_sec_per_chip", "mfu", "rates", "final_loss",
-                        "step_calls"}
+                        "step_calls", "first_step_at", "device"}
+    assert out["device"] == "cpu" and out["first_step_at"] > 0
     assert len(out["rates"]) == 2    # one per iteration
     assert out["seq_sec_per_chip"] == pytest.approx(np.mean(out["rates"]))
     assert np.isfinite(out["final_loss"]) and out["seq_sec_per_chip"] > 0

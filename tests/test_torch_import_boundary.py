@@ -99,7 +99,24 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.optim.profile_guided",
               "horovod_tpu_torch.optim.compute_knobs",
               "horovod_tpu_torch.data",
-              "horovod_tpu_torch.data.loader"):
+              "horovod_tpu_torch.data.loader",
+              "horovod_tpu_torch.run",
+              "horovod_tpu_torch.run.__main__",
+              "horovod_tpu_torch.run.store",
+              "horovod_tpu_torch.run.http_server",
+              "horovod_tpu_torch.run.http_client",
+              "horovod_tpu_torch.run.journal",
+              "horovod_tpu_torch.run.relay",
+              "horovod_tpu_torch.run.hosts",
+              "horovod_tpu_torch.run.discovery",
+              "horovod_tpu_torch.run.config_parser",
+              "horovod_tpu_torch.run.run",
+              "horovod_tpu_torch.run.task_fn",
+              "horovod_tpu_torch.runtime.stall_inspector",
+              "horovod_tpu_torch.metrics.push",
+              "horovod_tpu_torch.elastic.abort",
+              "horovod_tpu_torch.elastic.heartbeat",
+              "horovod_tpu_torch.observe.autoarm"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 

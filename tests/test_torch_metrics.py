@@ -14,8 +14,8 @@
   its XLA process mesh, simulated in this process with both "ranks"
   giving rank 0's arrays (the metrics depend on shapes, not values);
 * the instruments that replaced the port's plain fallback counters
-  count what those counted, and the pushes to the rendezvous server
-  raise.
+  count what those counted, and the pushes land on the rendezvous
+  server (the port's and the reference's) keyed by rank.
 """
 
 import json
@@ -43,13 +43,12 @@ from horovod_tpu_torch.metrics import timeseries as port_ts
 from horovod_tpu_torch.models import MLP
 from horovod_tpu_torch.optim.fused_update import fused_sgd
 from torch_dist_worker import eager_drive, launch, snapshot_samples
-
-#: pull gauges of the reference's stall inspector (runtime/, not ported)
-UNPORTED_FAMILIES = {"hvd_inflight_ops", "hvd_stalled_ops"}
-
+from torch_rdv import kv_env, serving
 
 def _snapshot_samples(registry):
-    return snapshot_samples(registry, UNPORTED_FAMILIES)
+    """Every family with samples, the stall inspector's pull gauges
+    (``hvd_inflight_ops``, ``hvd_stalled_ops``) included."""
+    return snapshot_samples(registry)
 
 
 @pytest.fixture()
@@ -302,20 +301,35 @@ def test_traced_inventory_is_recorded_once_a_capture(port_cpu_world):
     assert port.TRACED_CALLS.get("allgather") == 0
 
 
-@pytest.mark.parametrize("env", [{"HVD_METRICS_KV_ADDR": "localhost"},
-                                 {"HVD_METRICS_KV_PORT": "8123"}])
+@pytest.mark.parametrize("env", [{"server": "port"},
+                                 {"server": "reference"}])
 def test_rendezvous_pushes_raise(monkeypatch, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port.start_pusher_from_env(0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_ts.start_flusher_from_env(0)
-    with pytest.raises(NotImplementedError, match="rendezvous"):
-        port.start_pusher("localhost", 8123, 0)
-    core.shutdown()
-    with pytest.raises(NotImplementedError, match="rendezvous"):
+    """Named for what it held before the rendezvous plane was ported (the
+    pushes raised); now the pusher and the time-series flusher land on
+    the port's server (env0) and the reference's (env1) under the rank
+    they were started with, and ``core.init`` starts both keyed by this
+    process's ``HVD_PROCESS_ID``."""
+    for k in ("HVD_COORDINATOR_ADDR", "HVD_NUM_PROCESSES", "HVD_PROCESS_ID",
+              "HVD_TRACE_DIR", "HVD_TIMELINE"):
+        monkeypatch.delenv(k, raising=False)
+    with serving(env["server"]) as srv:
+        kv_env(monkeypatch, srv)
+        assert port.start_pusher_from_env(3) is not None
+        assert port_ts.start_flusher_from_env(3) is not None
+        port.STEPS_TOTAL.inc()
+        port_ts.record("step_seconds", 0.5, step=1)
+        port.stop_pusher()       # each stop pushes once more
+        port_ts.stop_flusher()
+        pushed = json.loads(srv.get("metrics", "3"))["metrics"]
+        assert pushed["hvd_steps_total"]["samples"][0]["value"] == \
+            port.STEPS_TOTAL.get()
+        assert "step_seconds" in json.loads(
+            srv.get("timeseries", "3"))["series"]
+        core.shutdown()
         core.init(device="cpu")
+        core.shutdown()
+        assert srv.get("metrics", "0") is not None
+        assert srv.get("timeseries", "0") is not None
     assert not core.is_initialized()
 
 

@@ -14,8 +14,8 @@ the loop inside ``make_train_step(profile_guided=True)``.
   rebuild seam and verified, or rolled back, and the losses stay those
   of the untuned per-leaf run (the two paths are bit-identical at one
   rank on the CPU).
-* A push target raises ``NotImplementedError`` until the rendezvous
-  server is ported.
+* A push target gets every record in the rendezvous server's
+  ``GET /autotune`` table, as the reference's tuner does.
 """
 
 import itertools
@@ -198,14 +198,30 @@ def test_compute_plans_from_anatomy_match_reference(kw):
 
 
 def test_push_target_raises_until_the_rendezvous_server(monkeypatch):
-    with pytest.raises(NotImplementedError, match="autotune plan push"):
-        pg.ProfileGuidedTuner(analyze_fn=lambda: None,
-                              apply_fn=lambda p: None,
-                              push_target=("localhost", 1, None))
-    monkeypatch.setenv("HVD_METRICS_KV_ADDR", "localhost")
-    monkeypatch.setenv("HVD_METRICS_KV_PORT", "1")
-    with pytest.raises(NotImplementedError, match="rendezvous server"):
-        pg.tuner_from_env(lambda: None, lambda p: None)
+    """Named for what it held before the rendezvous plane was ported (a
+    push target raised); now every record lands in the server's
+    ``GET /autotune`` table, the reference's tuner's records beside the
+    port's, and ``tuner_from_env`` aims at the server's address."""
+    from torch_rdv import SECRET, kv_env, serving
+
+    rec = {"outcome": "applied", "plan": {"kind": "fusion"},
+           "predicted_speedup": 1.25}
+    with serving("port") as srv:
+        target = ("127.0.0.1", srv.port, SECRET)
+        tuners = [m.ProfileGuidedTuner(analyze_fn=lambda: None,
+                                       apply_fn=lambda p: None,
+                                       push_target=target)
+                  for m in (pg, ref)]
+        tuners[0]._record(rec)
+        table = srv.autotune_report()
+        srv.clear_scope("autotune")
+        tuners[1]._record(rec)
+        assert srv.autotune_report() == table
+        assert [p["record"]["outcome"] for p in table["plans"]] == \
+            ["applied"]
+        kv_env(monkeypatch, srv)
+        assert pg.tuner_from_env(lambda: None, lambda p: None) \
+            .push_target == target
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ horovod_tpu.timeline.profiler.
   float64, bit for bit (``tests/test_torch_training.py``'s float64
   parity limits are 1e-6); after the window the step resumes from the
   updated state; ``HVD_PROFILE_XLA=1`` writes the torch.profiler trace
-  with one range per gradient bucket.
+  with one range per gradient bucket; a finalized window's anatomy is
+  pushed to the rendezvous server's ``profile`` scope.
 """
 
 import json
@@ -261,14 +262,50 @@ def test_finalize_deferred_while_step_in_flight(tmp_path):
     assert set(art["anatomy"]["segments"]) == {"forward", "backward"}
 
 
+def test_a_window_opening_as_the_timeline_closes_is_finalized_empty(
+        tmp_path, monkeypatch):
+    """Both packages: a profiler whose window opens on the call after the
+    timeline's end step is finalized by the timeline's shutdown in that
+    same call (``finalize_active``), before its first segment, and
+    captures nothing (why the launcher phase of ``chip_smoke.py`` opens
+    the profiler's window a few calls after the timeline has closed)."""
+    import importlib
+
+    monkeypatch.setenv("HVD_TRACE_START_STEP", "1")
+    monkeypatch.setenv("HVD_TRACE_END_STEP", "1")
+    for side in ("horovod_tpu_torch", "horovod_tpu"):
+        tl_mod = importlib.import_module(f"{side}.timeline.timeline")
+        prof_mod = importlib.import_module(f"{side}.timeline.profiler")
+        tl = tl_mod.Timeline()
+        monkeypatch.setattr(tl_mod, "timeline", tl)
+        tl.initialize(str(tmp_path / side))
+        prof = prof_mod.ComputeProfiler(trace_dir=str(tmp_path / side),
+                                        rank=0, enabled=True, start_step=2,
+                                        end_step=3)
+        opened = []
+        for _ in range(3):
+            opened.append(prof.on_step())   # the step wrapper's order
+            tl.record_step(owner="train_step")
+        tl.shutdown()
+        assert opened == [False, True, False], side
+        assert prof.anatomy is None or prof.anatomy["steps"] == 0, side
+
+
 def test_the_summary_push_raises_with_a_rendezvous(tmp_path, monkeypatch):
-    prof = port.ComputeProfiler(trace_dir=str(tmp_path), rank=0,
+    """Named for what it held before the rendezvous plane was ported (the
+    push raised); now finalizing a window pushes the anatomy to the
+    server's ``profile`` scope under the profiler's rank."""
+    from torch_rdv import kv_env, serving
+
+    prof = port.ComputeProfiler(trace_dir=str(tmp_path), rank=2,
                                 enabled=True, start_step=1, end_step=1)
     assert prof.on_step()
     with prof.step_span():
         prof.run_segment("forward", lambda: torch.ones(2))
-    monkeypatch.setenv("HVD_METRICS_KV_ADDR", "localhost")
-    monkeypatch.setenv("HVD_METRICS_KV_PORT", "9")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with serving("reference") as srv:
+        kv_env(monkeypatch, srv)
         prof.finalize()
-    assert (tmp_path / "0" / "compute.json").exists()
+        report = srv.profile_report()
+    assert (tmp_path / "2" / "compute.json").exists()
+    assert report["ranks"] == {"2": prof.anatomy}
+    assert report["aggregate"]["ranks"] == ["2"]

@@ -16,8 +16,8 @@ hand-computed fixtures, the projection and the clock handshake
   two-level topology, given the same explicit spec; the port's own
   hand-computed ``PROJECTION_EXPECTED`` holds under its H100 defaults.
 * The clock handshake takes an injected server clock and equals the
-  reference's fed the same clocks; without one it raises
-  ``NotImplementedError`` (no rendezvous server yet).
+  reference's fed the same clocks; without one it asks the rendezvous
+  server's ``GET /clock``.
 * ``live_trace`` (``make_train_step(donate=False)``) writes a trace
   ``live_validation`` projects: its numbers are host timings, so only
   their shape is checked.
@@ -302,8 +302,27 @@ def test_clock_handshake_matches_reference(monkeypatch):
 
 @pytest.mark.parametrize("fn", ["sample_offset", "estimate_offset"])
 def test_clock_handshake_without_a_server_clock_raises(fn):
-    with pytest.raises(NotImplementedError, match="rendezvous server"):
-        getattr(clock, fn)("localhost", 1)
+    """Without an injected clock the handshake asks ``GET /clock``: at an
+    address where no server listens it raises, as the reference's does;
+    against the port's server it answers."""
+    import urllib.error
+
+    from torch_rdv import SECRET, serving
+
+    with serving("port") as srv:
+        dead = srv.port
+    import importlib
+
+    ref_clock = importlib.import_module("horovod_tpu.timeline.replay.clock")
+    for mod in (clock, ref_clock):
+        # sample_offset raises the transport's error, estimate_offset its
+        # own after the failed samples
+        with pytest.raises((urllib.error.URLError, RuntimeError),
+                           match="refused|handshake failed"):
+            getattr(mod, fn)("127.0.0.1", dead, secret=SECRET)
+    with serving("port") as srv:
+        got = getattr(clock, fn)("127.0.0.1", srv.port, secret=SECRET)
+    assert got["rtt_us"] >= 0 and math.isfinite(got["offset_us"])
 
 
 def test_timeline_writes_no_clock_sidecar(port_trace):

@@ -5,7 +5,8 @@ owner dedupe, the auto-close at the end step and a fresh window after
 it, ``arm``, ``CYCLE_START`` — with each package's native writer
 (``csrc/timeline.cc``, built with g++) and the port's Python writer;
 the port's two writers write the same events; ``metrics.json`` lands
-next to ``comm.json``; and a 2-rank gloo job's per-rank ``comm.json``
+next to ``comm.json``, and ``clock_sync.json`` too when the rendezvous
+server is named; and a 2-rank gloo job's per-rank ``comm.json``
 is read unchanged by the reference's ``merge_traces`` and
 ``straggler_report``."""
 
@@ -207,16 +208,59 @@ def test_disabled_without_a_directory():
 
 def test_the_clock_handshake_raises_with_a_rendezvous(tmp_path,
                                                       monkeypatch):
-    monkeypatch.setenv("HVD_METRICS_KV_ADDR", "localhost")
-    monkeypatch.setenv("HVD_METRICS_KV_PORT", "9")
+    """Named for what it held before the rendezvous plane was ported (the
+    handshake raised); now opening a trace with the server's address
+    writes ``clock_sync.json`` beside ``comm.json``, with the reference's
+    keys, and ``HVD_REPLAY_CLOCK_SYNC=0`` skips it."""
+    from torch_rdv import kv_env, serving
+
+    with serving("port") as srv:
+        kv_env(monkeypatch, srv)
+        for tl, d in ((PortTimeline(), tmp_path), (RefTimeline(),
+                                                   tmp_path / "ref")):
+            tl.initialize(str(d))
+            tl.shutdown()
+        sync, want = (json.loads((d / "0" / "clock_sync.json").read_text())
+                      for d in (tmp_path, tmp_path / "ref"))
+        assert sorted(sync) == sorted(want)
+        assert sync["rtt_us"] >= 0 and sync["rank"] == 0
+        assert sync["method"] == want["method"]
+        monkeypatch.setenv("HVD_REPLAY_CLOCK_SYNC", "0")
+        tl.initialize(str(tmp_path / "b"))
+        assert tl.active
+        tl.shutdown()
+        assert not (tmp_path / "b" / "0" / "clock_sync.json").exists()
+
+
+def test_the_gpt_bench_traces_the_window_calls(tmp_path, monkeypatch):
+    """``gpt_synthetic_benchmark --cuda-trace`` (``window_traced``): one
+    torch.profiler capture from the window's first call to its last,
+    written to ``<rank dir>/cuda_trace/trace.json``."""
+    import importlib
+
+    from horovod_tpu_torch.examples import gpt_synthetic_benchmark as gb
+
+    tl_mod = importlib.import_module("horovod_tpu_torch.timeline.timeline")
+
+    monkeypatch.setenv("HVD_TRACE_START_STEP", "2")
+    monkeypatch.setenv("HVD_TRACE_END_STEP", "3")
     tl = PortTimeline()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tl.initialize(str(tmp_path))
+    monkeypatch.setattr(tl_mod, "timeline", tl)
+    tl.initialize(str(tmp_path))
+    started = []
+
+    def step(state, x, y):
+        started.append(tl.steps + 1)
+        tl.record_step(owner="train_step")
+        return state, x
+
+    traced = gb.window_traced(step)
+    for i in range(4):
+        traced(None, i, None)
+        want = (tmp_path / "0" / "cuda_trace" / "trace.json").exists()
+        assert want == (i >= 2), i     # written after call 3
     tl.shutdown()
-    monkeypatch.setenv("HVD_REPLAY_CLOCK_SYNC", "0")
-    tl.initialize(str(tmp_path / "b"))
-    assert tl.active
-    tl.shutdown()
+    assert started == [1, 2, 3, 4]
 
 
 def test_two_rank_comm_json_read_by_the_references_merge(tmp_path):

@@ -20,9 +20,9 @@ relative precision of their own.
   the same global batch.
 * the synthetic benchmark's ``run`` on the CPU; the tuners and
   ``donate=False`` build a step that trains (``donate=False`` leaves the
-  caller's state as it was and equals ``donate=True``), and only the
-  profile-guided loop's plan push, which needs the rendezvous server,
-  still raises; the profiler (``profile=True``) runs,
+  caller's state as it was and equals ``donate=True``), and the
+  profile-guided loop's tuner aims its plan push at the rendezvous
+  server's address; the profiler (``profile=True``) runs,
   ``tests/test_torch_profiler.py``.
 * the wire tier in the step, world 1: int8 and bf16 compression with
   and without error feedback against the reference's step (losses and
@@ -314,8 +314,8 @@ def test_trailing_loss_fetcher_reads_one_cadence_behind():
     assert off.flush() is None
 
 
-#: the rendezvous server's address, which the profile-guided loop's plan
-#: push needs
+#: a rendezvous server's address, where the profile-guided loop pushes
+#: its plan records
 _KV = {"HVD_METRICS_KV_ADDR": "localhost", "HVD_METRICS_KV_PORT": "1"}
 
 
@@ -323,14 +323,15 @@ _KV = {"HVD_METRICS_KV_ADDR": "localhost", "HVD_METRICS_KV_PORT": "1"}
     ({"profile_guided": True}, _KV),
     ({}, {"HVD_AUTOTUNE_PROFILE_GUIDED": "1", **_KV}),
 ])
-def test_unported_knobs_raise(monkeypatch, kw, env):
-    """What still waits for the rendezvous server (ROADMAP item 17): the
-    profile-guided loop's plan push, asked for by the server's address."""
+def test_unported_knobs_raise(port_cpu_world, monkeypatch, kw, env):
+    """Named for what it held before the rendezvous plane was ported (the
+    profile-guided loop's plan push raised when the server's address was
+    set); now the step's tuner pushes to that address."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
-                                 optimizer=fused_sgd(0.1), **kw)
+    step = training.make_train_step(apply_fn=MLP(4), loss_fn=F.cross_entropy,
+                                    optimizer=fused_sgd(0.1), **kw)
+    assert step.profile_guided_tuner.push_target == ("localhost", 1, None)
 
 
 @pytest.mark.parametrize("kw,env", [
