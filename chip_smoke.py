@@ -280,6 +280,38 @@ Phases, each printing one JSON line:
    13-17, replays only) within LAUNCH_RATE_SHARE of gpt_main_path's.
    Prints that share, the seconds from the launch to the first step and
    the phase's wall time.
+30. elastic — the state plane and the native host planes, on the
+   headline cell (ResNet-50, 224x224, batch 128, bf16 over float32
+   parameters, K1 momentum, graphed, cuDNN deterministic); run last,
+   since its reinit releases every step built before it.
+   (a) ``ElasticState`` with ``HVD_SNAPSHOT=1`` over a fixture of three
+   peer managers on loopback (this process's and two peers, one
+   rendezvous server): 20 calls, a save every 5 (the first also writes
+   the storage tier); then a fresh model (another seed) and a fresh step
+   ``resume()`` from the peers and make 5 more calls.  Checks:
+   ``restore.source`` is ``peer``; the restored tensors equal, bit for
+   bit, the state an uninterrupted run of the same calls held at the
+   restored generation; the 5 resumed losses and the 20 of the snapshot
+   run equal that run's; K1 issued one launch a step the host ran.
+   Prints each snapshot's host stall (µs) and its device copy (µs, CUDA
+   events), the rate of calls 6-20 with and without snapshots, the
+   seconds the snapshotter still needed after call 20, the newest
+   generation committed at that point (the steps a crash then would
+   lose), and the restore's ms (5 fresh restores).  (b) ``reinit()``
+   after call 10 of 20: the next call builds the step again (one eager
+   call, one new capture), the allocated memory after the new capture
+   within 1% of before, the losses equal an unbroken run's.  (c)
+   ``python -m horovod_tpu_torch.run -np 1 --restarts 1`` on
+   ``scripts/torch_elastic_tasks.py restart`` (16 steps, a checkpoint
+   every 5) with ``HVD_FAULT_SPEC`` ending attempt 0 at step 12: attempt
+   1 resumes from ``step_10`` and its loss at step 15 equals the same
+   task's run here, unbroken; prints the seconds from the kill to the
+   first resumed step.  (d) ``-np 2 --controller native`` on
+   ``scripts/torch_elastic_tasks.py allreduce``: two CPU workers sum
+   ResNet-50's 25,557,032 float32 gradients 3 times over the peer ring
+   and once over the coordinator star (the path ``HVD_RING=0`` takes),
+   equal to numpy's sum; prints GB/s of each (the native core built here
+   first, its seconds printed).
 
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
@@ -310,7 +342,8 @@ build phases, gpt_main_path and trace_plane (without the frontend's
 untraced rate), and prints no last line.  ``--autotune-only`` runs the
 device, build, gpt_main_path and autotune phases, and prints no last
 line.  ``--launcher-only`` runs the device, build, gpt_main_path and
-launcher phases, and prints no last line.
+launcher phases, and prints no last line.  ``--elastic-only`` runs the
+device, build and elastic phases, and prints no last line.
 """
 
 import contextlib
@@ -2979,7 +3012,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether two tensors hold the same bytes (float8 has no equality of
     its own)."""
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def _cpu_wire(comp, grads, residuals):
@@ -4914,6 +4948,419 @@ def phase_launcher(kernels, card, none) -> dict:
     return out
 
 
+# -- phase 30: elastic -------------------------------------------------------
+ELASTIC_DIR = Path(__file__).resolve().parent / "build" / "elastic"
+#: (a): the calls of the snapshot run, a snapshot every ELASTIC_EVERY
+#: calls, the calls resumed from the restored state, the restores timed;
+#: the uninterrupted run makes the calls of both
+ELASTIC_CALLS = 20
+ELASTIC_EVERY = 5
+ELASTIC_RESUMED = 5
+ELASTIC_RESTORES = 5
+#: the rate window: the calls after the first snapshot (its storage save)
+ELASTIC_WINDOW = (ELASTIC_EVERY, ELASTIC_CALLS)
+#: (b): reinit() after this call of a 20-call run; allocated memory after
+#: the new capture within this share of before
+ELASTIC_REINIT_AT = 10
+ELASTIC_MEMORY_SHARE = 0.01
+#: (c): the restart task's steps, the step its fault ends attempt 0 at,
+#: the step whose loss is held to the unbroken run's
+RESTART_STEPS = 16
+RESTART_KILL_AT = 12
+RESTART_CHECK = 15
+#: (d): ResNet-50's gradient count, summed this many times over the ring
+HOST_RING_ELEMENTS = 25_557_032
+HOST_RING_REPS = 3
+ELASTIC_TIMEOUT_S = 300
+
+
+def _elastic_tasks():
+    """``scripts/torch_elastic_tasks.py`` as a module (its batches and its
+    restart task, run here uninterrupted)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "torch_elastic_tasks.py"
+    spec = importlib.util.spec_from_file_location("torch_elastic_tasks",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _elastic_cell(htt, seed: int = 0):
+    """The headline cell (ResNet-50, bf16 over float32 parameters, fused
+    momentum through K1, graphed), its model made on the card from
+    ``seed``: ``(step, state)``."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet50
+
+    with torch.device("cuda"):
+        model = ResNet50(dtype=torch.bfloat16, generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+    model = model.to(memory_format=torch.channels_last)
+    opt = htt.fused_sgd(0.01, momentum=0.9)
+    step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                               optimizer=opt, has_batch_stats=True,
+                               fused_optimizer=True, loss_fetch_steps=0)
+    return step, htt.init_train_state(model, opt, has_batch_stats=True)
+
+
+def _elastic_calls(step, state, batches, first: int, calls: int, *,
+                   es=None, gens=None, on_call=None):
+    """``calls`` calls of ``step`` on ``batches[first:]``; with ``es`` a
+    save (a peer snapshot) every ELASTIC_EVERY calls, each timed on the
+    host and, by events around it, on the card; ``gens`` (a dict) gets a
+    clone of the state's tensors at every such call; ``on_call(i, step,
+    state)`` runs after call ``i``.  The window ELASTIC_WINDOW is timed
+    (synced at both ends).  Returns ``(state, losses, window_s,
+    saves)``."""
+    from horovod_tpu_torch.training import _state_tensors
+
+    losses, saves, window = [], [], [0.0, 0.0]
+    for i in range(first, first + calls):
+        if i == ELASTIC_WINDOW[0]:
+            torch.cuda.synchronize()
+            window[0] = time.perf_counter()
+        state, loss = step(state, *batches[i])
+        losses.append(loss)
+        n = i + 1
+        if n % ELASTIC_EVERY == 0 and es is not None:
+            before, after = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            before.record()
+            t0 = time.perf_counter()
+            es.state = state
+            es.save(n)
+            host = time.perf_counter() - t0
+            after.record()
+            saves.append((n, host, before, after))
+        if n % ELASTIC_EVERY == 0 and gens is not None:
+            gens[n] = [t.clone() for t in _state_tensors(state)]
+        if on_call is not None:
+            on_call(i, step, state)
+        if n == ELASTIC_WINDOW[1]:
+            torch.cuda.synchronize()
+            window[1] = time.perf_counter()
+    return state, [float.hex(t.item()) for t in losses], \
+        window[1] - window[0], saves
+
+
+@contextlib.contextmanager
+def _captured_events():
+    """The flight-recorder events recorded inside, by kind (the
+    recorder's own ring may drain to a server meanwhile)."""
+    from horovod_tpu_torch.observe import events as events_mod
+
+    seen, record = [], events_mod.record_event
+
+    def capture(kind, *args, **kw):
+        seen.append((kind, kw.get("payload")))
+        return record(kind, *args, **kw)
+
+    events_mod.record_event = capture
+    try:
+        yield seen
+    finally:
+        events_mod.record_event = record
+
+
+def _elastic_snapshots(htt, kernels, tasks, card) -> dict:
+    """elastic (a): see the module docstring, phase 30."""
+    from horovod_tpu_torch.elastic import peerstate
+    from horovod_tpu_torch.run.http_server import RendezvousServer
+    from horovod_tpu_torch.training import _state_tensors
+    from horovod_tpu_torch.utils.checkpoint import latest_step
+
+    what = "elastic (a)"
+    batches = [tasks.batch(i, 128, 224, 1000, "cuda")
+               for i in range(ELASTIC_CALLS + ELASTIC_RESUMED)]
+    # the uninterrupted run: every loss, and the state at each generation
+    gens: dict = {}
+    step, state = _elastic_cell(htt)
+    _, want, plain_s, _ = _elastic_calls(
+        step, state, batches, 0, ELASTIC_CALLS + ELASTIC_RESUMED, gens=gens)
+    del step, state
+
+    secret = os.urandom(16)
+    central = RendezvousServer(secret=secret)
+    port = central.start()
+    env = {"HVD_METRICS_KV_ADDR": "127.0.0.1",
+           "HVD_METRICS_KV_PORT": str(port),
+           "HVD_METRICS_SECRET": secret.hex(), "HVD_SNAPSHOT": "1",
+           "HVD_PEER_REPLICAS": "2", "HVD_SNAPSHOT_STORAGE_EVERY": "1000",
+           "HVD_ELASTIC_WORKER_ID": "0", "HVD_PROCESS_ID": "0",
+           "HVD_NUM_PROCESSES": "1"}
+    peers = [peerstate.PeerSnapshotManager(
+        worker=str(w), rank=w, addr="127.0.0.1", port=port, secret=secret)
+        for w in (1, 2)]
+    for p in peers:
+        p.start()
+    ckpt = ELASTIC_DIR / "snapshots"
+    try:
+        with env_vars(env), _captured_events() as seen:
+            peerstate.reset()
+            reset_counts(kernels)
+            step, state = _elastic_cell(htt)
+            es = htt.ElasticState(str(ckpt), state)
+            if es._peer is None:
+                fail(f"{what}: HVD_SNAPSHOT=1 gave no peer manager")
+            state, got, snap_s, saves = _elastic_calls(
+                step, state, batches, 0, ELASTIC_CALLS, es=es)
+            issued = kernels.launch_totals(kernels.fused_update_launches)
+            calls = dict(step.calls)
+            mgr = es._peer
+            # what a crash right after call 20 could restore: the newest
+            # committed peer generation, else the storage tier's step
+            at_crash = mgr.resolve_committed()
+            storage_at_crash = latest_step(str(ckpt))
+            t0 = time.perf_counter()
+            if not mgr.drain(ELASTIC_TIMEOUT_S):
+                fail(f"{what}: the snapshotter did not drain")
+            tail_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            stalls = [(n, host * 1e6, b.elapsed_time(a) * 1e3)
+                      for n, host, b, a in saves]
+            del step, state
+            # a process after a crash: a fresh model (another seed), a
+            # fresh step, resumed from the peers
+            step, state = _elastic_cell(htt, seed=1)
+            es2 = htt.ElasticState(str(ckpt), state)
+            seen.clear()
+            t0 = time.perf_counter()
+            state, gen = es2.resume()
+            restore_s = [time.perf_counter() - t0]
+            sources = [p.get("source") for k, p in seen
+                       if k == "restore.source"]
+            if sources != ["peer"]:
+                fail(f"{what}: restore.source {sources}, want ['peer']")
+            if gen not in gens:
+                fail(f"{what}: restored generation {gen}, not one of "
+                     f"{sorted(gens)}")
+            diff = [i for i, (a, b) in enumerate(zip(
+                _state_tensors(state), gens[gen])) if not same_bits(a, b)]
+            if diff or len(gens[gen]) != len(_state_tensors(state)):
+                fail(f"{what}: {len(diff)} restored tensors differ from the "
+                     f"state at generation {gen} (first: {diff[:3]})")
+            state, resumed, _, _ = _elastic_calls(
+                step, state, batches, gen, ELASTIC_RESUMED)
+            if resumed != want[gen:gen + ELASTIC_RESUMED]:
+                fail(f"{what}: resumed losses {resumed} differ from the "
+                     f"uninterrupted run's calls {gen + 1}-"
+                     f"{gen + ELASTIC_RESUMED}: "
+                     f"{want[gen:gen + ELASTIC_RESUMED]}")
+            for _ in range(ELASTIC_RESTORES - 1):
+                t0 = time.perf_counter()
+                es2.resume()
+                restore_s.append(time.perf_counter() - t0)
+            del step, state
+    finally:
+        peerstate.reset()
+        for p in peers:
+            p.stop()
+        central.stop()
+    if got != want[:ELASTIC_CALLS]:
+        fail(f"{what}: the snapshot run's losses differ from the "
+             "uninterrupted run's")
+    if issued != {"sgd": 0, "momentum": issued_steps(calls), "adam": 0}:
+        fail(f"{what}: K1 launches issued {issued}, calls {calls}")
+    window = ELASTIC_WINDOW[1] - ELASTIC_WINDOW[0]
+    rate = 128 * window / snap_s
+    plain_rate = 128 * window / plain_s
+    out = {"phase": "elastic_snapshots", "model": "ResNet50",
+           "batch": 128, "calls": ELASTIC_CALLS, "every": ELASTIC_EVERY,
+           "step_calls": calls, "k1_launches_issued": issued,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in gens[ELASTIC_EVERY]),
+           "storage_save_ms": saves[0][1] * 1e3,
+           "snapshot_stall_us": {n: h for n, h, _ in stalls[1:]},
+           "snapshot_device_copy_us": {n: d for n, _, d in stalls[1:]},
+           "img_sec_with_snapshots": rate, "img_sec_without": plain_rate,
+           "rate_share": rate / plain_rate - 1,
+           "rate_window_calls": list(ELASTIC_WINDOW),
+           "peer_gen_committed_at_crash": at_crash,
+           "storage_step_at_crash": storage_at_crash,
+           "steps_lost": ELASTIC_CALLS - max(at_crash or 0,
+                                             storage_at_crash or 0),
+           "background_tail_s": tail_s, "restored_gen": gen,
+           "restore_source": sources[0],
+           "restore_ms": [s * 1e3 for s in restore_s],
+           "restore_ms_p50": statistics.median(restore_s) * 1e3,
+           "resumed_losses": resumed, "card": card}
+    emit(out)
+    return out
+
+
+def _elastic_reinit(htt, tasks, card) -> dict:
+    """elastic (b): see the module docstring, phase 30."""
+    what = "elastic (b)"
+    batches = [tasks.batch(i, 128, 224, 1000, "cuda")
+               for i in range(2 * ELASTIC_REINIT_AT)]
+    step, state = _elastic_cell(htt)
+    _, want, _, _ = _elastic_calls(step, state, batches, 0, len(batches))
+    del step, state
+    step, state = _elastic_cell(htt)
+    memory = {}
+
+    def on_call(i, step_, state_):
+        if i + 1 == ELASTIC_REINIT_AT:
+            torch.cuda.synchronize()
+            memory["before"] = torch.cuda.memory_allocated()
+            htt.reinit()
+        elif i + 1 == ELASTIC_REINIT_AT + 2:
+            torch.cuda.synchronize()
+            memory["after"] = torch.cuda.memory_allocated()
+
+    _, got, _, _ = _elastic_calls(step, state, batches, 0, len(batches),
+                                  on_call=on_call)
+    calls = dict(step.calls)
+    share = memory["after"] / memory["before"] - 1
+    out = {"phase": "elastic_reinit", "reinit_after_call": ELASTIC_REINIT_AT,
+           "step_calls": calls, "builds": len(step.builds),
+           "allocated_before": memory["before"],
+           "allocated_after_recapture": memory["after"],
+           "allocated_share": share, "card": card}
+    emit(out)
+    if len(step.builds) != 2 or calls != {
+            "eager": 2, "capture": 2, "replay": len(batches) - 4}:
+        fail(f"{what}: {len(step.builds)} builds, calls {calls}; want one "
+             "rebuild: an eager call and one new capture")
+    if abs(share) > ELASTIC_MEMORY_SHARE:
+        fail(f"{what}: allocated {memory['after']} B after the new capture "
+             f"against {memory['before']} B before ({share:+.2%}, limit "
+             f"{ELASTIC_MEMORY_SHARE:.0%})")
+    if got != want:
+        fail(f"{what}: losses across the reinit differ from the unbroken "
+             f"run's: {got} != {want}")
+    return out
+
+
+def _worker_events(stdout: str) -> list:
+    """The JSON lines the launched workers printed, with their rank."""
+    out = []
+    for line in stdout.splitlines():
+        tag, _, body = line.partition("<stdout>: ")
+        if body.startswith("{"):
+            out.append(dict(json.loads(body), worker=tag.strip("[]")))
+    return out
+
+
+def _launch(argv, env_extra: dict, what: str):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HVD_")}
+    env.update(env_extra)
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", *argv], env=env,
+        capture_output=True, text=True, timeout=ELASTIC_TIMEOUT_S, cwd=root)
+    wall = time.perf_counter() - t0
+    (ELASTIC_DIR / f"{what}.out").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"elastic: {' '.join(argv)} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return _worker_events(proc.stdout), wall
+
+
+def _elastic_restart(tasks, card) -> dict:
+    """elastic (c): see the module docstring, phase 30."""
+    import shutil
+
+    what = "elastic (c)"
+    ckpt = ELASTIC_DIR / "restart"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    script = Path(__file__).resolve().parent / "scripts" / \
+        "torch_elastic_tasks.py"
+    events, wall = _launch(
+        ["-np", "1", "--restarts", "1", sys.executable, str(script),
+         "restart", "--ckpt", str(ckpt), "--steps", str(RESTART_STEPS)],
+        {"HVD_FAULT_SPEC": f"rank=0:step={RESTART_KILL_AT}:kind=crash"},
+        "restart")
+    resumes = [e for e in events if e["event"] == "resume"]
+    if [(r["restart"], r["step"]) for r in resumes] != [(0, 0), (1, 10)]:
+        fail(f"{what}: resumes {resumes}; want attempt 0 fresh and attempt "
+             "1 from the committed step_10")
+    calls0 = [e for e in events if e["event"] == "call"
+              and e["t"] < resumes[1]["t"]]
+    if calls0[-1]["step"] != RESTART_KILL_AT:
+        fail(f"{what}: attempt 0 ended at step {calls0[-1]['step']}")
+    steps1 = [e for e in events if e["event"] == "step"
+              and e["t"] > resumes[1]["t"]]
+    kill_to_resume = steps1[0]["t"] - calls0[-1]["t"]
+    got = {e["step"]: e["loss"] for e in steps1}
+    # the same task here, unbroken (its checkpoints in a directory of
+    # their own)
+    shutil.rmtree(ELASTIC_DIR / "unbroken", ignore_errors=True)
+    with deterministic_cudnn():
+        want = dict(tasks.train(str(ELASTIC_DIR / "unbroken"), RESTART_STEPS,
+                                out=lambda **_: None, shutdown=False))
+    if got.get(RESTART_CHECK) != float.hex(want[RESTART_CHECK]):
+        fail(f"{what}: loss at step {RESTART_CHECK} after the restart "
+             f"{got.get(RESTART_CHECK)}, unbroken "
+             f"{float.hex(want[RESTART_CHECK])}")
+    out = {"phase": "elastic_restart", "steps": RESTART_STEPS,
+           "killed_at_step": RESTART_KILL_AT,
+           "resumed_from": resumes[1]["step"],
+           "resume_read_s": resumes[1]["seconds"],
+           "kill_to_first_resumed_step_s": kill_to_resume,
+           "loss_at_check": got[RESTART_CHECK],
+           "losses_equal_unbroken": sorted(
+               s for s, v in got.items() if v == float.hex(want[s])),
+           "wall_s": wall, "card": card}
+    emit(out)
+    return out
+
+
+def _elastic_host_ring(card) -> dict:
+    """elastic (d): see the module docstring, phase 30."""
+    from horovod_tpu_torch.runtime import native
+
+    what = "elastic (d)"
+    t0 = time.perf_counter()
+    native.load()  # make -C csrc here once, before the workers load it
+    build_s = time.perf_counter() - t0
+    script = Path(__file__).resolve().parent / "scripts" / \
+        "torch_elastic_tasks.py"
+    events, wall = _launch(
+        ["-np", "2", "--controller", "native", sys.executable, str(script),
+         "allreduce", "--elements", str(HOST_RING_ELEMENTS), "--reps",
+         str(HOST_RING_REPS), "--star-reps", "1"], {}, "host_ring")
+    out = {"phase": "elastic_host_ring", "elements": HOST_RING_ELEMENTS,
+           "workers": 2, "native_build_s": build_s, "wall_s": wall,
+           "card": card}
+    for transport, reps in (("ring", HOST_RING_REPS), ("star", 1)):
+        runs = [e for e in events if e["event"] == "allreduce"
+                and e["transport"] == transport]
+        if len(runs) != 2 * reps:
+            fail(f"{what}: {transport} runs {runs}")
+        # a collective ends on its slowest rank
+        per_rep = [max(e["seconds"] for e in runs if e["rep"] == r)
+                   for r in range(reps)]
+        nbytes = runs[0]["bytes"]
+        out[transport] = {"seconds": per_rep,
+                          "gb_per_s": [nbytes / s / 1e9 for s in per_rep]}
+    emit(out)
+    return out
+
+
+def phase_elastic(htt, kernels, card) -> None:
+    """Phase 30 (see the module docstring): the state plane and the
+    native host planes on the headline cell."""
+    import shutil
+
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    tasks = _elastic_tasks()
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        _elastic_snapshots(htt, kernels, tasks, card)
+        _elastic_reinit(htt, tasks, card)
+    _elastic_restart(tasks, card)
+    _elastic_host_ring(card)
+    emit({"phase": "elastic", "wall_s": time.perf_counter() - t0,
+          "card": card})
+
+
 def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                        default_img_sec) -> dict:
     """The phases of K6-K10: each kernel against its plain version, the
@@ -4969,6 +5416,8 @@ def main() -> None:
     ap.add_argument("--launcher-only", action="store_true",
                     help="run the device and build phases, gpt_main_path "
                          "and launcher")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="run the device and build phases and elastic")
     ap.add_argument("--model-parallel-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K5 and model parallelism (ring_kernels, "
@@ -5028,6 +5477,10 @@ def main() -> None:
         phase_launcher(kernels, card, gpt_none)
         htt.shutdown()
         return
+    if cli.elastic_only:
+        phase_elastic(htt, kernels, card)
+        htt.shutdown()
+        return
     if cli.model_parallel_only:
         results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
                                             card)
@@ -5082,6 +5535,7 @@ def main() -> None:
     registry = phase_registry_main_path(htt, kernels, flops_mod, card)
     results["momentum"]["vgg16"]["launches"] = \
         registry["VGG16"]["k1"]["momentum"]["float32"]
+    phase_elastic(htt, kernels, card)
     htt.shutdown()
 
     emit({"kernels": [results[r] for r in ("momentum", "sgd", "adam", "K2",

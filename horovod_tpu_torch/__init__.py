@@ -42,7 +42,9 @@ from .ops.sparse import (  # noqa: F401
 from .parallel.hierarchical import two_level_allreduce  # noqa: F401
 from .eager import allgather_object, broadcast_object  # noqa: F401
 from .elastic.join import join, join_allreduce  # noqa: F401
-from .elastic import HorovodAbortError, abort  # noqa: F401
+from .elastic import (  # noqa: F401
+    ElasticState, HorovodAbortError, abort,
+)
 from .optim.distributed import (  # noqa: F401
     DistributedGradientTape, DistributedOptimizer, broadcast_optimizer_state,
     broadcast_parameters, broadcast_variables,

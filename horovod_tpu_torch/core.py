@@ -25,15 +25,28 @@ rank joins it as a client (``run/run.py``).
 ``init`` opens the per-rank timeline when ``HVD_TIMELINE`` /
 ``HVD_TRACE_DIR`` is set, as the reference's does, and ``shutdown``
 closes it (writing ``metrics.json`` beside ``comm.json``).  After the
-group is joined it starts the control plane the launcher wired
-(``HVD_METRICS_KV_*``): the relay, the metrics pusher and time-series
-flusher keyed by this rank, and the heartbeat leases.
+group is joined it connects the native negotiation controller and the
+peer ring when ``HVD_CONTROLLER=native`` (``runtime/eager_controller.py``;
+a controller that cannot start fails ``init``), then starts the control
+plane the launcher wired (``HVD_METRICS_KV_*``): the relay, the metrics
+pusher and time-series flusher keyed by this rank, and the heartbeat
+leases.  In an elastic job (``HVD_ELASTIC=1``) it first adopts the
+committed membership epoch (``elastic/membership.attach``), whose record
+names this process's rank, the world and the epoch's store.
+
+``reinit`` (the elastic rebuild) leaves the world and joins the one the
+environment now describes.  What was built for the old world is told
+first: a train step's captured graph holds the old communicator, so
+``shutdown`` releases every built step's graph and memory pool
+(:func:`bind_to_world`) before the group is destroyed, and the step
+rebuilds itself at its next call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import weakref
 from typing import Optional
 
 import torch
@@ -81,6 +94,16 @@ _init_kwargs: dict = {}
 #: how many worlds this process has joined; what was built for one world
 #: (a process set's group, a captured train step) checks it
 _epoch = 0
+#: what holds the world's communicator and must let go of it before the
+#: group is destroyed: ``release()`` is called on each by :func:`shutdown`
+_world_bound: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def bind_to_world(obj) -> None:
+    """Have :func:`shutdown` call ``obj.release()`` before it destroys
+    the process group (a captured CUDA graph replayed against a destroyed
+    NCCL communicator is a crash, not an error).  Held weakly."""
+    _world_bound.add(obj)
 
 
 def init(device=None, backend: Optional[str] = None) -> None:
@@ -95,6 +118,15 @@ def init(device=None, backend: Optional[str] = None) -> None:
     global _world, _init_kwargs, _epoch
     if _world is not None:
         return
+    # Elastic membership: adopt the committed epoch FIRST — a shrink that
+    # raced this process's start-up rewrote the world, and the identity
+    # env must be read after adoption (the ack is the driver's barrier)
+    try:
+        from .elastic import membership
+
+        membership.attach()
+    except Exception as e:  # noqa: BLE001 — membership must never
+        log.warning("membership attach failed: %s", e)  # block init
     size = env_util.get_int(env_util.HVD_NUM_PROCESSES, 1)
     rank = env_util.get_int(env_util.HVD_PROCESS_ID, 0)
     local_size = env_util.get_int(env_util.HVD_LOCAL_SIZE, size)
@@ -136,6 +168,15 @@ def init(device=None, backend: Optional[str] = None) -> None:
     _epoch += 1
     log.info("initialized: rank=%d size=%d local_size=%d device=%s "
              "backend=%s", rank, size, local_size, dev, backend)
+    try:
+        from .runtime import eager_controller
+
+        eager_controller.setup_from_env(rank, size)
+    except Exception:
+        # a requested native controller that cannot start means a job
+        # whose host planes have no transport: fail loudly, leave no group
+        shutdown()
+        raise
     # env-driven timeline start-up, as the reference's core does when
     # HVD_TIMELINE / HVD_TRACE_DIR is set (a no-op otherwise)
     from .timeline.timeline import timeline
@@ -196,8 +237,14 @@ def _rendezvous(addr: str, rank: int, size: int) -> dist.TCPStore:
                              multi_tenant=True)
     store = dist.TCPStore(host, int(port), size, is_master=False,
                           timeout=timeout)
-    joined, ready = (f"hvd/init/{_epoch + 1}/{k}" for k in ("joined",
-                                                            "ready"))
+    # the key of this world: an elastic world has a store of its own
+    # (its membership epoch), a reinit on the same store the next init
+    world = _epoch + 1
+    if env_util.get_bool(env_util.HVD_ELASTIC):
+        from .elastic import membership
+
+        world = f"epoch{membership.current_epoch()}"
+    joined, ready = (f"hvd/init/{world}/{k}" for k in ("joined", "ready"))
     if store.add(joined, 1) == size:
         store.set(ready, "1")
     store.wait([ready], timeout)
@@ -211,8 +258,19 @@ def shutdown() -> None:
         return
     from .timeline.timeline import timeline
 
+    for obj in list(_world_bound):
+        try:
+            obj.release()  # before the communicator it captured goes
+        except Exception as e:  # noqa: BLE001
+            log.warning("releasing %r failed: %s", obj, e)
     timeline.shutdown()
     _stop_control_plane()
+    try:
+        from .runtime import eager_controller
+
+        eager_controller.shutdown()
+    except Exception as e:  # noqa: BLE001
+        log.debug("eager controller shutdown failed: %s", e)
     if dist.is_initialized():
         dist.destroy_process_group()
     _world = None
@@ -238,10 +296,12 @@ def _stop_control_plane() -> None:
 def reinit() -> None:
     """Leave the process group and join it again against the current
     environment, with the device selection of the last :func:`init`
-    (reference ``core.reinit``).  What was built for the old world (a
-    :class:`~horovod_tpu_torch.ops.collectives.ProcessSet`, a train step)
-    raises on its next use.  A process that never initialized gets a
-    plain :func:`init`."""
+    (reference ``core.reinit``; the elastic rebuild).  A train step
+    built for the old world has its graph released here and rebuilds at
+    its next call (``training.make_train_step``); a
+    :class:`~horovod_tpu_torch.ops.collectives.ProcessSet` of the old
+    world raises on its next use.  A process that never initialized gets
+    a plain :func:`init`."""
     kwargs = dict(_init_kwargs)
     shutdown()
     init(**kwargs)

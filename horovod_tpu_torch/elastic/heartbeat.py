@@ -19,9 +19,10 @@ Wiring mirrors the metrics pusher and sanitizer: the launcher exports
 ``HVD_METRICS_KV_ADDR``/``PORT``/``HVD_METRICS_SECRET`` and
 ``core.init()`` calls :func:`start_from_env`; ``HVD_HEARTBEAT_DISABLE=1``
 turns the plane off.  Lease loss is tolerated (the next interval renews);
-the thread never raises into the training process.  An elastic job
-(``HVD_ELASTIC=1``) makes :func:`start_from_env` raise: the membership
-epoch it reads is ROADMAP item 13.
+the thread never raises into the training process.  In an elastic job
+(``HVD_ELASTIC=1``) the lease carries the committed membership epoch
+(elastic/membership.py), so abort flags stamped with an older epoch are
+ignored, and a worker outside the committed world polls without renewing.
 """
 
 from __future__ import annotations
@@ -234,15 +235,20 @@ def start_from_env() -> Optional[HeartbeatThread]:
     secret_hex = env_util.get_str(env_util.HVD_METRICS_SECRET)
     secret = bytes.fromhex(secret_hex) if secret_hex else None
     rank = env_util.get_int(env_util.HVD_PROCESS_ID, 0)
-    if elastic:
-        # the reference reads the committed membership epoch here
-        # (elastic/membership.py), which the port has not reached yet
-        raise NotImplementedError(
-            f"{env_util.HVD_ELASTIC}=1: the heartbeat's membership epoch "
-            "needs elastic membership (elastic/membership.py), which is not "
-            "ported yet (ROADMAP queue 1, item 13)")
     epoch = 0
     renew = True
+    if elastic:
+        from . import membership
+
+        epoch = membership.current_epoch()
+        rec = membership.current_record()
+        if rec is not None \
+                and membership.worker_id() not in rec.get("world", ()):
+            # not a member of the committed world (evicted while
+            # booting, or a spare awaiting admission): poll the abort
+            # flag so the seam can kill/redirect us, but do NOT renew a
+            # rank-keyed lease that may belong to a successor worker
+            renew = False
     return start(rank, size, addr, port, secret=secret, epoch=epoch,
                  renew=renew)
 

@@ -13,8 +13,8 @@ abort flag, heartbeat leases).  Knobs: ``HVD_HTTP_RETRIES`` (default 2
 retries after the first attempt) and ``HVD_HTTP_BACKOFF_MS`` (default
 50 ms base, doubled per attempt).  Retries surface as the
 ``hvd_http_retries_total`` counter.  The ``HVD_FAULT_SPEC`` harness's
-``http_drop`` faults inject here, through :data:`fault_hook`, so the
-retry path itself is testable (the harness is ROADMAP item 13).
+``http_drop`` faults inject here (``elastic/faults.py`` ``on_http``), so
+the retry path itself is testable.
 
 Control-plane tier additions (docs/control_plane.md):
 
@@ -36,10 +36,12 @@ Control-plane tier additions (docs/control_plane.md):
   and :func:`put_kv_reply` (a PUT that returns the server's JSON reply,
   e.g. the heartbeat's piggybacked abort verdict).
 
-The reference's clients of the planes the port has not reached (the
-peer-state shards, serving, the replay and projection summaries, the
-sanitizer and alert tables) come with those planes (ROADMAP items
-13-15); the server already answers their routes.
+The peer state plane's shard reads and writes (:func:`push_shard`,
+:func:`pull_shard`, :func:`get_peerstate`) are here too.  The
+reference's clients of the planes the port has not reached (serving, the
+replay and projection summaries, the sanitizer and alert tables) come
+with those planes (ROADMAP items 14-15); the server already answers
+their routes.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import time
 import urllib.error
 import urllib.request
 from base64 import b64decode, b64encode
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..utils import env as env_util
 from ..utils.logging import get_logger
@@ -77,13 +79,6 @@ _STALE_ERRORS = (ConnectionResetError, BrokenPipeError,
                  http.client.CannotSendRequest)
 
 _pool_local = threading.local()
-
-#: the fault-injection seam the reference's ``HVD_FAULT_SPEC`` harness
-#: (``elastic/faults.py``, ROADMAP item 13) fills with its ``on_http``:
-#: called with each request's path before it is sent, inside the retry
-#: loop, so a drop it raises exercises the retries.  None sends every
-#: request untouched.
-fault_hook: Optional[Callable[[str], None]] = None
 
 
 def _record_retry() -> None:
@@ -263,8 +258,9 @@ def _request(method: str, addr: str, port: int, path: str,
         attempt = 0
         while True:
             try:
-                if fault_hook is not None:
-                    fault_hook(path)  # inside the loop: drops exercise retries
+                from ..elastic import faults
+
+                faults.on_http(path)  # inside the loop: drops exercise retries
                 resp = _send_once(method, t_addr, t_port, path, body,
                                   secret, timeout)
                 if targets is not None:
@@ -405,6 +401,41 @@ def delete_kv(addr: str, port: int, scope: str, key: str,
     fingerprints."""
     with _request("DELETE", addr, port, f"/{scope}/{key}", secret=secret):
         pass
+
+
+def push_shard(addr: str, port: int, key: str, data: bytes,
+               secret: Optional[bytes] = None,
+               timeout: float = 30.0) -> None:
+    """Upload one snapshot shard to a peer worker's shard server
+    (``PUT /shard/<gen>.<src_rank>.<idx>``) — the replication write of
+    the peer state plane (elastic/peerstate.py).  Retries ride the
+    standard transient-failure policy; shard writes are idempotent
+    (same bytes, content-checksummed at restore)."""
+    put_kv(addr, port, "shard", key, data, secret=secret, retry=True,
+           timeout=timeout)
+
+
+def pull_shard(addr: str, port: int, key: str,
+               secret: Optional[bytes] = None,
+               timeout: float = 30.0) -> Optional[bytes]:
+    """Fetch one snapshot shard from a peer worker's shard server
+    (``GET /shard/<gen>.<src_rank>.<idx>``); None when the peer does not
+    hold it.  The caller verifies the manifest checksum and tries the
+    next replica on mismatch (elastic/peerstate.py)."""
+    return get_kv(addr, port, "shard", key, secret=secret, wait=False,
+                  timeout=timeout)
+
+
+def get_peerstate(addr: str, port: int, secret: Optional[bytes] = None,
+                  timeout: float = 10.0) -> dict:
+    """The peer-state-plane table from ``GET /peerstate``: registered
+    shard-server endpoints, per-generation manifest/commit coverage, and
+    the newest fully-committed generation restore would target."""
+    import json
+
+    with _request("GET", addr, port, "/peerstate", secret=secret,
+                  timeout=timeout) as resp:
+        return json.loads(resp.read().decode())
 
 
 def get_health(addr: str, port: int, secret: Optional[bytes] = None,

@@ -31,12 +31,20 @@ reference.  What the port does differently (ROADMAP "Decisions"):
   left is killed (reference gloo_run.py:253-259); SIGINT/SIGTERM
   propagate.
 
+* ``--controller native`` (and ``auto`` over more than one host, as
+  the reference resolves it): the launcher hosts the native negotiation
+  controller (``runtime/controller.py``, port 0 bound here) and exports
+  ``HVD_CONTROLLER_ADDR`` with ``HVD_CONTROLLER_SERVER=external``; the
+  workers' host planes (``eager.py``) ride it and the peer ring;
+* ``--elastic`` / ``--min-np``: the elastic driver (elastic/driver.py)
+  supervises the attempt, shrinking the world past failures through
+  membership epochs, each with a fresh ``ControllerServer`` (native) and
+  a fresh ``TCPStore``.
+
 What the launcher cannot do yet raises ``NotImplementedError`` naming
-its ROADMAP item: ``--elastic`` / ``--min-np`` (item 13), ``--serve`` and
-the ``--serve-*`` knobs (item 14), ``--controller native`` and ``auto``
-on a job that spans hosts (item 17b), and an explicit true
-``HVD_WATCH`` (the watchdog, item 15; the reference starts it by
-default, the port does not start it at all).
+its ROADMAP item: ``--serve`` and the ``--serve-*`` knobs (item 14), and
+an explicit true ``HVD_WATCH`` (the watchdog, item 15; the reference
+starts it by default, the port does not start it at all).
 
 Also provides the in-process API ``horovod_tpu_torch.run.run(fn, ...)``
 (reference run/run.py:870-956 func mode: the pickled fn is shipped
@@ -325,8 +333,9 @@ def _resolve_hosts(args) -> List[HostInfo]:
 
 
 def worker_envs(slots: List[SlotInfo], base_env: Dict[str, str],
-                coordinator: str, *,
-                controller: str = "auto") -> List[Dict[str, str]]:
+                coordinator: str, *, controller: str = "auto",
+                controller_addr: Optional[str] = None,
+                elastic: bool = False) -> List[Dict[str, str]]:
     """Per-slot worker env dicts, one process per card (reference
     gloo_run.py:210-216 sets HOROVOD_RANK/SIZE/LOCAL_RANK/... per slot;
     the JAX reference's ``worker_envs`` gives a process per *host*, each
@@ -342,16 +351,17 @@ def worker_envs(slots: List[SlotInfo], base_env: Dict[str, str],
 
     ``controller``: the eager control plane.  ``auto`` is the port's
     ``torch.distributed`` plane, exported under the reference's name for
-    it, ``xla``, on a single host; on more than one host the reference
-    resolves it to ``native``, which the port has not ported (ROADMAP
-    item 17b) and refuses, as it refuses ``native``; the reference's
-    ``controller_addr`` and ``elastic`` parameters come with items 17b
-    and 13.
+    it, ``xla``, on a single host, and the native controller on more than
+    one host (as the reference resolves it); with ``native`` every worker
+    dials ``controller_addr`` (the launcher hosts the server:
+    ``HVD_CONTROLLER_SERVER=external``) and advertises its ring listener
+    at its slot's hostname (``HVD_RING_HOST``).  ``elastic``: every
+    worker gets ``HVD_ELASTIC=1`` and a stable ``HVD_ELASTIC_WORKER_ID``
+    (its first rank), which survives the epochs that re-assign its rank.
     """
     hosts = {s.hostname for s in slots}
     if controller == "auto":
         controller = "native" if len(hosts) > 1 else "xla"
-    _refuse_controller(controller, len(hosts))
     size = len(slots)
     envs = []
     for s in slots:
@@ -368,6 +378,13 @@ def worker_envs(slots: List[SlotInfo], base_env: Dict[str, str],
             env_util.HVD_CONTROLLER: controller,
             env_util.HVD_CPU_OPERATIONS: "xla",
         })
+        if elastic:
+            env[env_util.HVD_ELASTIC] = "1"
+            env[env_util.HVD_ELASTIC_WORKER_ID] = str(s.rank)
+        if controller == "native" and controller_addr:
+            env[env_util.HVD_CONTROLLER_ADDR] = controller_addr
+            env[env_util.HVD_CONTROLLER_SERVER] = "external"
+            env[env_util.HVD_RING_HOST] = s.hostname
         if size > 1:
             env[env_util.HVD_COORDINATOR_ADDR] = coordinator
             env[env_util.HVD_COORDINATOR_SERVER] = "external"
@@ -381,23 +398,9 @@ def _refuse(what: str, feature: str, item) -> None:
         f"{item})")
 
 
-def _refuse_controller(controller: str, n_hosts: int) -> None:
-    """``native`` (asked for, or ``auto`` over more than one host, which
-    the reference resolves to it) is the native negotiation controller
-    and peer ring, ROADMAP item 17b."""
-    if controller == "native":
-        _refuse("--controller native" if n_hosts <= 1 else
-                f"--controller auto over {n_hosts} hosts (the reference "
-                "resolves it to native)",
-                "the native negotiation controller", "17b")
-
-
 def _refuse_unported(args, env: Dict[str, str]) -> None:
     """Raise for every option of ``args`` / ``env`` that names a plane the
     port has not reached yet (see the module docstring)."""
-    if getattr(args, "elastic", False) or \
-            getattr(args, "min_np", None) is not None:
-        _refuse("--elastic / --min-np", "elastic membership", 13)
     serve_opts = [f"--{k.replace('_', '-')}" for k in (
         "serve", "serve_max_batch", "serve_max_wait_ms", "serve_slo_ms",
         "serve_autoscale") if getattr(args, k, None) not in (None, False)]
@@ -550,9 +553,11 @@ def _supervise(job: _Job, rdv_server: Optional[RendezvousServer],
 
 def _launch_attempt(args, hosts: List[str], envs: List[Dict[str, str]],
                     rdv_server: Optional[RendezvousServer],
-                    attempt: int = 0) -> int:
+                    attempt: int = 0, driver=None) -> int:
     """Spawn one incarnation of the worker set, ``hosts[i]`` running
-    process ``i``, and supervise it to exit."""
+    process ``i``, and supervise it to exit — membership-driven with an
+    elastic ``driver`` (its ``supervise`` shrinks the world past a
+    failure instead of ending the job)."""
     job = _Job()
 
     def handler(signum, frame):
@@ -592,7 +597,8 @@ def _launch_attempt(args, hosts: List[str], envs: List[Dict[str, str]],
             t.start()
             threads.append(t)
 
-        rc = _supervise(job, rdv_server)
+        rc = driver.supervise(job) if driver is not None \
+            else _supervise(job, rdv_server)
         for t in threads:
             t.join(timeout=5)
         if job.interrupted and rc == 0:
@@ -618,7 +624,7 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
     controller = getattr(args, "controller", "auto") or "auto"
     if controller == "auto":
         controller = "native" if len(hosts) > 1 else "xla"
-    _refuse_controller(controller, len(hosts))
+    elastic = bool(getattr(args, "elastic", False))
 
     # Rendezvous/aggregation point: the launcher hosts one server that
     # carries metrics pushes (GET /metrics), heartbeat leases + the abort
@@ -704,7 +710,9 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
     proc_hosts = [s.hostname for s in slots]
     if getattr(args, "dry_run", False):
         envs = worker_envs(slots, env, "<launcher>:<bound-at-launch>",
-                           controller=controller)
+                           controller=controller,
+                           controller_addr="<launcher>:<bound-at-launch>",
+                           elastic=elastic)
         for pid, hostname in enumerate(proc_hosts):
             print(f"[dry-run] process {pid} on {hostname}:")
             for k in sorted(set(envs[pid]) - set(env)):
@@ -712,25 +720,63 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
             print(f"  command: {' '.join(args.command)}")
         return 0
 
+    elastic_store = rdv_server
+    if elastic and rdv_server is None:
+        elastic_store = _external_rendezvous(env, external_sink)
     restarts = getattr(args, "restarts", 0) or 0
     backoff_base = env_util.get_float(env_util.HVD_RESTART_BACKOFF_SECONDS,
                                       env_util.DEFAULT_RESTART_BACKOFF_SECONDS)
     attempt = 0
     try:
         while True:
-            # the job's store is per incarnation: a failed attempt leaves
-            # its ranks' keys behind, and a restart rendezvouses afresh
+            # the job's store, the native controller server and the
+            # elastic driver are per incarnation: a failed attempt leaves
+            # keys and half-negotiated state behind, and a restart
+            # rendezvouses afresh.  The elastic driver goes further and
+            # makes a store and a controller server for each epoch.
             host = "127.0.0.1" if local else socket.gethostname()
-            store = _coordinator_store(len(slots), host)
-            coordinator = "" if store is None else f"{host}:{store.port}"
+            store = ctrl_server = driver = None
+            controller_addr = None
+            if elastic:
+                from ..elastic.driver import ElasticDriver
+
+                driver = ElasticDriver(
+                    elastic_store, [str(i) for i in range(len(slots))],
+                    min_np=getattr(args, "min_np", None)
+                    or env_util.get_int(env_util.HVD_ELASTIC_MIN_NP, 1),
+                    controller=controller, controller_host=host,
+                    store_factory=lambda n, h=host: _coordinator_store(n, h))
+                controller_addr = driver.controller_addr
+                coordinator = driver.coordinator_addr or ""
+            else:
+                store = _coordinator_store(len(slots), host)
+                coordinator = "" if store is None \
+                    else f"{host}:{store.port}"
+                if controller == "native":
+                    from ..runtime.controller import ControllerServer
+
+                    ctrl_server = ControllerServer(len(slots), port=0)
+                    controller_addr = f"{host}:{ctrl_server.port}"
             env_attempt = dict(env)
             env_attempt[env_util.HVD_RESTART_COUNT] = str(attempt)
             envs = worker_envs(slots, env_attempt, coordinator,
-                               controller=controller)
+                               controller=controller,
+                               controller_addr=controller_addr,
+                               elastic=elastic)
             try:
                 rc = _launch_attempt(args, proc_hosts, envs, rdv_server,
-                                     attempt=attempt)
+                                     attempt=attempt, driver=driver)
             finally:
+                if driver is not None:
+                    log.info("elastic: final epoch %d, world %s",
+                             driver.epoch, driver.world)
+                    driver.shutdown()
+                if ctrl_server is not None:
+                    log.info(
+                        "controller: %d cycles, %d cache hits, %d stall "
+                        "warnings", ctrl_server.cycles,
+                        ctrl_server.cache_hits, ctrl_server.stall_warnings)
+                    ctrl_server.stop()
                 del store  # the TCPStore server stops with its object
             if rc == 0 or attempt >= restarts \
                     or getattr(args, "_interrupted", False):
@@ -752,7 +798,8 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
                     "restart.attempt", severity="warning",
                     payload={"attempt": attempt, "restarts": restarts,
                              "exit_code": rc},
-                    cause_id=getattr(args, "_abort_event_id", None))
+                    cause_id=getattr(driver, "last_giveup_event_id", None)
+                    or getattr(args, "_abort_event_id", None))
             except Exception:  # noqa: BLE001 — best-effort
                 pass
             delay = backoff_base * (2 ** (attempt - 1)) \
@@ -780,6 +827,38 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
     finally:
         if rdv_server is not None:
             rdv_server.stop()
+
+
+def _external_rendezvous(env: Dict[str, str], external_sink: Optional[str]):
+    """The operator's external rendezvous (``HVD_METRICS_KV_ADDR`` /
+    ``PORT``, with the ``HVD_RENDEZVOUS_ADDRS`` failover list) as the
+    elastic driver's store: it then commits epochs over HTTP — the
+    deployment where the rendezvous outlives the launcher."""
+    ext_port = env.get(env_util.HVD_METRICS_KV_PORT,
+                       os.environ.get(env_util.HVD_METRICS_KV_PORT))
+    if not external_sink or not ext_port:
+        raise RuntimeError(
+            "--elastic needs the launcher rendezvous plane: re-enable "
+            f"{env_util.HVD_METRICS} or heartbeats, or point "
+            f"{env_util.HVD_METRICS_KV_ADDR}/PORT at an external "
+            "rendezvous server")
+    from .http_client import RemoteStore
+
+    addrs = []
+    for tok in (env.get(env_util.HVD_RENDEZVOUS_ADDRS,
+                        os.environ.get(env_util.HVD_RENDEZVOUS_ADDRS))
+                or "").split(","):
+        host, _, p = tok.strip().rpartition(":")
+        if host and p.isdigit():
+            addrs.append((host, int(p)))
+    if not addrs:
+        addrs = [(external_sink, int(ext_port))]
+    secret_hex = env.get(env_util.HVD_METRICS_SECRET,
+                         os.environ.get(env_util.HVD_METRICS_SECRET))
+    log.info("elastic: driving membership through the external "
+             "rendezvous at %s", addrs)
+    return RemoteStore(addrs, secret=bytes.fromhex(secret_hex)
+                       if secret_hex else None)
 
 
 def _coordinator_store(size: int, host: str):
@@ -862,7 +941,8 @@ Available Frameworks:
 
 Available Controllers:
     [{mark(dist.is_available())}] torch.distributed (TCPStore rendezvous)
-    [ ] native (C++ TCP negotiation, ROADMAP item 17b)
+    [{mark(native.SO_PATH.exists())}] native (C++ TCP negotiation and peer \
+ring; make -C csrc at first use)
 
 Available Tensor Operations:
     [{mark(dist.is_available() and dist.is_nccl_available())}] NCCL
@@ -933,9 +1013,6 @@ def run(fn, args=(), kwargs=None, np: int = 1,
     kwargs = kwargs or {}
     extra_env = dict(extra_env or {})
     _refuse_unported(argparse.Namespace(), extra_env)
-    _refuse_controller(extra_env.get(
-        env_util.HVD_CONTROLLER,
-        os.environ.get(env_util.HVD_CONTROLLER, "xla")), 1)
     blob = _dumps_fn((fn, args, kwargs))
     secret = _secrets.token_bytes(16)
     server = RendezvousServer(
@@ -956,6 +1033,19 @@ def run(fn, args=(), kwargs=None, np: int = 1,
         store = _coordinator_store(np, "127.0.0.1")
         extra_env[env_util.HVD_COORDINATOR_ADDR] = f"127.0.0.1:{store.port}"
         extra_env[env_util.HVD_COORDINATOR_SERVER] = "external"
+    # HVD_CONTROLLER=native asks for the native host planes: this process
+    # hosts the controller server (port 0, bound here), as launch_job does
+    ctrl_server = None
+    if np > 1 and extra_env.get(env_util.HVD_CONTROLLER, os.environ.get(
+            env_util.HVD_CONTROLLER)) == "native" \
+            and not extra_env.get(env_util.HVD_CONTROLLER_ADDR):
+        from ..runtime.controller import ControllerServer
+
+        ctrl_server = ControllerServer(np, port=0)
+        extra_env[env_util.HVD_CONTROLLER] = "native"
+        extra_env[env_util.HVD_CONTROLLER_ADDR] = \
+            f"127.0.0.1:{ctrl_server.port}"
+        extra_env[env_util.HVD_CONTROLLER_SERVER] = "external"
     # Live metrics: point workers' pushers at this server, so a scrape of
     # GET /metrics here aggregates every rank while fn runs (the final
     # snapshot is pushed by task_fn regardless).
@@ -1026,6 +1116,8 @@ def run(fn, args=(), kwargs=None, np: int = 1,
             grace_job.procs = procs
             grace_job.kill_all()
         del store
+        if ctrl_server is not None:
+            ctrl_server.stop()
         server.stop()
 
 

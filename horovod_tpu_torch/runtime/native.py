@@ -1,5 +1,5 @@
 """ctypes loader for the native runtime core (``build/libhvdcore.so``):
-the timeline and autotuner half of ``horovod_tpu/runtime/native.py``.
+the port of ``horovod_tpu/runtime/native.py``.
 
 The library is the repository's ``csrc/`` (``timeline.cc`` with the
 controller, ring and autotuner sources beside it), compiled on first use
@@ -10,12 +10,16 @@ sources) and rebuilt when a source is newer; concurrent processes take
 turns on a file lock, and the library appears under its name only once
 linked.  The port binds the timeline writer's C API
 (``hvd_timeline_open``, ``hvd_timeline_event``, ``hvd_timeline_close``,
-used by ``timeline/timeline.py``) and the autotuner's
+used by ``timeline/timeline.py``), the negotiation controller's
+(``hvd_server_*`` and ``hvd_client_*``, ``csrc/controller.cc``, used by
+``runtime/controller.py``), the peer ring's (``hvd_ring_*``,
+``csrc/ring.cc``, used by ``runtime/ring.py``) and the autotuner's
 (``hvd_tuner_*``, ``csrc/autotune.cc``, used by ``optim/autotune.py``;
 with the GP's ``hvd_gp_*``, which the tests hold against the NumPy GP).
 A machine without ``g++`` or ``make`` gets the Python writer and the
 NumPy tuner instead (``timeline.writer_kind`` says which writer is
-open).
+open); the controller and the ring have no such stand-in, so
+``HVD_CONTROLLER=native`` raises there (``core.init``).
 """
 
 from __future__ import annotations
@@ -63,8 +67,7 @@ def _sources_newer() -> bool:
 
 
 def load() -> ctypes.CDLL:
-    """Load (building if stale) and type the timeline's and the
-    autotuner's C API."""
+    """Load (building if stale) and type the C API."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -82,6 +85,97 @@ def load() -> ctypes.CDLL:
         ]
         lib.hvd_timeline_close.restype = None
         lib.hvd_timeline_close.argtypes = [ctypes.c_void_p]
+
+        # controller server
+        lib.hvd_server_start.restype = ctypes.c_void_p
+        lib.hvd_server_start.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_longlong, ctypes.c_double,
+        ]
+        lib.hvd_server_port.restype = ctypes.c_int
+        lib.hvd_server_port.argtypes = [ctypes.c_void_p]
+        for fn in ("hvd_server_cache_hits", "hvd_server_cycles",
+                   "hvd_server_stall_warnings"):
+            getattr(lib, fn).restype = ctypes.c_longlong
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        lib.hvd_server_stop.restype = None
+        lib.hvd_server_stop.argtypes = [ctypes.c_void_p]
+
+        # controller client
+        lib.hvd_client_connect.restype = ctypes.c_void_p
+        lib.hvd_client_connect.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.hvd_client_submit.restype = ctypes.c_int
+        lib.hvd_client_submit.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ]
+        lib.hvd_client_join.restype = ctypes.c_int
+        lib.hvd_client_join.argtypes = [ctypes.c_void_p]
+        lib.hvd_client_wait.restype = ctypes.c_int
+        lib.hvd_client_wait.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_double,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+        ]
+        lib.hvd_client_wait_join.restype = ctypes.c_int
+        lib.hvd_client_wait_join.argtypes = [ctypes.c_void_p, ctypes.c_double]
+        lib.hvd_client_submit_data.restype = ctypes.c_int
+        lib.hvd_client_submit_data.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ]
+        lib.hvd_client_wait_data.restype = ctypes.c_int
+        lib.hvd_client_wait_data.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_double,
+            ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_char_p, ctypes.c_int,
+        ]
+        lib.hvd_client_stats.restype = ctypes.c_int
+        lib.hvd_client_stats.argtypes = [
+            ctypes.c_void_p, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_longlong),
+        ]
+        lib.hvd_client_close.restype = None
+        lib.hvd_client_close.argtypes = [ctypes.c_void_p]
+        lib.hvd_client_enable_order_stream.restype = None
+        lib.hvd_client_enable_order_stream.argtypes = [ctypes.c_void_p]
+        lib.hvd_client_next_negotiated.restype = ctypes.c_int
+        lib.hvd_client_next_negotiated.argtypes = [
+            ctypes.c_void_p, ctypes.c_double, ctypes.c_char_p,
+            ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+        ]
+
+        # peer ring data plane
+        lib.hvd_ring_create.restype = ctypes.c_void_p
+        lib.hvd_ring_create.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ]
+        lib.hvd_ring_port.restype = ctypes.c_int
+        lib.hvd_ring_port.argtypes = [ctypes.c_void_p]
+        lib.hvd_ring_connect.restype = ctypes.c_int
+        lib.hvd_ring_connect.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_double,
+        ]
+        lib.hvd_ring_allreduce.restype = ctypes.c_int
+        lib.hvd_ring_allreduce.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int,
+        ]
+        lib.hvd_ring_broadcast.restype = ctypes.c_int
+        lib.hvd_ring_broadcast.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ]
+        lib.hvd_ring_allgather.restype = ctypes.c_int
+        lib.hvd_ring_allgather.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong,
+        ]
+        lib.hvd_ring_close.restype = None
+        lib.hvd_ring_close.argtypes = [ctypes.c_void_p]
 
         # the autotuner's state machine
         lib.hvd_tuner_create.restype = ctypes.c_void_p

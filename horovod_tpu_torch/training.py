@@ -67,6 +67,14 @@ whose build equals the live one (only the host-side loss-fetch cadence
 moved) keeps the live step.  While a tuner measures, every call is
 synced with ``loss.item()`` for honest timing.
 
+A world change rebuilds through the same seam, as the reference's step
+re-traces over its new mesh: ``core.reinit()`` (the elastic membership
+rebuild) releases every built step's graph before the old process group
+is destroyed (``core.bind_to_world``), and the step's next call builds a
+fresh :class:`_CompiledStep` against the new world (an eager call, then
+a new capture).  The fault harness's step seam (``HVD_FAULT_SPEC``,
+``elastic/faults.py``) fires beside the abort check, before each call.
+
 ``donate=False`` runs the step on a private copy of the state through
 ``torch.func.functional_call``: each call returns a new state and leaves
 the caller's untouched.
@@ -99,6 +107,7 @@ from .optim.distributed import broadcast_parameters
 from .optim.fused_update import FusedOptimizer, apply_updates
 from .optim.transforms import Transform
 from .metrics import timeseries as _timeseries
+from .elastic import faults as _faults
 from .elastic import heartbeat as _heartbeat
 from .timeline.timeline import timeline
 from .utils import env as env_util
@@ -287,7 +296,10 @@ class _CompiledStep:
         #: this step's own calls by kind (``calls`` may be shared by the
         #: steps one train step rebuilds)
         self.own_calls = {"eager": 0, "capture": 0, "replay": 0}
+        #: the world this step was built in (``core.epoch()``; set at its
+        #: first call when built before ``init``)
         self.epoch = core.epoch() if core.is_initialized() else None
+        core.bind_to_world(self)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.inputs: tuple = ()
         #: whether this step ran eagerly once (the next call captures)
@@ -303,7 +315,7 @@ class _CompiledStep:
 
     def release(self) -> None:
         """Drop the captured graph, its memory pool and its static
-        inputs (a rebuild replaced this step)."""
+        inputs (a rebuild replaced this step, or its world is going)."""
         if self.graph is not None:
             self.graph.reset()
         self.graph = None
@@ -311,25 +323,22 @@ class _CompiledStep:
         self.loss = None
         self.bound = []
 
-    def check_world(self) -> None:
-        """A step built for a world that reinit() has replaced raises: its
-        graph holds the old communicator."""
+    def stale(self) -> bool:
+        """Whether ``reinit()`` has replaced the world this step was
+        built in (its graph held the old communicator)."""
+        if not core.is_initialized():
+            return False
         if self.epoch is None:
             self.epoch = core.epoch()
-        elif self.epoch != core.epoch():
-            raise RuntimeError(
-                "this train step was built before horovod_tpu_torch."
-                "reinit(); build it again with make_train_step")
+        return self.epoch != core.epoch()
 
     def eager(self, state: TrainState, x, y, record: bool = False):
-        self.check_world()
         self._count("eager")
         self.warm = True
         with metrics.traced_recording(record):
             return self.entry(state, x, y)
 
     def __call__(self, state: TrainState, x, y):
-        self.check_world()
         if self.graph is not None:
             return self._replay(state, x, y)
         device = next(iter(state.params.values())).device
@@ -909,8 +918,16 @@ def make_train_step(
         def call(state: TrainState, x, y):
             # failure-domain seam: a coordinated abort raises
             # HorovodAbortError here, before this rank dispatches a step
-            # its dead peer will never join (elastic/heartbeat.py)
+            # its dead peer will never join (elastic/heartbeat.py), and
+            # the HVD_FAULT_SPEC harness injects its step-seam faults
             _heartbeat.maybe_raise_abort()
+            _faults.on_step()
+            # the elastic rebuild seam: after core.reinit() the step
+            # builds itself again against the new world (reference
+            # training.py:781-785); its old graph is already released
+            if box["compiled"].stale():
+                box["build_sig"] = None
+                _rebuild(box["threshold"], box["hier"], box.get("plan"))
             if metrics.on():
                 _record_step_metrics(x)
             # a call in the profiler's window takes the decomposed path,

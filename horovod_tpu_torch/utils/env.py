@@ -115,6 +115,12 @@ HVD_COORDINATOR_SERVER = "HVD_COORDINATOR_SERVER"
 HVD_CONTROLLER = "HVD_CONTROLLER"                      # auto|xla|native eager control plane
 HVD_CPU_OPERATIONS = "HVD_CPU_OPERATIONS"
 HVD_NETWORK_INTERFACE = "HVD_NETWORK_INTERFACE"        # NIC names the host data plane advertises on
+# the native negotiation controller and the peer ring (runtime/)
+HVD_CONTROLLER_ADDR = "HVD_CONTROLLER_ADDR"            # host:port of the coordinator
+HVD_CONTROLLER_SERVER = "HVD_CONTROLLER_SERVER"        # "external" = the launcher hosts it
+HVD_RING = "HVD_RING"                                  # 0 keeps host payloads on the coordinator star
+HVD_RING_CHUNK_BYTES = "HVD_RING_CHUNK_BYTES"          # ring pipeline chunk size
+HVD_RING_HOST = "HVD_RING_HOST"                        # launcher-known address peers dial
 HVD_CYCLE_TIME = "HVD_CYCLE_TIME"                      # ms; HOROVOD_CYCLE_TIME
 HVD_CACHE_CAPACITY = "HVD_CACHE_CAPACITY"
 HVD_RING_MIN_BYTES = "HVD_RING_MIN_BYTES"              # host-plane ring/star crossover
@@ -129,11 +135,25 @@ HVD_TERM_GRACE_SECONDS = "HVD_TERM_GRACE_SECONDS"      # SIGTERM→SIGKILL escal
 HVD_HTTP_RETRIES = "HVD_HTTP_RETRIES"                  # rendezvous HTTP retry budget (default 2)
 HVD_HTTP_BACKOFF_MS = "HVD_HTTP_BACKOFF_MS"            # base retry backoff, ms (default 50)
 HVD_HTTP_KEEPALIVE = "HVD_HTTP_KEEPALIVE"              # 0 disables pooled keep-alive connections (debug)
+HVD_FAULT_SPEC = "HVD_FAULT_SPEC"                      # fault-injection spec (elastic/faults.py)
+HVD_FAULT_SEED = "HVD_FAULT_SEED"                      # seeds each injector's RNG (mixed with rank + restart)
 HVD_RESTART_COUNT = "HVD_RESTART_COUNT"                # incarnation index set by the supervisor
 HVD_RESTART_BACKOFF_SECONDS = "HVD_RESTART_BACKOFF_SECONDS"  # restart backoff base (default 1)
-HVD_ELASTIC = "HVD_ELASTIC"                            # 1 = elastic driver supervises the job (not ported)
+HVD_ELASTIC = "HVD_ELASTIC"                            # 1 = elastic driver supervises the job
 HVD_ELASTIC_WORKER_ID = "HVD_ELASTIC_WORKER_ID"        # stable worker identity across epochs
 HVD_ELASTIC_MIN_NP = "HVD_ELASTIC_MIN_NP"              # floor world size before giving up (default 1)
+HVD_ELASTIC_TIMEOUT_SECONDS = "HVD_ELASTIC_TIMEOUT_SECONDS"  # epoch wait/rebuild budget (default 60)
+HVD_ELASTIC_MAX_FLAPS = "HVD_ELASTIC_MAX_FLAPS"        # removals before a worker is blocklisted (default 3)
+HVD_ELASTIC_SILENT_GRACE_SECONDS = "HVD_ELASTIC_SILENT_GRACE_SECONDS"  # >0: a stable member with no lease this long is dead (default 0 = off)
+HVD_SERVE_DRAIN_TIMEOUT_SECONDS = "HVD_SERVE_DRAIN_TIMEOUT_SECONDS"  # drain handshake budget (default: the elastic timeout)
+# the peer-replicated state plane (elastic/peerstate.py)
+HVD_SNAPSHOT = "HVD_SNAPSHOT"                          # 1 enables the peer checkpoint tier (default off)
+HVD_SNAPSHOT_SHARDS = "HVD_SNAPSHOT_SHARDS"            # shards one rank's snapshot splits into (default 4)
+HVD_SNAPSHOT_KEEP = "HVD_SNAPSHOT_KEEP"                # own committed generations retained before GC (default 2)
+HVD_SNAPSHOT_STORAGE_EVERY = "HVD_SNAPSHOT_STORAGE_EVERY"  # every Nth save still writes the storage tier (default 10)
+HVD_SNAPSHOT_TIMEOUT_SECONDS = "HVD_SNAPSHOT_TIMEOUT_SECONDS"  # per shard push/pull HTTP budget (default 30)
+HVD_SNAPSHOT_COPY = "HVD_SNAPSHOT_COPY"                # 1 also copies numpy leaves at enqueue (default off)
+HVD_PEER_REPLICAS = "HVD_PEER_REPLICAS"                # peer hosts holding each rank's shards, K (default 2)
 HVD_SERVE = "HVD_SERVE"                                # 1 = serving plane on (not ported)
 HVD_SERVE_MAX_BATCH = "HVD_SERVE_MAX_BATCH"            # batcher admits up to this many requests (default 8)
 HVD_SERVE_MAX_WAIT_MS = "HVD_SERVE_MAX_WAIT_MS"        # flush deadline from first admitted request (default 5)
@@ -152,6 +172,15 @@ HVD_TIMESERIES_SERVER_CAP = "HVD_TIMESERIES_SERVER_CAP"  # per-series sample cap
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # 64 MiB, reference common.h:69
 FUSION_BUFFER_ATOMIC_UNIT = 64                     # reference common.h:94
+DEFAULT_CYCLE_TIME_MS = 5.0                        # reference common.h:67
+DEFAULT_ELASTIC_TIMEOUT_SECONDS = 60.0             # elastic epoch wait/rebuild budget
+DEFAULT_ELASTIC_MAX_FLAPS = 3                      # elastic/driver.py blocklist threshold
+DEFAULT_ELASTIC_SILENT_GRACE_SECONDS = 0.0         # elastic/driver.py silent-member removal (0 = off)
+DEFAULT_SNAPSHOT_SHARDS = 4                        # elastic/peerstate.py shards per rank snapshot
+DEFAULT_SNAPSHOT_KEEP = 2                          # own committed generations kept before GC
+DEFAULT_SNAPSHOT_STORAGE_EVERY = 10                # storage-tier save demotion cadence
+DEFAULT_SNAPSHOT_TIMEOUT_SECONDS = 30.0            # per shard push/pull HTTP budget
+DEFAULT_PEER_REPLICAS = 2                          # peer hosts holding each rank's shards
 DEFAULT_START_TIMEOUT_SECONDS = 60.0               # rendezvous bound (core.init)
 DEFAULT_LOSS_FETCH_STEPS = 16                      # trailing loss-fetch cadence (training.py)
 DEFAULT_COMPRESSION_GUARD_STEPS = 25               # error-feedback residual-norm check cadence
@@ -229,3 +258,7 @@ def fusion_threshold_bytes() -> int:
     if n % FUSION_BUFFER_ATOMIC_UNIT:
         n = (n // FUSION_BUFFER_ATOMIC_UNIT + 1) * FUSION_BUFFER_ATOMIC_UNIT
     return n
+
+
+def cycle_time_ms() -> float:
+    return get_float(HVD_CYCLE_TIME, DEFAULT_CYCLE_TIME_MS)

@@ -151,8 +151,10 @@ def test_rendezvous_is_bounded(monkeypatch):
 
 def test_reinit_keeps_the_world_and_retires_what_was_built(port_cpu_world):
     """reinit() replays the last init: rank, size and device survive and
-    an allreduce works after it; a train step and a process set built
-    before it raise on their next use, and new ones work."""
+    an allreduce works after it; a train step built before it builds
+    itself again at its next call (eagerly or not) and trains on, a
+    process set built before it raises on its next use, and new ones
+    work."""
     import torch
     import torch.nn.functional as F
 
@@ -181,10 +183,13 @@ def test_reinit_keeps_the_world_and_retires_what_was_built(port_cpu_world):
     assert core.epoch() == epoch + 1
     assert torch.equal(htt.allreduce(torch.ones(3), op=htt.Sum),
                        torch.ones(3))
-    for stale in (lambda: step(state, x, y), lambda: step.eager(state, x, y),
-                  lambda: htt.allreduce(torch.ones(3), process_set=ps)):
-        with pytest.raises(RuntimeError, match="reinit"):
-            stale()
+    state, loss = step(state, x, y)
+    assert state.step == 2 and torch.isfinite(loss)
+    assert len(step.builds) == 2
+    state, loss = step.eager(state, x, y)
+    assert state.step == 3 and torch.isfinite(loss)
+    with pytest.raises(RuntimeError, match="reinit"):
+        htt.allreduce(torch.ones(3), process_set=ps)
     step, state = build()
     state, loss = step(state, x, y)
     assert state.step == 1 and torch.isfinite(loss)

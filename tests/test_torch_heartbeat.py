@@ -9,8 +9,8 @@ package's rendezvous server, and the launcher's fail-fast path on gloo.
   reference's fields (``GET /health`` reports it live), learns the abort
   verdict from the renewal's reply, and then the train step and the
   eager dispatch raise ``HorovodAbortError`` before any collective.
-* ``start_from_env`` starts nothing for one process and raises for an
-  elastic job (ROADMAP item 13).
+* ``start_from_env`` starts nothing for one process, and in an elastic
+  job starts a lease at world size 1 too, under the membership epoch.
 * ``python -m horovod_tpu_torch.run -np 2`` with a rank that exits 1:
   the launcher publishes the abort flag, the survivor raises
   ``HorovodAbortError`` naming the failed worker within 2 × the
@@ -166,8 +166,10 @@ def test_start_from_env(monkeypatch):
         assert heartbeat.start_from_env() is None
         monkeypatch.delenv("HVD_HEARTBEAT_DISABLE")
         monkeypatch.setenv("HVD_ELASTIC", "1")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            heartbeat.start_from_env()
+        monkeypatch.setenv("HVD_NUM_PROCESSES", "1")
+        hb = heartbeat.start_from_env()  # elastic: kept at world size 1
+        assert hb is not None and hb.epoch == 0 and hb.renew
+        heartbeat.stop()
 
 
 def test_a_failing_rank_ends_the_job(tmp_path):

@@ -44,6 +44,7 @@ import horovod_tpu_torch.examples.gpt_synthetic_benchmark
 import horovod_tpu_torch.examples.bert_synthetic_benchmark
 import horovod_tpu_torch.examples.pytorch_synthetic_benchmark
 import horovod_tpu_torch.examples.multichip_drives
+import horovod_tpu_torch.examples.pytorch_imagenet_resnet50
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -116,7 +117,17 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.metrics.push",
               "horovod_tpu_torch.elastic.abort",
               "horovod_tpu_torch.elastic.heartbeat",
-              "horovod_tpu_torch.observe.autoarm"):
+              "horovod_tpu_torch.observe.autoarm",
+              "horovod_tpu_torch.runtime.controller",
+              "horovod_tpu_torch.runtime.eager_controller",
+              "horovod_tpu_torch.runtime.ring",
+              "horovod_tpu_torch.utils.checkpoint",
+              "horovod_tpu_torch.elastic.faults",
+              "horovod_tpu_torch.elastic.state",
+              "horovod_tpu_torch.elastic.peerstate",
+              "horovod_tpu_torch.elastic.membership",
+              "horovod_tpu_torch.elastic.driver",
+              "horovod_tpu_torch.examples.pytorch_imagenet_resnet50"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -141,6 +152,8 @@ def _lazy_imports(path: Path):
                 else:
                     name = node.module
                 out.add(name)
+                # the names may be submodules (from ..elastic import faults)
+                out |= {f"{name}.{a.name}" for a in node.names}
     return out
 
 
@@ -148,10 +161,19 @@ def _lazy_imports(path: Path):
     ("optim/profile_guided.py", {"horovod_tpu_torch.timeline.replay",
                                  "horovod_tpu_torch.timeline.comm_report"}),
     ("optim/compute_knobs.py", {"horovod_tpu_torch.data.loader"}),
+    ("elastic/state.py", {"horovod_tpu_torch.elastic.membership",
+                          "horovod_tpu_torch.elastic.peerstate"}),
+    ("elastic/peerstate.py", {"horovod_tpu_torch.run.http_client",
+                              "horovod_tpu_torch.run.relay"}),
+    ("runtime/eager_controller.py", {"horovod_tpu_torch.runtime.ring",
+                                     "horovod_tpu_torch.runtime.controller",
+                                     "horovod_tpu_torch.elastic.faults"}),
 ])
 def test_lazy_imports_stay_within_the_port(module, reaches):
     """The tuners import the replay engine, the comm model and the
-    loader inside their functions: those imports resolve into the port
+    loader inside their functions, as the state plane imports membership,
+    the peer tier and the rendezvous client, and the eager controller the
+    ring and the fault harness: those imports resolve into the port
     (statically), and running them in a fresh interpreter brings in no
     JAX and nothing of the JAX package."""
     lazy = _lazy_imports(PKG / module)
@@ -164,7 +186,19 @@ from horovod_tpu_torch.optim import compute_knobs, profile_guided
 from horovod_tpu_torch.optim.autotune import TunableParams
 from horovod_tpu_torch.timeline.replay.fixture import (
     write_autotune_fixture_trace)
-if {module!r} == "optim/profile_guided.py":
+from horovod_tpu_torch.elastic import peerstate, state
+from horovod_tpu_torch.runtime import eager_controller
+if {module!r} == "elastic/state.py":
+    state.ElasticState(tempfile.mkdtemp(), {{}}, peer=False).resume()
+    peerstate.PeerSnapshotManager(addr="127.0.0.1", port=1, worker="0")
+    from horovod_tpu_torch.elastic import membership
+elif {module!r} == "elastic/peerstate.py":
+    from horovod_tpu_torch.run import http_client, relay
+elif {module!r} == "runtime/eager_controller.py":
+    from horovod_tpu_torch.runtime import controller, ring
+    from horovod_tpu_torch.elastic import faults
+    faults.on_controller("x")
+elif {module!r} == "optim/profile_guided.py":
     d = tempfile.mkdtemp()
     write_autotune_fixture_trace(d)
     assert profile_guided.plan_from_trace(d) is not None
@@ -184,7 +218,8 @@ print(json.dumps(sorted(sys.modules)))
 
 
 def test_ast_scan_finds_no_forbidden_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "torch_elastic_tasks.py"]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f.read_text()) if _forbidden(m)]

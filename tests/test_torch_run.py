@@ -12,8 +12,10 @@ CPU.
   and cross ranks from the same slot table, the world size and, for more
   than one process, the launcher's store (``HVD_COORDINATOR_ADDR`` with
   ``HVD_COORDINATOR_SERVER=external``).
-* What the launcher cannot do yet raises ``NotImplementedError`` naming
-  its ROADMAP item; ``--dry-run`` prints the plan; ``--check-build``
+* What the launcher cannot do yet (``--serve``, ``HVD_WATCH``) raises
+  ``NotImplementedError`` naming its ROADMAP item; ``--elastic`` /
+  ``--min-np`` and ``--controller native`` (or ``auto`` over several
+  hosts) plan their workers' environment; ``--dry-run`` prints the plan; ``--check-build``
   reports the port's stack; a missing ``yaml`` and a function the
   standard ``pickle`` cannot carry give errors that say so.
 * ``python -m horovod_tpu_torch.run -np 2 ...`` trains the MLP on gloo
@@ -167,13 +169,9 @@ def test_worker_envs_one_process_a_slot(spec, np_):
 
 
 @pytest.mark.parametrize("argv,env,item", [
-    (["--elastic"], {}, "item 13"),
-    (["--min-np", "1"], {}, "item 13"),
     (["--serve"], {}, "item 14"),
     (["--serve-max-batch", "4"], {}, "item 14"),
     ([], {"HVD_SERVE": "1"}, "item 14"),
-    (["--controller", "native"], {}, "item 17b"),
-    (["-H", "a:1,b:1"], {}, "item 17b"),
     ([], {"HVD_WATCH": "1"}, "item 15"),
 ])
 def test_unported_options_raise(monkeypatch, argv, env, item):
@@ -182,6 +180,31 @@ def test_unported_options_raise(monkeypatch, argv, env, item):
     with pytest.raises(NotImplementedError, match=item):
         port_run.run_commandline(["-np", "2", *argv, "--dry-run", "python",
                                   "-c", "pass"])
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--elastic"], {"HVD_ELASTIC": "1", "HVD_ELASTIC_WORKER_ID": "1",
+                     "HVD_CONTROLLER": "xla"}),
+    (["--elastic", "--min-np", "1"], {"HVD_ELASTIC": "1"}),
+    (["--controller", "native"], {
+        "HVD_CONTROLLER": "native",
+        "HVD_CONTROLLER_ADDR": "<launcher>:<bound-at-launch>",
+        "HVD_CONTROLLER_SERVER": "external", "HVD_RING_HOST": "localhost"}),
+    (["-H", "a:1,b:1"], {"HVD_CONTROLLER": "native",
+                         "HVD_RING_HOST": "b"}),
+])
+def test_elastic_and_native_options_plan_their_workers(monkeypatch, capsys,
+                                                       argv, want):
+    """The options of the elastic driver and the native controller, which
+    the launcher refused before they were ported: the dry run prints
+    each worker's plan with their environment (worker 1 shown)."""
+    monkeypatch.delenv("HVD_METRICS_KV_ADDR", raising=False)
+    assert port_run.run_commandline(["-np", "2", *argv, "--dry-run",
+                                     "python", "-c", "pass"]) == 0
+    out = capsys.readouterr().out
+    worker1 = out[out.index("[dry-run] process 1"):]
+    for k, v in want.items():
+        assert f"  {k}={v}\n" in worker1, (k, worker1)
 
 
 def test_dry_run_prints_the_plan(capsys, monkeypatch):

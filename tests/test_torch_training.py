@@ -175,6 +175,67 @@ def test_mlp_trajectory_matches_reference(port_cpu_world, fused):
                                1e-5)
 
 
+def test_step_rebuilds_after_reinit_and_matches_reference(port_cpu_world):
+    """After ``reinit()`` the step's next call builds it again against
+    the new world (the reference's lazy rebuild, its training.py:781-785)
+    instead of raising: the MLP trained 2 steps, ``reinit()`` at world
+    size 1, then 1 more step, in float64 on both sides (the reference
+    inside ``jax.enable_x64``), its losses and parameter changes equal to
+    the reference's doing the same to 1e-6 of their largest entry."""
+    ref, variables, x, y = _mlp_problem()
+    variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                       variables)
+    x = x.astype(np.float64)
+    with jax.enable_x64(True):
+        hvd.shutdown()
+        hvd.init(devices=jax.devices("cpu")[:1])
+        try:
+            opt = ref_fu.fused_sgd(0.1, momentum=0.9)
+            mlp = RefMLP(features=(16, 6), dtype=jnp.float64)
+            step = ref_training.make_train_step(
+                apply_fn=lambda v, a, train=True: mlp.apply(v, a),
+                loss_fn=_ref_loss, optimizer=opt, loss_fetch_steps=0)
+            params = variables["params"]
+            state = ref_training.TrainState(
+                params=params, opt_state=opt.init(params), model_state={},
+                step=jnp.zeros((), jnp.int32))
+            want = []
+            for i in range(3):
+                if i == 2:
+                    hvd.core.reinit()
+                state = jax.device_put(
+                    state, NamedSharding(hvd.core.mesh(), P()))
+                state, loss = step(state, ref_training.shard_batch(x),
+                                   ref_training.shard_batch(y))
+                want.append(float(jax.device_get(loss)))
+            want_params = flatten_flax(state.params)
+        finally:
+            hvd.shutdown()
+    model = MLP(12, (16, 6))
+    load_flax_variables(model, variables["params"])
+    model.double()
+    opt = fused_sgd(0.1, momentum=0.9)
+    step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                                    optimizer=opt, loss_fetch_steps=0)
+    state = training.init_train_state(model, opt)
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y).long()
+    got = []
+    for i in range(3):
+        if i == 2:
+            core.reinit()
+        state, loss = step(state, xs, ys)
+        got.append(loss.item())
+    assert len(step.builds) == 2 and step.calls["eager"] == 3
+    assert state.step == 3 and int(state.opt_state.count) == 3
+    _close(np.asarray(got), np.asarray(want), 1e-6)
+    got_params = export_flax_variables(state.params,
+                                       canonical_layouts(model))
+    params0 = flatten_flax(variables["params"])
+    for k in want_params:
+        _close(got_params[k] - params0[k], want_params[k] - params0[k],
+               1e-6, k)
+
+
 def _resnet_variables(ref_cls, x):
     ref = ref_cls(num_classes=10, num_filters=8, dtype=jnp.float32)
     variables = ref.init(jax.random.PRNGKey(0), x)

@@ -16,6 +16,12 @@ functions the tests hand to function mode (``run(fn, np=...)``).
   surfaces there as ``HorovodAbortError``, writing when it saw it to
   ``<workdir>/fail.0.json`` (rank 1 writes when it left to
   ``fail.1.json``).
+* ``elastic`` — under ``--elastic``: the MLP trained ``ELASTIC_STEPS``
+  steps inside ``elastic.run`` with an ``ElasticState`` re-synced at each
+  epoch; the fault spec of the test ends one worker mid-run, and the
+  survivors rebuild into the smaller world and go on.  Each worker
+  writes ``(step, loss, world size, epoch)`` of every step it finished
+  to ``<workdir>/elastic.<worker>.json``.
 """
 
 from __future__ import annotations
@@ -102,6 +108,35 @@ def _task_fail(workdir: Path) -> None:
         raise
 
 
+ELASTIC_STEPS = 8
+
+
+def _task_elastic(workdir: Path) -> None:
+    import horovod_tpu_torch as htt
+    from horovod_tpu_torch.elastic import membership
+
+    htt.init(device="cpu")
+    worker = membership.worker_id()
+    step, state = _mlp_step()
+    es = htt.ElasticState(str(workdir / "ck"), state)
+    log = []
+
+    def train(es):
+        st = es.state
+        while st.step < ELASTIC_STEPS:
+            x, y = _shard(htt.rank())
+            st, loss = step(st, x, y)
+            es.state, es.step = st, st.step
+            log.append((st.step, loss.item(), htt.size(),
+                        membership.current_epoch()))
+            (workdir / f"elastic.{worker}.json").write_text(json.dumps(log))
+            time.sleep(0.05)  # leave the driver a step to see a death in
+        return st
+
+    membership.run(train, es)
+    htt.shutdown()
+
+
 def allreduce_rank():
     """Function mode: join the job, sum ``rank + 1`` over it, and return
     ``(rank, size, sum)``."""
@@ -116,4 +151,5 @@ def allreduce_rank():
 
 if __name__ == "__main__":
     task, workdir = sys.argv[1], Path(sys.argv[2])
-    {"train": _task_train, "fail": _task_fail}[task](workdir)
+    {"train": _task_train, "fail": _task_fail,
+     "elastic": _task_elastic}[task](workdir)
