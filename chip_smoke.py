@@ -312,6 +312,50 @@ Phases, each printing one JSON line:
    and once over the coordinator star (the path ``HVD_RING=0`` takes),
    equal to numpy's sum; prints GB/s of each (the native core built here
    first, its seconds printed).
+31. serving — the serving plane on ResNet-50 with the three kernel
+   options (K6, K7, K8 in its eval forward), bf16 compute over float32
+   parameters, channels-last, 224x224x3 float32 requests; its state
+   after one train-mode forward (BatchNorm statistics moved) written
+   with ``save_checkpoint`` and read back with ``load_params``; replicas
+   hold int8 weights at rest; buckets 1-32, a 5 ms flush; cuDNN
+   deterministic, TF32 off; run before elastic.  (a) K8 at batch 1 and
+   32 on the four CONV_SHAPES against its plain version (CONV_BF16_*,
+   on wgmma) and K6, K7 bit-equal at [1 and 32, 56, 56, 256], each
+   timed beside its plain version, its bound and (K8) ``F.conv2d``.
+   (b) ``LocalServingPlane(replicas=1)``: warm-up captures 6 graphs
+   (counts set to 0 before it: K6 20, K7 16, K8 13 a forward, 12
+   forwards, K8 on wgmma), each bucket's replay bit-equal to the eager
+   forward of its batch, one traced bucket-32 replay runs K6 20, K7 16,
+   K8 13; then the capacity (closed loop, full buckets), bucket 1's
+   latency at low load and the bench fixture's bursty trace at 20% /
+   100% of the capacity, every served row within SERVE_ROW_LIMIT of its
+   request's float32 forward with the same decompressed weights and
+   nearer to it than to any other request's, 6 graphs at the end, no
+   request failed, rejected, duplicated or requeued; prints p50, p99,
+   goodput, goodput_under_burst (latencies from each request's
+   scheduled arrival), batch fill, the generator's lateness, the
+   interpreter's collections, the int8 ratio and one batch's host
+   split.  Each trace runs with the heap built before it frozen out of
+   the collector and fails if a request was sent more than
+   SERVE_LATE_SHARE of the SLO late.  (c) elastic, one spare, the
+   admission cap lifted to the trace's length: a burst at 150% of the
+   capacity grows one epoch, replica 1 captures while replica 0
+   replays, a drained shrink follows; no drop, duplicate or requeue,
+   one drain, the rows as (b).  (d) ``python -m
+   horovod_tpu_torch.run -np 1 --serve --serve-max-batch 1`` on
+   ``scripts/torch_serve_tasks.py serve`` (the same checkpoint): 8
+   signed ``post_infer`` requests, each row bit-equal to (b)'s bucket-1
+   graph, ``GET /serving`` counting them.  (e) the headline cell graphed
+   with the dormant profiler (``profile=None``) against
+   ``profile=False`` in turns; then ``python -m horovod_tpu_torch.run
+   -np 1`` on ``scripts/torch_serve_tasks.py watch`` with the watchdog
+   on by default and the step seam slowed 30 ms from call 41 (the task
+   polls the launcher only from there, so that no poll lands in the
+   clean cadence): a ``step_time_regression`` alert naming rank 0
+   fires within WATCH_FIRE_WITHIN steps of the slowdown, its arm
+   record opens the dormant profiler's window, and ``GET /profile``
+   holds its anatomy.  The result counts the ticks on the clean
+   cadence that could have fired (``pre_slow_ticks_that_could_fire``).
 
 Phase 6 also holds registry_parity: a narrow VGG with BatchNorm,
 Inception V3 at 107x107 and a 2-layer ViT trained 2 fused-momentum steps
@@ -344,10 +388,13 @@ device, build, gpt_main_path and autotune phases, and prints no last
 line.  ``--launcher-only`` runs the device, build, gpt_main_path and
 launcher phases, and prints no last line.  ``--elastic-only`` runs the
 device, build and elastic phases, and prints no last line.
+``--serving-only`` runs the device, build and serving phases, and prints
+no last line.
 """
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -5361,6 +5408,739 @@ def phase_elastic(htt, kernels, card) -> None:
           "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the serving plane and the watchdog
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "serving"
+#: the bucket ladder of the served ResNet-50 (max batch 32, 5 ms flush)
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_MAX_WAIT_MS = 5.0
+#: distinct requests: random images, request i scaled by 2^(i/4), so the
+#: rows of one model with random weights stay far apart
+SERVE_POOL = 32
+#: a served row (bf16 compute, int8 weights at rest) against the float32
+#: forward of its own request with the same decompressed weights, TF32
+#: off: ||served - f32|| / ||f32|| at most this, every row (about 3x the
+#: largest reading on an H100, 5.24e-3; PERF.md section 2)
+SERVE_ROW_LIMIT = 1.5e-2
+SERVE_CAPACITY_BATCHES = 40          # closed loop: 40 full buckets
+SERVE_LATENCY_REQUESTS = 50          # bucket 1, one request at a time
+SERVE_SPLIT_REPS = 20
+SERVE_SLO_MS = 100.0
+#: a trace counts only if the generator admitted every request within
+#: this share of the SLO of its scheduled time (an open loop)
+SERVE_LATE_SHARE = 0.2
+#: (c)'s trace: base 20%, burst 150% of (b)'s capacity, long enough for a
+#: grow, the new replica's captures, and the drained shrink after
+SERVE_ELASTIC_TRACE = {"pre_s": 0.5, "burst_s": 2.0, "post_s": 3.0}
+SERVE_SHRINK_WAIT_S = 30.0
+SERVE_REMOTE_REQUESTS = 8
+SERVE_LAUNCH_TIMEOUT_S = 300
+#: (e): the step seam slowed 30 ms from the 41st call (seam step 40)
+WATCH_SLOW_FROM, WATCH_SLOW_MS, WATCH_STEPS = 40, 30, 300
+#: the alert must name a step at most this far past the slowdown's start
+#: (the EWMA needs HVD_WATCH_CONFIRM = 3 slow samples)
+WATCH_FIRE_WITHIN = 8
+WATCH_AB_CALLS, WATCH_AB_TURNS = 15, ("on", "off", "off", "on") * 2
+SERVING_KEYS = {"K6": "scale_bias_relu", "K7": "residual_relu",
+                "K8": "bn_relu"}
+#: what one eval forward of the served model launches (K6, K7, K8)
+SERVE_FORWARD = {"scale_bias_relu": 20, "residual_relu": 16, "bn_relu": 13}
+
+
+def _serve_tasks():
+    """``scripts/torch_serve_tasks.py`` as a module (its served model)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "torch_serve_tasks.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_tasks", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tmpdir() -> Path:
+    """A temporary directory for the launched jobs, inside SERVE_DIR."""
+    path = SERVE_DIR / "tmp"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def _serving_kernels(kernels, ew, cb, flops_mod) -> dict:
+    """serving (a): K8 at batch 1 and 32 on the four CONV_SHAPES against
+    its plain version (row by row in norm, on wgmma), K6 and K7 bit-equal
+    at [1 and 32, 56, 56, 256], each timed beside its plain version, its
+    bound and (K8) ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    out = {"K6": {}, "K7": {}, "K8": {}}
+    for b in (1, 32):
+        for s, c, _ in CONV_SHAPES:
+            x = _seeded((b, s, s, c), torch.bfloat16, 900 + b + s)
+            w = _seeded((3, 3, c, c), torch.bfloat16, 950 + s,
+                        scale=(9 * c) ** -0.5)
+            scale = torch.rand(c, device="cuda") + 0.5
+            bias = torch.randn(c, device="cuda") * 0.1
+            before = dict(kernels.conv_bn_launches)
+            got = cb.conv3x3_bn_relu(x, w, scale, bias)
+            took = {k: v - before[k] for k, v in
+                    kernels.conv_bn_launches.items() if v != before[k]}
+            want = cb.plain_conv3x3_bn_relu(x, w, scale, bias)
+            top, mean = row_rel_err(got, want)
+            if took != {"bn_relu.wgmma": 1} or not torch.isfinite(
+                    got.float()).all() or top > CONV_BF16_ROW_LIMIT or \
+                    mean > CONV_BF16_MEAN_LIMIT:
+                fail(f"serving (a): K8 at [{b}, {s}, {s}, {c}] ran {took}, "
+                     f"row error (max, mean) ({top}, {mean}), limits "
+                     f"({CONV_BF16_ROW_LIMIT}, {CONV_BF16_MEAN_LIMIT})")
+            m = b * s * s
+            flops, nbytes = 2 * m * c * 9 * c, 2 * m * c * 2 + \
+                9 * c * c * 2 + 2 * 4 * c
+            bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                        flops_mod.H100_PEAK_FLOPS)
+            xl = x.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            out["K8"][f"{b}x{s}x{s}x{c}"] = {
+                "ms": cuda_ms(lambda: cb.conv3x3_bn_relu(x, w, scale, bias)),
+                "plain_ms": cuda_ms(
+                    lambda: cb.plain_conv3x3_bn_relu(x, w, scale, bias)),
+                "library_ms": cuda_ms(lambda: F.conv2d(xl, wl, padding=1)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "row_rel_err": [top, mean]}
+        shape = (b, 56, 56, 256)
+        n, c = math.prod(shape), shape[-1]
+        x = _seeded(shape, torch.bfloat16, 960 + b)
+        y = _seeded(shape, torch.bfloat16, 970 + b)
+        scale = torch.rand(c, device="cuda") + 0.5
+        bias = torch.randn(c, device="cuda")
+        pairs = {"K7": (lambda: ew._residual_relu(x, y),
+                        lambda: ew.plain_residual_relu(x, y), 2 * n,
+                        3 * 2 * n),
+                 "K6": (lambda: ew._scale_bias_relu(x, scale, bias),
+                        lambda: ew.plain_scale_bias_relu(x, scale, bias),
+                        3 * n, 2 * 2 * n + 2 * 4 * c)}
+        for key, (fn, plain, flops, nbytes) in pairs.items():
+            if not torch.equal(fn(), plain()):
+                fail(f"serving (a): {key} differs from its plain version "
+                     f"at {list(shape)} bf16")
+            bound_ms, bound_by = _bound(flops_mod, flops, nbytes,
+                                        flops_mod.H100_FP32_FLOPS)
+            out[key][f"{b}x56x56x256"] = {
+                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+    emit({"phase": "serving_kernels", "timing": out,
+          "tolerance": {"K8": {"bfloat16_row": CONV_BF16_ROW_LIMIT,
+                               "bfloat16_mean_row": CONV_BF16_MEAN_LIMIT},
+                        "K6": "bit-equal", "K7": "bit-equal"}})
+    return out
+
+
+def _serving_model(tasks):
+    """The served model's state written with ``save_checkpoint`` after one
+    train-mode forward (the BatchNorm statistics moved off their initial
+    constants) and read back with ``load_params`` into another seed's
+    model: ``(apply_fn, restored params, checkpoint dir)``."""
+    import shutil
+
+    from horovod_tpu_torch.serving import load_params, module_apply_fn
+    from horovod_tpu_torch.utils.checkpoint import save_checkpoint
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    model = tasks.served_model("cuda", seed=0).train()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        model(torch.rand((32, *tasks.IMAGE), device="cuda", generator=gen))
+    model.eval()
+    _, params = module_apply_fn(model)
+    stats = [v for k, v in params.items() if k.endswith("running_var")]
+    if not stats or all(torch.equal(v, torch.ones_like(v)) for v in stats):
+        fail("serving: the BatchNorm statistics did not move")
+    ckpt = SERVE_DIR / "ckpt"
+    save_checkpoint(str(ckpt), params, step=1)
+    apply_fn, like = module_apply_fn(tasks.served_model("cuda", seed=1))
+    restored = load_params(str(ckpt), like)
+    if any(not torch.equal(restored[k], params[k]) for k in params):
+        fail("serving: load_params did not restore the saved state")
+    return apply_fn, restored, ckpt
+
+
+def _serving_pool(tasks):
+    """SERVE_POOL distinct float32 requests [224, 224, 3]."""
+    rng = np.random.RandomState(11)
+    return [(rng.rand(*tasks.IMAGE) * 2.0 ** (i / 4)).astype(np.float32)
+            for i in range(SERVE_POOL)]
+
+
+def _f32_rows(tasks, params, pool) -> np.ndarray:
+    """The float32 forward (TF32 off) of every pool request with
+    ``params`` (the replica's decompressed weights)."""
+    from horovod_tpu_torch.serving import module_apply_fn
+
+    apply_fn, _ = module_apply_fn(tasks.served_model(
+        "cuda", seed=2, dtype=torch.float32))
+    with torch.inference_mode(), no_tf32():
+        return apply_fn(params, torch.from_numpy(np.stack(pool)).cuda()) \
+            .float().cpu().numpy()
+
+
+def _check_rows(what, served, refs) -> dict:
+    """Every served row within SERVE_ROW_LIMIT of its own request's
+    float32 row and nearer to it than to any other request's."""
+    worst, margin = 0.0, math.inf
+    norms = np.linalg.norm(refs, axis=1)
+    for idx, row in served:
+        d = np.linalg.norm(refs - row[None].astype(np.float64), axis=1)
+        rel = d[idx] / norms[idx]
+        worst = max(worst, rel)
+        others = np.delete(d, idx)
+        margin = min(margin, others.min() / max(d[idx], 1e-30))
+        if not np.isfinite(row).all() or rel > SERVE_ROW_LIMIT or \
+                d[idx] >= others.min():
+            fail(f"{what}: the row of request {idx} is {rel} of its float32 "
+                 f"row away (limit {SERVE_ROW_LIMIT}); nearest other "
+                 f"{others.min() / norms[idx]}")
+    return {"rows": len(served), "max_row_rel_err": worst,
+            "min_other_over_own_distance": margin}
+
+
+def _trace(plane, pool, arrivals, windows, what):
+    """Play an open-loop trace through ``plane``'s broker: each request
+    is the pool entry ``i % SERVE_POOL``; returns the summary and the
+    served (pool index, row) pairs.  Fails a trace the generator did not
+    offer on time (lateness past SERVE_LATE_SHARE of the SLO)."""
+    from horovod_tpu_torch.serving import OpenLoopLoadGenerator
+
+    index = {id(x): i for i, x in enumerate(pool)}
+    served = []
+
+    def wait(req, timeout):
+        out = plane.broker.wait(req, timeout)
+        served.append((index[id(req.inputs)], out))
+        return out
+
+    gen = OpenLoopLoadGenerator(plane.broker.submit, arrivals,
+                                lambda i: pool[i % SERVE_POOL], wait=wait,
+                                slo_ms=SERVE_SLO_MS, timeout_s=30.0)
+    pauses, began = [], []
+
+    def on_gc(phase, info):  # the interpreter's collections, timed
+        if phase == "start":
+            began.append(time.monotonic())
+        elif began:
+            pauses.append((info["generation"], began.pop(),
+                           time.monotonic()))
+
+    # freeze the heap built before the trace (earlier phases, the model,
+    # the checkpoint) out of the collector, as a serving process freezes
+    # what it loaded: a full collection over it stalled every thread of
+    # this process ~0.2 s in (c), the arrivals and the replicas alike
+    gc.collect()
+    gc.freeze()
+    gc.callbacks.append(on_gc)
+    start = time.monotonic()
+    try:
+        summary = gen.run(windows)
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+    late = [r["late_ms"] for r in gen.records]
+    summary["late_ms"] = {"max": max(late), "p99": float(
+        np.percentile(late, 99)), "mean": float(np.mean(late))}
+    summary["gc_pauses_ms"] = {
+        str(g): {"count": sum(p[0] == g for p in pauses),
+                 "max": max([(p[2] - p[1]) * 1e3 for p in pauses
+                             if p[0] == g], default=0.0)}
+        for g in (0, 1, 2)}
+    if summary["offered"] != summary["completed"] or \
+            len(served) != summary["offered"]:
+        fail(f"{what}: offered {summary['offered']}, completed "
+             f"{summary['completed']}, served {len(served)}")
+    if max(late) > SERVE_LATE_SHARE * SERVE_SLO_MS:
+        worst = sorted(gen.records, key=lambda r: -r["late_ms"])[:5]
+        scaler = plane.autoscaler
+        marks = {f"{e[0]} {e[1]}": t - start for e, t in zip(
+            scaler.events, scaler.event_times)} if scaler else {}
+        marks["gc pauses over 20 ms"] = [
+            (g, t0 - start, (t1 - t0) * 1e3) for g, t0, t1 in pauses
+            if t1 - t0 > 0.02]
+        for w, rep in plane.replicas.items():
+            for name in ("warmup_window", "drain_window"):
+                if getattr(rep, name):
+                    marks[f"{w} {name}"] = [
+                        t - start for t in getattr(rep, name)]
+        fail(f"{what}: the generator sent a request {max(late)} ms late "
+             f"(limit {SERVE_LATE_SHARE * SERVE_SLO_MS} ms): the trace was "
+             "not offered open-loop; the latest (arrival s, ms late): "
+             f"{[(r['t'], r['late_ms']) for r in worst]}; s from the "
+             f"trace's start: {marks}")
+    return summary, served
+
+
+class _ServeReq:
+    """A request as the replica's ``stack`` reads it (its ``inputs``)."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+
+
+def _host_split(rep, pool, bucket) -> dict:
+    """One batch of ``bucket`` requests through the replica's steps, each
+    closed by a device sync, median of SERVE_SPLIT_REPS: stack and pad
+    into the pinned buffer, the host-to-device copy, the replay, the
+    device-to-host copy and the rows; and the replay's device ms."""
+    batch = [_ServeReq(pool[i % SERVE_POOL]) for i in range(bucket)]
+    times = {"stack_pad": [], "h2d": [], "replay": [], "d2h": []}
+    for _ in range(SERVE_SPLIT_REPS):
+        t0 = time.perf_counter()
+        g, n = rep.stack(batch)
+        t1 = time.perf_counter()
+        g.x.copy_(g.host_in, non_blocking=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        g.graph.replay()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        g.host_out.copy_(g.out, non_blocking=True)
+        torch.cuda.synchronize()
+        g.host_out[:n].numpy().copy()
+        t4 = time.perf_counter()
+        for k, (a, b) in zip(times, ((t0, t1), (t1, t2), (t2, t3),
+                                     (t3, t4))):
+            times[k].append((b - a) * 1e3)
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["total"] = sum(out.values())
+    out["replay_device_ms"] = cuda_ms(g.graph.replay, runs=10)
+    return out
+
+
+def _serving_fixed(kernels, tasks, apply_fn, params, pool, card) -> dict:
+    """serving (b): see the module docstring, phase 31."""
+    from horovod_tpu_torch.serving import LocalServingPlane
+
+    what = "serving (b)"
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    plane = LocalServingPlane(apply_fn, params, replicas=1,
+                              max_batch=SERVE_BUCKETS[-1],
+                              max_wait_ms=SERVE_MAX_WAIT_MS, device="cuda",
+                              warmup_sample=pool[0])
+    rep = plane.replicas["0"]
+    try:
+        if not rep.ready.wait(300) or rep.warmup_error is not None:
+            fail(f"{what}: the replica's warm-up did not end or raised "
+                 f"{rep.warmup_error!r}")
+        warm_s = time.perf_counter() - t0
+        issued = {k: v for k, v in _counts(kernels).items() if v}
+        want = {k: v * 2 * len(SERVE_BUCKETS)
+                for k, v in SERVE_FORWARD.items()}
+        if issued != want or _loops(kernels) != {
+                "bn_relu.wgmma": want["bn_relu"]} or \
+                rep.recompiles != len(SERVE_BUCKETS) or \
+                rep.bucketer.sizes != SERVE_BUCKETS:
+            fail(f"{what}: warm-up issued {issued} on {_loops(kernels)} "
+                 f"(want {want}, K8 on wgmma), {rep.recompiles} graphs on "
+                 f"the ladder {rep.bucketer.sizes}")
+        refs = _f32_rows(tasks, rep.params, pool)
+        # each bucket's replay against the eager forward of its batch
+        bucket1 = []
+        for b in SERVE_BUCKETS:
+            batch = [_ServeReq(pool[i]) for i in range(b)]
+            g, n = rep.stack(batch)
+            graphed = rep.fetch(rep.forward(g), n)
+            eager = rep.eager_forward(g.host_in.numpy())
+            if not np.array_equal(graphed, eager[:n]):
+                fail(f"{what}: bucket {b}'s replay differs from the eager "
+                     f"forward by {np.abs(graphed - eager[:n]).max()}")
+        for i in range(SERVE_REMOTE_REQUESTS):
+            g, n = rep.stack([_ServeReq(pool[i])])
+            bucket1.append(rep.fetch(rep.forward(g), n)[0])
+        _, _, spans = profiled(lambda: rep.forward(rep.stack(
+            [_ServeReq(pool[i]) for i in range(32)])[0]))
+        replay_trace = trace_launches(spans)
+        if (replay_trace["K6"], replay_trace["K7"],
+                replay_trace["K8-K10"]) != (20, 16, 13):
+            fail(f"{what}: one replay of bucket 32 ran {replay_trace}")
+        split = {b: _host_split(rep, pool, b) for b in (1, 32)}
+        checks = []
+        # the capacity: closed loop, full buckets
+        b = plane.broker
+        n = SERVE_CAPACITY_BATCHES * SERVE_BUCKETS[-1]
+        before = (rep.requests, rep.batches)
+        t0 = time.perf_counter()
+        reqs = [b.submit(pool[i % SERVE_POOL]) for i in range(n)]
+        outs = [b.wait(r, 60.0) for r in reqs]
+        capacity = n / (time.perf_counter() - t0)
+        capacity_fill = (rep.requests - before[0]) / (rep.batches -
+                                                      before[1])
+        checks.append(_check_rows(f"{what} capacity", [
+            (i % SERVE_POOL, o) for i, o in enumerate(outs)], refs))
+        # bucket 1 at low load
+        lat = []
+        for i in range(SERVE_LATENCY_REQUESTS):
+            r = b.submit(pool[i % SERVE_POOL])
+            b.wait(r, 30.0)
+            lat.append(r.latency_s() * 1e3)
+        # the bench fixture's bursty trace at 20% / 100% of the capacity
+        from horovod_tpu_torch.serving import bursty_arrivals
+        from horovod_tpu_torch.serving.plane import BENCH_FIXTURE_KWARGS
+
+        fx = BENCH_FIXTURE_KWARGS
+        arrivals, windows = bursty_arrivals(
+            0.2 * capacity, capacity, pre_s=fx["pre_s"],
+            burst_s=fx["burst_s"], post_s=fx["post_s"], seed=fx["seed"])
+        before = (rep.requests, rep.batches)
+        summary, served = _trace(plane, pool, arrivals, windows, what)
+        fill = (rep.requests - before[0]) / max(rep.batches - before[1], 1)
+        checks.append(_check_rows(f"{what} trace", served, refs))
+        stats = b.window_stats()
+        if rep.recompiles != len(SERVE_BUCKETS) or any(
+                stats[k] for k in ("failed", "rejected", "duplicates",
+                                   "requeued")):
+            fail(f"{what}: {rep.recompiles} graphs at the end, broker "
+                 f"{stats}")
+        out = {"phase": "serving_fixed", "model": "ResNet50", "options":
+               VARIANTS, "image": list(tasks.IMAGE), "dtype": "bfloat16",
+               "weights": rep.compression_info, "buckets": SERVE_BUCKETS,
+               "max_wait_ms": SERVE_MAX_WAIT_MS, "warmup_s": warm_s,
+               "warmup_launches_issued": issued,
+               "replay_trace_bucket32": replay_trace,
+               "capacity_img_s": capacity,
+               "capacity_batch_fill": capacity_fill,
+               "bucket1_latency_ms": {
+                   "p50": statistics.median(lat), "max": max(lat)},
+               "trace": {"base_rps": 0.2 * capacity, "burst_rps": capacity,
+                         **{k: fx[k] for k in ("pre_s", "burst_s",
+                                                "post_s", "seed")},
+                         "slo_ms": SERVE_SLO_MS},
+               "summary": summary, "batch_fill": fill,
+               "host_split_ms": split, "row_checks": checks,
+               "row_limit": SERVE_ROW_LIMIT,
+               "broker": {k: stats[k] for k in (
+                   "submitted", "completed", "failed", "rejected",
+                   "duplicates", "requeued")},
+               "graphs": rep.recompiles, "card": card}
+        emit(out)
+        return {"capacity": capacity, "refs": refs, "bucket1": bucket1,
+                "issued": issued}
+    finally:
+        plane.shutdown()
+
+
+def _serving_elastic(tasks, apply_fn, params, pool, refs, capacity,
+                     card) -> dict:
+    """serving (c): see the module docstring, phase 31."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.serving import (
+        AutoscalePolicy,
+        LocalServingPlane,
+        bursty_arrivals,
+    )
+
+    what = "serving (c)"
+    policy = AutoscalePolicy(queue_high=8.0, queue_low=0.5,
+                             slo_ms=60_000.0, hysteresis_ticks=3,
+                             cooldown_s=1.0, min_replicas=1, max_replicas=2)
+    drains_before = metrics.SERVE_DRAINS.get()
+    arrivals, windows = bursty_arrivals(
+        0.2 * capacity, 1.5 * capacity, seed=11, **SERVE_ELASTIC_TRACE)
+    plane = LocalServingPlane(apply_fn, params, replicas=1,
+                              spare_workers=["1"], elastic=True,
+                              policy=policy, max_batch=SERVE_BUCKETS[-1],
+                              max_wait_ms=SERVE_MAX_WAIT_MS, device="cuda",
+                              warmup_sample=pool[0], drain_timeout_s=30.0)
+    try:
+        if not plane.replicas["0"].ready.wait(300) or \
+                plane.replicas["0"].warmup_error is not None:
+            fail(f"{what}: replica 0's warm-up did not end or raised "
+                 f"{plane.replicas['0'].warmup_error!r}")
+        # the burst's backlog outgrows HVD_SERVE_QUEUE_LIMIT until the
+        # grow lands: admit the whole trace, so a refusal can only mean a
+        # lost request
+        plane.broker.queue_limit = max(plane.broker.queue_limit,
+                                       len(arrivals))
+        plane.start()
+        summary, served = _trace(plane, pool, arrivals, windows, what)
+        deadline = time.monotonic() + SERVE_SHRINK_WAIT_S
+        while time.monotonic() < deadline and \
+                len(plane.autoscaler.events) < 2:
+            time.sleep(0.05)
+        events = list(plane.autoscaler.events)
+        rec = json.loads(plane.server.get("membership", "epoch"))
+        rep0, rep1 = plane.replicas["0"], plane.replicas.get("1")
+        stats = plane.broker.window_stats()
+        drained = metrics.SERVE_DRAINS.get() - drains_before
+        if events != [("grow", "1", 1), ("shrink", "1", 2)] or \
+                rec["world"] != ["0"] or "drained" not in rec["reason"] or \
+                drained != 1 or any(stats[k] for k in (
+                    "failed", "rejected", "duplicates", "requeued")):
+            fail(f"{what}: autoscale events {events}, epoch record {rec}, "
+                 f"drains {drained}, broker {stats}")
+        if rep1 is None or rep1.recompiles != len(SERVE_BUCKETS) or \
+                rep1.first_batch_time is None or \
+                rep1.warmup_window is None or rep1.warmup_error is not None \
+                or rep1.drain_window is None:
+            fail(f"{what}: replica 1 {rep1 and rep1.recompiles} graphs, "
+                 f"{rep1 and rep1.batches} batches, warm-up error "
+                 f"{rep1 and rep1.warmup_error!r}")
+        lo, hi = rep1.warmup_window
+        overlap = sum(lo <= t <= hi for t in rep0.batch_times)
+        if not overlap:
+            fail(f"{what}: replica 0 served no batch while replica 1 "
+                 "captured its graphs")
+        rows = _check_rows(what, served, refs)
+        out = {"phase": "serving_elastic", "policy": {
+                   "queue_high": policy.queue_high,
+                   "queue_low": policy.queue_low,
+                   "hysteresis_ticks": policy.hysteresis_ticks,
+                   "cooldown_s": policy.cooldown_s,
+                   "slo_ms": policy.slo_ms},
+               "trace": {"base_rps": 0.2 * capacity,
+                         "burst_rps": 1.5 * capacity, "seed": 11,
+                         **SERVE_ELASTIC_TRACE},
+               "summary": summary, "autoscale_events": events,
+               "epoch_record": {k: rec[k] for k in ("epoch", "world",
+                                                    "reason")},
+               "drains_total": drained,
+               "drain_ms": (rep1.drain_window[1] - rep1.drain_window[0])
+               * 1e3,
+               "grow_to_first_batch_s":
+                   rep1.first_batch_time - plane.autoscaler.event_times[0],
+               "replica1_capture_s": hi - lo,
+               "replica0_batches_during_capture": overlap,
+               "replica_batches": {"0": rep0.batches, "1": rep1.batches},
+               "row_checks": rows,
+               "broker": {k: stats[k] for k in (
+                   "submitted", "completed", "failed", "rejected",
+                   "duplicates", "requeued")}, "card": card}
+        emit(out)
+        return out
+    finally:
+        plane.shutdown()
+
+
+def _serving_remote(tasks, ckpt, pool, bucket1, card) -> dict:
+    """serving (d): see the module docstring, phase 31."""
+    from horovod_tpu_torch.run import http_client
+
+    what = "serving (d)"
+    port_file, done_file = SERVE_DIR / "remote.port", SERVE_DIR / "done"
+    secret = os.urandom(16)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HVD_")}
+    env.update({"HVD_METRICS_SECRET": secret.hex(),
+                "HVD_SERVE_WEIGHT_COMPRESSION": "int8",
+                "TMPDIR": str(_tmpdir())})
+    script = Path(__file__).resolve().parent / "scripts" / \
+        "torch_serve_tasks.py"
+    t0 = time.perf_counter()
+    log = open(SERVE_DIR / "remote.out", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1",
+         "--serve", "--serve-max-batch", "1", sys.executable, str(script),
+         "serve", "--ckpt", str(ckpt), "--port-file", str(port_file),
+         "--done-file", str(done_file)], env=env, stdout=log,
+        stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+    try:
+        while not port_file.exists():
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > SERVE_LAUNCH_TIMEOUT_S:
+                fail(f"{what}: the launched replica ended or never got "
+                     f"ready: {(SERVE_DIR / 'remote.out').read_text()[-2000:]}")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        info = json.loads(port_file.read_text())
+        addr, port = info["addr"], info["port"]
+        lat = []
+        for i in range(SERVE_REMOTE_REQUESTS):
+            t1 = time.perf_counter()
+            got = http_client.post_infer(addr, port, pool[i],
+                                         secret=secret, timeout=60.0)
+            lat.append({"client_ms": (time.perf_counter() - t1) * 1e3,
+                        "server_ms": got["latency_ms"],
+                        "replica": got["replica"]})
+            row = np.asarray(got["outputs"], dtype=np.float32)
+            if not np.array_equal(row, bucket1[i]):
+                fail(f"{what}: request {i}'s row differs from (b)'s bucket-1 "
+                     f"graph by {np.abs(row - bucket1[i]).max()}")
+        page = http_client.get_serving(addr, port, secret=secret)
+        broker = page["broker"]
+        if (broker["submitted"], broker["completed"], broker["failed"]) != \
+                (SERVE_REMOTE_REQUESTS, SERVE_REMOTE_REQUESTS, 0):
+            fail(f"{what}: GET /serving reports {broker}")
+        done_file.write_text("done")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if rc != 0:
+        fail(f"{what}: the launcher exited {rc}: "
+             f"{(SERVE_DIR / 'remote.out').read_text()[-2000:]}")
+    out = {"phase": "serving_remote", "requests": SERVE_REMOTE_REQUESTS,
+           "floats_a_request": int(pool[0].size),
+           "launch_to_ready_s": ready_s, "latency": lat,
+           "broker": {k: broker[k] for k in (
+               "submitted", "completed", "failed", "p50_ms", "p99_ms")},
+           "bit_equal_to_bucket1_graph": True,
+           "wall_s": time.perf_counter() - t0, "card": card}
+    emit(out)
+    return out
+
+
+def _headline_step(htt, profile):
+    """The headline cell's graphed step, state and batch (ResNet-50,
+    224x224, batch 128, bf16 over float32 parameters, fused momentum)."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet50
+
+    model = on_card(ResNet50).to(memory_format=torch.channels_last)
+    opt = htt.fused_sgd(0.01, momentum=0.9)
+    step = htt.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
+                               optimizer=opt, has_batch_stats=True,
+                               fused_optimizer=True, loss_fetch_steps=0,
+                               profile=profile)
+    state = htt.init_train_state(model, opt, has_batch_stats=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((128, 224, 224, 3), device="cuda", generator=gen)
+    y = torch.randint(0, 1000, (128,), device="cuda", generator=gen)
+    return step, state, x, y
+
+
+def _serving_watchdog(htt, card, tasks) -> dict:
+    """serving (e): see the module docstring, phase 31."""
+    from horovod_tpu_torch.observe import autoarm
+
+    what = "serving (e)"
+    for k in ("HVD_PROFILE", "HVD_WATCH_ARM"):
+        if os.environ.get(k):
+            fail(f"{what}: {k} is set; the dormant profiler needs it unset")
+    cells = {"on": _headline_step(htt, None),
+             "off": _headline_step(htt, False)}
+    if cells["on"][0].profiler is None or cells["on"][0].profiler.enabled \
+            or cells["on"][0].profiler not in autoarm._profilers \
+            or cells["off"][0].profiler is not None:
+        fail(f"{what}: profile=None gave {cells['on'][0].profiler}, "
+             f"profile=False {cells['off'][0].profiler}")
+    for name, (step, state, x, y) in cells.items():
+        for _ in range(3):  # eager, capture, a replay
+            state, loss = step(state, x, y)
+        cells[name] = (step, state, x, y)
+    rates = {"on": [], "off": []}
+    for name in WATCH_AB_TURNS:
+        step, state, x, y = cells[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WATCH_AB_CALLS):
+            state, loss = step(state, x, y)
+        loss.item()
+        rates[name].append(128 * WATCH_AB_CALLS / (time.perf_counter() - t0))
+        cells[name] = (step, state, x, y)
+    on, off = statistics.mean(rates["on"]), statistics.mean(rates["off"])
+    if not cells["on"][0].calls.get("replay"):
+        fail(f"{what}: the dormant cell ran {dict(cells['on'][0].calls)}")
+    del cells
+    torch.cuda.empty_cache()
+
+    script = Path(__file__).resolve().parent / "scripts" / \
+        "torch_serve_tasks.py"
+    spec = ";".join(f"rank=0:step={s}:kind=slow={WATCH_SLOW_MS}ms"
+                    for s in range(WATCH_SLOW_FROM, WATCH_STEPS))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HVD_")}
+    # the watchdog's armed window writes under TMPDIR when no trace
+    # directory is set
+    env.update({"HVD_WATCH_INTERVAL_SECONDS": "0.5",
+                "HVD_TIMESERIES_FLUSH_SECONDS": "0.5",
+                "HVD_FAULT_SPEC": spec, "TMPDIR": str(_tmpdir())})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1",
+         sys.executable, str(script), "watch", "--steps", str(WATCH_STEPS),
+         "--poll-from", str(WATCH_SLOW_FROM)],
+        env=env, capture_output=True, text=True,
+        timeout=SERVE_LAUNCH_TIMEOUT_S, cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    (SERVE_DIR / "watch.out").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"{what}: the launched job exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    events = {e["event"]: e for e in _worker_events(proc.stdout)}
+    w = events.get("watched", {})
+    alert = w.get("alert") or {}
+    ev = alert.get("evidence") or {}
+    anatomy = (w.get("profile") or {}).get("ranks", {}).get("0") or {}
+    cadence = w.get("cadence_ms") or []
+    if not events.get("start", {}).get("dormant") or \
+            alert.get("signal") != "step_time_regression" or \
+            ev.get("rank") != "0" or not alert.get("armed") or \
+            not (WATCH_SLOW_FROM < ev.get("fired_step", 0)
+                 <= WATCH_SLOW_FROM + WATCH_FIRE_WITHIN) or \
+            not (w.get("anatomy_steps") or 0) >= 1 or \
+            not anatomy.get("steps"):
+        fail(f"{what}: start {events.get('start')}, alert {alert}, the "
+             f"profiler's window {w.get('armed_window')} enabled "
+             f"{w.get('profiler_enabled')} steps {w.get('anatomy_steps')}, "
+             f"/profile rank 0 {str(anatomy)[:300]}; the launcher's newest "
+             f"step at each poll {w.get('launcher_newest_step')}; the "
+             f"cadence ms it held {cadence[:WATCH_SLOW_FROM + 12]}")
+    ms = w["step_ms"]
+    out = {"phase": "serving_watchdog",
+           "dormant_rate_img_s": on, "off_rate_img_s": off,
+           "dormant_cost_pct": (off - on) / off * 100.0,
+           "rates": rates, "calls_a_turn": WATCH_AB_CALLS,
+           "slow_from_call": WATCH_SLOW_FROM + 1, "slow_ms": WATCH_SLOW_MS,
+           "alert": {k: alert.get(k) for k in (
+               "signal", "severity", "evidence", "window", "armed")},
+           "fired_after_slow_steps": ev["fired_step"] - WATCH_SLOW_FROM,
+           "armed_window": w["armed_window"],
+           "anatomy_steps": w["anatomy_steps"],
+           "profile_segments": sorted((anatomy.get("segments") or {})),
+           "steps_run": w["steps"],
+           "launcher_newest_step_at_polls": w["launcher_newest_step"],
+           "pre_slow_cadence_ms_median_max": [
+               statistics.median(v for st, v in cadence
+                                 if st <= WATCH_SLOW_FROM),
+               max(v for st, v in cadence if st <= WATCH_SLOW_FROM)],
+           "pre_slow_ticks_that_could_fire": tasks.early_fires(
+               [[st, v / 1e3] for st, v in cadence], WATCH_SLOW_FROM),
+           "step_ms_median_before_after": [
+               statistics.median(ms[5:WATCH_SLOW_FROM]),
+               statistics.median(ms[WATCH_SLOW_FROM + 2:
+                                    WATCH_SLOW_FROM + 12])],
+           "wall_s": wall, "card": card}
+    emit(out)
+    return out
+
+
+def phase_serving(htt, kernels, ew, cb, flops_mod, card) -> dict:
+    """Phase 31 (see the module docstring): the serving plane on the
+    variants' kernels and the watchdog.  Returns the serving entries of
+    K6, K7 and K8 for the kernels line."""
+    tasks = _serve_tasks()
+    t0 = time.perf_counter()
+    # replicas read their weights' at-rest format from the knob
+    with deterministic_cudnn(), no_tf32(), env_vars(
+            {"HVD_SERVE_WEIGHT_COMPRESSION": "int8"}):
+        timing = _serving_kernels(kernels, ew, cb, flops_mod)
+        apply_fn, params, ckpt = _serving_model(tasks)
+        pool = _serving_pool(tasks)
+        fixed = _serving_fixed(kernels, tasks, apply_fn, params, pool, card)
+        _serving_elastic(tasks, apply_fn, params, pool, fixed["refs"],
+                         fixed["capacity"], card)
+    del apply_fn, params
+    torch.cuda.empty_cache()
+    _serving_remote(tasks, ckpt, pool, fixed["bucket1"], card)
+    _serving_watchdog(htt, card, tasks)
+    emit({"phase": "serving", "wall_s": time.perf_counter() - t0,
+          "card": card})
+    return {key: {"launches_issued_in_warmup": fixed["issued"][counter],
+                  "timing_by_shape": timing[key]}
+            for key, counter in SERVING_KEYS.items()}
+
+
 def run_variant_phases(htt, kernels, ew, cb, flops_mod, card,
                        default_img_sec) -> dict:
     """The phases of K6-K10: each kernel against its plain version, the
@@ -5418,6 +6198,8 @@ def main() -> None:
                          "and launcher")
     ap.add_argument("--elastic-only", action="store_true",
                     help="run the device and build phases and elastic")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="run the device and build phases and serving")
     ap.add_argument("--model-parallel-only", action="store_true",
                     help="run the device and build phases and those of "
                          "K5 and model parallelism (ring_kernels, "
@@ -5481,6 +6263,11 @@ def main() -> None:
         phase_elastic(htt, kernels, card)
         htt.shutdown()
         return
+    if cli.serving_only:
+        emit({"serving_kernels": phase_serving(htt, kernels, ew, cb,
+                                               flops_mod, card)})
+        htt.shutdown()
+        return
     if cli.model_parallel_only:
         results = run_model_parallel_phases(htt, kernels, fa, ra, flops_mod,
                                             card)
@@ -5535,6 +6322,9 @@ def main() -> None:
     registry = phase_registry_main_path(htt, kernels, flops_mod, card)
     results["momentum"]["vgg16"]["launches"] = \
         registry["VGG16"]["k1"]["momentum"]["float32"]
+    for key, entry in phase_serving(htt, kernels, ew, cb, flops_mod,
+                                    card).items():
+        results[key]["serving"] = entry
     phase_elastic(htt, kernels, card)
     htt.shutdown()
 

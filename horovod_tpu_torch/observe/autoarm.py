@@ -6,9 +6,10 @@ not a bare number — so the watchdog broadcasts an *arm record* through
 the rendezvous KV store and every rank moves its trace+profile window
 to the same future training step:
 
-* the watchdog writes :func:`make_arm_record`'s
+* :func:`broadcast_arm` (watchdog side) writes
   ``{"id", "start_step", "end_step", "signal", "trace_dir", "ts"}``
-  to the ``observe/arm`` key — one writer, last-writer-wins;
+  to the ``observe/arm`` key — one writer (the watchdog),
+  last-writer-wins;
 * :func:`poll_and_apply` (worker side) runs on the telemetry flusher
   thread (metrics/timeseries.py), never the step path.  Each arm id is
   applied at most once per process: the rank's current training step
@@ -16,11 +17,9 @@ to the same future training step:
   ``ComputeProfiler.arm`` as the translation anchor, so the broadcast
   *global* step window lands on the same steps everywhere.
 
-The port has the worker half and the record; the watchdog that
-broadcasts it is ROADMAP item 15, so until then an arm record comes from
-whoever puts one under ``observe/arm`` (an operator, a test), and only a
-train step whose profiler is enabled registers it (the reference's
-dormant profiler comes with the watchdog).
+A train step registers its profiler here: an enabled one, or, with no
+profiler asked for, a dormant one (disabled until an arm record gives
+it a window; ``HVD_WATCH_ARM=0`` leaves the step without it).
 
 ``start_step`` is chosen by the watchdog as ``max(last cadence step
 across ranks) + HVD_WATCH_ARM_MARGIN_STEPS`` — far enough ahead that
@@ -32,7 +31,8 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+import weakref
+from typing import Any, Dict, Optional
 
 from ..utils import env as env_util
 from ..utils.logging import get_logger
@@ -44,7 +44,8 @@ ARM_SCOPE = "observe"
 ARM_KEY = "arm"
 
 _lock = threading.Lock()
-_profilers: List[Any] = []
+#: weak, so a released step's dormant profiler leaves with it
+_profilers: "weakref.WeakSet[Any]" = weakref.WeakSet()
 _applied_ids: set = set()
 
 
@@ -52,8 +53,12 @@ def register_profiler(profiler: Any) -> None:
     """Training registers its ComputeProfiler here so an arm record can
     reach it (make_train_step holds it as a closure variable)."""
     with _lock:
-        if profiler not in _profilers:
-            _profilers.append(profiler)
+        _profilers.add(profiler)
+
+
+def unregister_profiler(profiler: Any) -> None:
+    with _lock:
+        _profilers.discard(profiler)
 
 
 def reset() -> None:
@@ -73,6 +78,16 @@ def make_arm_record(arm_id: str, start_step: int, end_step: int,
         "trace_dir": trace_dir,
         "ts": time.time(),
     }
+
+
+def broadcast_arm(server: Any, arm_id: str, start_step: int, end_step: int,
+                  signal: str, trace_dir: Optional[str] = None) -> Dict[str, Any]:
+    """Watchdog side: publish the arm record through the in-process
+    rendezvous server handle (``server.put`` goes through the same
+    fence/journal choke point as the HTTP surface)."""
+    record = make_arm_record(arm_id, start_step, end_step, signal, trace_dir)
+    server.put(ARM_SCOPE, ARM_KEY, json.dumps(record).encode())
+    return record
 
 
 def apply_arm(record: Dict[str, Any]) -> bool:

@@ -1,0 +1,323 @@
+"""Pure anomaly detectors over telemetry time-series: the port of
+``horovod_tpu/observe/detectors.py`` (exact on the same numbers).
+
+Each detector takes plain ``[(step, value), ...]`` sample lists (the
+shape stored by :mod:`horovod_tpu_torch.metrics.timeseries`) plus explicit
+thresholds, and returns either ``None`` (quiet) or an alert record::
+
+    {"severity": "warning" | "critical",
+     "signal":   "<detector name>",
+     "evidence": {...detector-specific numbers...},
+     "window":   {"start_step": int, "end_step": int, "samples": int}}
+
+No detector reads env vars, touches the registry, or mutates its
+inputs — the watchdog owns wiring, cadence, and dedup; tests pin the
+math on hand-computed fixtures (fixtures.py).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+Sample = Tuple[Any, float]
+
+# Consistent with scipy's convention: sigma ~= 1.4826 * MAD for a
+# normal distribution.
+MAD_SIGMA = 1.4826
+
+SIGNAL_STEP_TIME = "step_time_regression"
+SIGNAL_STRAGGLER = "straggler_drift"
+SIGNAL_MFU = "mfu_drop"
+SIGNAL_BETA = "comm_beta_drift"
+SIGNAL_SLO_BURN = "slo_burn_rate"
+
+SIGNALS = (
+    SIGNAL_STEP_TIME,
+    SIGNAL_STRAGGLER,
+    SIGNAL_MFU,
+    SIGNAL_BETA,
+    SIGNAL_SLO_BURN,
+)
+
+
+def _median(values: Sequence[float]) -> float:
+    vals = sorted(values)
+    n = len(vals)
+    if not n:
+        return 0.0
+    mid = n // 2
+    if n % 2:
+        return float(vals[mid])
+    return (vals[mid - 1] + vals[mid]) / 2.0
+
+
+def _steps(samples: Sequence[Sample]) -> Tuple[int, int]:
+    first = samples[0][0]
+    last = samples[-1][0]
+    return (int(first) if first is not None else 0,
+            int(last) if last is not None else 0)
+
+
+def _alert(signal: str, severity: str, evidence: Dict[str, Any],
+           samples: Sequence[Sample]) -> Dict[str, Any]:
+    start, end = _steps(samples)
+    return {
+        "signal": signal,
+        "severity": severity,
+        "evidence": evidence,
+        "window": {"start_step": start, "end_step": end,
+                   "samples": len(samples)},
+    }
+
+
+def ewma_mad_regression(
+    samples: Sequence[Sample],
+    *,
+    alpha: float = 0.5,
+    k: float = 5.0,
+    warmup: int = 16,
+    confirm: int = 3,
+) -> Optional[Dict[str, Any]]:
+    """EWMA step-time regression against a median+MAD baseline.
+
+    The first ``warmup`` samples establish ``median`` and ``MAD``;
+    the threshold is ``median + k * 1.4826 * MAD`` (with a ~5%-of-
+    median floor on sigma when the baseline is perfectly flat). An
+    EWMA (seeded at the baseline median) must sit above the threshold
+    for ``confirm`` consecutive samples to fire; severity escalates
+    to critical when the EWMA also clears ``median + 2k * sigma``.
+    """
+    if len(samples) < warmup + confirm:
+        return None
+    baseline = [v for _, v in samples[:warmup]]
+    med = _median(baseline)
+    mad = _median([abs(v - med) for v in baseline])
+    sigma = MAD_SIGMA * mad
+    if sigma <= 0:
+        sigma = 0.05 * abs(med) or 1e-9
+    threshold = med + k * sigma
+    critical_at = med + 2.0 * k * sigma
+
+    ewma = med
+    streak = 0
+    for idx in range(warmup, len(samples)):
+        value = samples[idx][1]
+        ewma = alpha * value + (1.0 - alpha) * ewma
+        if ewma > threshold:
+            streak += 1
+        else:
+            streak = 0
+        if streak >= confirm:
+            severity = "critical" if ewma > critical_at else "warning"
+            step = samples[idx][0]
+            return _alert(
+                SIGNAL_STEP_TIME,
+                severity,
+                {
+                    "baseline_median": med,
+                    "baseline_mad": mad,
+                    "threshold": threshold,
+                    "ewma": ewma,
+                    "fired_step": int(step) if step is not None else idx,
+                    "confirm": confirm,
+                },
+                samples,
+            )
+    return None
+
+
+def straggler_drift(
+    per_rank: Dict[str, Sequence[Sample]],
+    *,
+    skew: float = 1.3,
+    min_samples: int = 8,
+    window: int = 64,
+) -> Optional[Dict[str, Any]]:
+    """Per-rank cadence skew vs the world median.
+
+    For each rank, the mean step time over the trailing ``window``
+    samples is compared to the median of those per-rank means; a rank
+    whose ratio exceeds ``skew`` is a straggler. Critical when the
+    ratio exceeds ``1 + 2 * (skew - 1)``.
+    """
+    means: Dict[str, float] = {}
+    for rank, samples in per_rank.items():
+        tail = list(samples)[-window:]
+        if len(tail) < min_samples:
+            continue
+        means[rank] = sum(v for _, v in tail) / len(tail)
+    if len(means) < 2:
+        return None
+    world_median = _median(list(means.values()))
+    if world_median <= 0:
+        return None
+    critical_skew = 1.0 + 2.0 * (skew - 1.0)
+    worst_rank = None
+    worst_ratio = 0.0
+    for rank, mean in means.items():
+        ratio = mean / world_median
+        if ratio > worst_ratio:
+            worst_rank, worst_ratio = rank, ratio
+    if worst_rank is None or worst_ratio <= skew:
+        return None
+    severity = "critical" if worst_ratio >= critical_skew else "warning"
+    tail = list(per_rank[worst_rank])[-window:]
+    return _alert(
+        SIGNAL_STRAGGLER,
+        severity,
+        {
+            "rank": worst_rank,
+            "ratio": worst_ratio,
+            "rank_mean": means[worst_rank],
+            "world_median": world_median,
+            "skew_threshold": skew,
+            "ranks": len(means),
+        },
+        tail,
+    )
+
+
+def straggler_from_verdicts(
+    verdicts: Dict[str, Dict[str, Any]],
+    *,
+    skew: float = 1.3,
+) -> Optional[Dict[str, Any]]:
+    """Straggler alert from a trace-merge per-rank verdict block.
+
+    ``verdicts`` is the ``{"ranks": {rank: {"verdict", "skew", ...}}}``
+    machine block emitted by ``timeline.merge.straggler_report``;
+    this lifts a ``straggler`` verdict into the same alert shape as
+    :func:`straggler_drift` so offline traces and the live watchdog
+    share one consumer.
+    """
+    ranks = verdicts.get("ranks") if isinstance(verdicts, dict) else None
+    if not isinstance(ranks, dict):
+        return None
+    worst_rank = None
+    worst_ratio = 0.0
+    for rank, row in ranks.items():
+        if not isinstance(row, dict) or row.get("verdict") != "straggler":
+            continue
+        ratio = float(row.get("skew", 0.0))
+        if ratio > worst_ratio:
+            worst_rank, worst_ratio = str(rank), ratio
+    if worst_rank is None:
+        return None
+    critical_skew = 1.0 + 2.0 * (skew - 1.0)
+    severity = "critical" if worst_ratio >= critical_skew else "warning"
+    return {
+        "signal": SIGNAL_STRAGGLER,
+        "severity": severity,
+        "evidence": {
+            "rank": worst_rank,
+            "ratio": worst_ratio,
+            "skew_threshold": skew,
+            "source": "trace_verdicts",
+        },
+        "window": {"start_step": 0, "end_step": 0, "samples": 0},
+    }
+
+
+def mfu_drop(
+    samples: Sequence[Sample],
+    *,
+    drop_pct: float = 20.0,
+    min_samples: int = 8,
+) -> Optional[Dict[str, Any]]:
+    """MFU drop: trailing-quarter median vs first-half median.
+
+    Fires when the recent median sits more than ``drop_pct`` percent
+    below the baseline median; critical past ``2 * drop_pct``.
+    """
+    if len(samples) < min_samples:
+        return None
+    values = [v for _, v in samples]
+    baseline = _median(values[: len(values) // 2])
+    recent = _median(values[-max(1, len(values) // 4):])
+    if baseline <= 0:
+        return None
+    drop = 100.0 * (baseline - recent) / baseline
+    if drop <= drop_pct:
+        return None
+    severity = "critical" if drop > 2.0 * drop_pct else "warning"
+    return _alert(
+        SIGNAL_MFU,
+        severity,
+        {
+            "baseline_mfu": baseline,
+            "recent_mfu": recent,
+            "drop_pct": drop,
+            "threshold_pct": drop_pct,
+        },
+        samples,
+    )
+
+
+def comm_beta_drift(
+    samples: Sequence[Sample],
+    predicted_us_per_mib: float,
+    *,
+    drift: float = 2.0,
+    min_samples: int = 8,
+) -> Optional[Dict[str, Any]]:
+    """Measured dispatch density vs the calibrated alpha-beta model.
+
+    ``samples`` carry measured collective dispatch cost in us/MiB;
+    fires when the measured median exceeds ``drift`` times the model
+    prediction (critical past ``2 * drift``).
+    """
+    if len(samples) < min_samples or predicted_us_per_mib <= 0:
+        return None
+    measured = _median([v for _, v in samples])
+    ratio = measured / predicted_us_per_mib
+    if ratio <= drift:
+        return None
+    severity = "critical" if ratio > 2.0 * drift else "warning"
+    return _alert(
+        SIGNAL_BETA,
+        severity,
+        {
+            "measured_us_per_mib": measured,
+            "predicted_us_per_mib": predicted_us_per_mib,
+            "ratio": ratio,
+            "drift_threshold": drift,
+        },
+        samples,
+    )
+
+
+def slo_burn_rate(
+    samples: Sequence[Sample],
+    slo_ms: float,
+    *,
+    budget: float = 0.01,
+    burn_threshold: float = 2.0,
+    min_samples: int = 16,
+) -> Optional[Dict[str, Any]]:
+    """Serving SLO burn rate over the observed window.
+
+    Burn rate is ``breach_fraction / budget`` where the budget is the
+    allowed fraction of requests above ``slo_ms``. Fires past
+    ``burn_threshold``; critical past ``2 * burn_threshold``.
+    """
+    if len(samples) < min_samples or slo_ms <= 0 or budget <= 0:
+        return None
+    values = [v for _, v in samples]
+    breaches = sum(1 for v in values if v > slo_ms)
+    fraction = breaches / len(values)
+    burn = fraction / budget
+    if burn <= burn_threshold:
+        return None
+    severity = "critical" if burn > 2.0 * burn_threshold else "warning"
+    return _alert(
+        SIGNAL_SLO_BURN,
+        severity,
+        {
+            "slo_ms": slo_ms,
+            "breaches": breaches,
+            "breach_fraction": fraction,
+            "budget": budget,
+            "burn_rate": burn,
+        },
+        samples,
+    )

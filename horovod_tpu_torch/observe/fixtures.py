@@ -1,0 +1,372 @@
+"""Hand-computed detector fixtures: the port of
+``horovod_tpu/observe/fixtures.py``, the same traces and pins.
+
+``watch_fixture()`` builds deterministic traces for every detector;
+``WATCH_EXPECTED`` pins the exact values the detectors must produce
+on them (thresholds, fire steps, severities), derived by hand:
+
+* regression: 40 baseline samples alternating 0.100/0.102 s
+  (median 0.101, MAD 0.001, sigma 0.0014826) give threshold
+  0.101 + 5 * 0.0014826 = 0.1084130 and critical bar 0.115826;
+  the 0.120 s regression starting at step 41 drives the EWMA
+  (alpha 0.5, seeded at 0.101) through 0.1105, 0.11525, 0.117625 —
+  the third consecutive breach fires at step 43, critical because
+  0.117625 > 0.115826.
+* straggler: ranks 0-3 at 0.100 s except rank 1 at 0.140 s — world
+  median 0.100, ratio 1.4 > skew 1.3 but < critical bar 1.6.
+* mfu: 8 x 0.40 then 8 x 0.30 — baseline median 0.40, trailing-
+  quarter median 0.30, drop 25% > 20% but < 40%.
+* beta: measured 120 us/MiB vs predicted 50 — ratio 2.4 > 2 but < 4.
+* burn: 3 of 50 samples above the 250 ms SLO — breach fraction 0.06
+  over budget 0.01 = burn 6.0 > 2 * threshold(2.0), critical.
+* quiet: flat traces on which no detector may fire.
+
+``evaluate_fixture()`` runs the detectors on these traces; the tests
+and ``python -m horovod_tpu_torch.observe.watch --check`` both compare
+its output to WATCH_EXPECTED.
+
+``events_fixture()`` is the flight-recorder analog: a hand-written
+incident chain (lease expiry on rank 1 → removal → abort → shrink
+epoch → a survivor's observe → resume) plus one unrelated checkpoint
+event that must stay OUT of the chain.  ``EVENTS_EXPECTED`` pins what
+``extract_chain`` + ``chain_summary`` (observe/events.py) must say
+about it: 6 chained events rooted at ``launcher-1-0``, failed rank 1,
+3 steps lost, 1.5 s from expiry to resume.  The tests compare against
+it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+from . import detectors
+
+Sample = Tuple[int, float]
+
+REGRESSION_PARAMS = {"alpha": 0.5, "k": 5.0, "warmup": 40, "confirm": 3}
+STRAGGLER_PARAMS = {"skew": 1.3, "min_samples": 8, "window": 64}
+MFU_PARAMS = {"drop_pct": 20.0, "min_samples": 8}
+BETA_PARAMS = {"drift": 2.0, "min_samples": 8}
+BETA_PREDICTED_US_PER_MIB = 50.0
+BURN_PARAMS = {"budget": 0.01, "burn_threshold": 2.0, "min_samples": 16}
+BURN_SLO_MS = 250.0
+
+WATCH_EXPECTED: Dict[str, Any] = {
+    "regression": {
+        "severity": "critical",
+        "baseline_median": 0.101,
+        "baseline_mad": 0.001,
+        "threshold": 0.1084130,
+        "ewma": 0.117625,
+        "fired_step": 43,
+    },
+    "straggler": {
+        "severity": "warning",
+        "rank": "1",
+        "ratio": 1.4,
+        "world_median": 0.100,
+    },
+    "mfu": {
+        "severity": "warning",
+        "baseline_mfu": 0.40,
+        "recent_mfu": 0.30,
+        "drop_pct": 25.0,
+    },
+    "beta": {
+        "severity": "warning",
+        "measured_us_per_mib": 120.0,
+        "ratio": 2.4,
+    },
+    "burn": {
+        "severity": "critical",
+        "breaches": 3,
+        "breach_fraction": 0.06,
+        "burn_rate": 6.0,
+    },
+    "quiet": None,
+}
+
+
+def _baseline(n: int = 40, lo: float = 0.100, hi: float = 0.102,
+              start_step: int = 1) -> List[Sample]:
+    return [(start_step + i, lo if i % 2 == 0 else hi) for i in range(n)]
+
+
+def watch_fixture() -> Dict[str, Any]:
+    regression = _baseline(40)
+    regression += [(41 + i, 0.120) for i in range(8)]
+
+    straggler = {
+        rank: [(i + 1, 0.140 if rank == "1" else 0.100) for i in range(16)]
+        for rank in ("0", "1", "2", "3")
+    }
+
+    mfu = [(i + 1, 0.40) for i in range(8)]
+    mfu += [(9 + i, 0.30) for i in range(8)]
+
+    beta = [(i + 1, 120.0) for i in range(16)]
+
+    burn = [(i + 1, 200.0) for i in range(47)]
+    burn += [(48 + i, 300.0) for i in range(3)]
+
+    quiet = {
+        "regression": _baseline(48),
+        "straggler": {
+            rank: [(i + 1, 0.100) for i in range(16)]
+            for rank in ("0", "1", "2", "3")
+        },
+        "mfu": [(i + 1, 0.40) for i in range(16)],
+        "beta": [(i + 1, 60.0) for i in range(16)],
+        "burn": [(i + 1, 200.0) for i in range(50)],
+    }
+
+    return {
+        "regression": regression,
+        "straggler": straggler,
+        "mfu": mfu,
+        "beta": beta,
+        "burn": burn,
+        "quiet": quiet,
+    }
+
+
+def evaluate_fixture(fixture: Dict[str, Any] = None) -> Dict[str, Any]:
+    """Run every detector on the fixture traces.
+
+    Returns ``{"regression": alert, ..., "quiet": [alerts]}`` where
+    the quiet entry collects any (unexpected) alerts from the flat
+    traces.
+    """
+    fx = fixture if fixture is not None else watch_fixture()
+    out: Dict[str, Any] = {
+        "regression": detectors.ewma_mad_regression(
+            fx["regression"], **REGRESSION_PARAMS),
+        "straggler": detectors.straggler_drift(
+            fx["straggler"], **STRAGGLER_PARAMS),
+        "mfu": detectors.mfu_drop(fx["mfu"], **MFU_PARAMS),
+        "beta": detectors.comm_beta_drift(
+            fx["beta"], BETA_PREDICTED_US_PER_MIB, **BETA_PARAMS),
+        "burn": detectors.slo_burn_rate(
+            fx["burn"], BURN_SLO_MS, **BURN_PARAMS),
+    }
+    quiet = fx["quiet"]
+    quiet_alerts = [
+        a for a in (
+            detectors.ewma_mad_regression(
+                quiet["regression"], **REGRESSION_PARAMS),
+            detectors.straggler_drift(
+                quiet["straggler"], **STRAGGLER_PARAMS),
+            detectors.mfu_drop(quiet["mfu"], **MFU_PARAMS),
+            detectors.comm_beta_drift(
+                quiet["beta"], BETA_PREDICTED_US_PER_MIB, **BETA_PARAMS),
+            detectors.slo_burn_rate(quiet["burn"], BURN_SLO_MS,
+                                    **BURN_PARAMS),
+        ) if a is not None
+    ]
+    out["quiet"] = quiet_alerts
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flight-recorder fixture
+# ---------------------------------------------------------------------------
+EVENTS_EXPECTED: Dict[str, Any] = {
+    "correlation_id": "launcher-1-0",
+    "events": 6,
+    "kinds": ["lease.expired", "epoch.remove", "abort.publish",
+              "epoch.commit", "abort.observe", "restart.resume"],
+    "failed_rank": 1,
+    "steps_lost": 3,
+    "duration_seconds": 1.5,
+    "severities": ["critical", "info", "warning"],
+}
+
+
+def events_fixture() -> List[Dict[str, Any]]:
+    """A deterministic incident: rank 1's lease expires at t=100.0; the
+    driver removes it, publishes the abort, and commits the shrink
+    epoch; a survivor (rank 2, its own process) observes the abort via
+    the flag-carried event id and resumes at t=101.5 having replayed 3
+    steps.  The checkpoint.save at t=100.4 is a different correlation
+    and must not appear in the chain."""
+    return [
+        {"id": "launcher-1-0", "ts": 100.0, "host": "launcher", "rank": 1,
+         "kind": "lease.expired", "severity": "critical",
+         "correlation_id": "launcher-1-0", "cause_id": None,
+         "payload": {"rank": 1, "worker": "1", "age_seconds": 6.2}},
+        {"id": "launcher-1-1", "ts": 100.1, "host": "launcher", "rank": None,
+         "kind": "epoch.remove", "severity": "warning",
+         "correlation_id": "launcher-1-0", "cause_id": "launcher-1-0",
+         "payload": {"worker": "1", "rank": 1,
+                     "reason": "lease expired", "drain": False}},
+        {"id": "launcher-1-2", "ts": 100.2, "host": "launcher", "rank": 1,
+         "kind": "abort.publish", "severity": "critical",
+         "correlation_id": "launcher-1-0", "cause_id": "launcher-1-1",
+         "payload": {"reason": "worker 1 removed: lease expired",
+                     "source": "elastic_driver", "rank": 1, "epoch": 1}},
+        {"id": "launcher-1-3", "ts": 100.3, "host": "launcher", "rank": None,
+         "kind": "epoch.commit", "severity": "warning",
+         "correlation_id": "launcher-1-0", "cause_id": "launcher-1-1",
+         "payload": {"epoch": 2, "size": 3, "removed": ["1"],
+                     "admitted": [], "reason": "worker 1 removed"}},
+        {"id": "launcher-1-4", "ts": 100.4, "host": "launcher", "rank": 0,
+         "kind": "checkpoint.save", "severity": "info",
+         "correlation_id": "launcher-1-4", "cause_id": None,
+         "payload": {"path": "/ckpt/step_120", "step": 120}},
+        {"id": "worker2-9-0", "ts": 100.5, "host": "worker2", "rank": 2,
+         "kind": "abort.observe", "severity": "warning",
+         "correlation_id": "launcher-1-0", "cause_id": "launcher-1-2",
+         "payload": {"reason": "worker 1 removed: lease expired",
+                     "source": "elastic_driver", "failed_rank": 1}},
+        {"id": "worker2-9-1", "ts": 101.5, "host": "worker2", "rank": 2,
+         "kind": "restart.resume", "severity": "info",
+         "correlation_id": "launcher-1-0", "cause_id": "launcher-1-3",
+         "payload": {"epoch": 2, "old_size": 4, "new_size": 3,
+                     "step": 120, "steps_lost": 3}},
+    ]
+
+
+def evaluate_events_fixture(
+        events: List[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Chain extraction + summary over the fixture, starting from the
+    LAST chain event (the resume) so the walk crosses every cause
+    link.  Compared against ``EVENTS_EXPECTED`` by the tests."""
+    from . import events as events_mod
+
+    evs = events if events is not None else events_fixture()
+    chain = events_mod.extract_chain(evs, "worker2-9-1")
+    summary = events_mod.chain_summary(chain)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# chaos invariant fixture
+# ---------------------------------------------------------------------------
+
+#: what the invariant monitors (observe/invariants.py) must say about
+#: ``chaos_fixture()``: the recovery chain itself is clean, but the
+#: stream deliberately violates TWO promises — rank 0's resume reports
+#: 17 steps lost (> the snapshot interval of 5, with the full causal
+#: chain from the lease expiry as evidence) and request ``req-7``
+#: completes twice across a drain.  Everything else must stay green.
+CHAOS_EXPECTED: Dict[str, Any] = {
+    "violated": ["serving-exactly-once", "steps-lost-bound"],
+    "green": ["abort-propagation", "epoch-monotonic",
+              "restore-source-agreement"],
+    "steps_lost_chain_kinds": ["lease.expired", "epoch.remove",
+                               "abort.publish", "epoch.commit",
+                               "abort.observe", "restore.source",
+                               "restart.resume", "restart.resume"],
+    "steps_lost": 17,
+    "duplicate_request": "req-7",
+    "completions": 2,
+}
+
+#: parameters ``evaluate_chaos_fixture`` checks the stream against
+CHAOS_PARAMS = {"hb_interval": 0.5, "snapshot_every": 5}
+
+
+def chaos_fixture() -> List[Dict[str, Any]]:
+    """A hand-written incident stream: lease expiry on rank 2 →
+    removal → abort → shrink commit → survivor observes (0.3 s later,
+    inside the 2 x 0.5 s bound) → restores from gen 4 → resumes
+    reporting 17 steps lost (the planted steps-lost violation), plus a
+    ``serve.complete`` pair for the same request id (the planted
+    exactly-once violation) and a second, clean commit chain proving
+    epoch monotonicity."""
+    return [
+        {"id": "launcher-2-0", "ts": 200.0, "host": "launcher", "rank": 2,
+         "kind": "lease.expired", "severity": "critical",
+         "correlation_id": "launcher-2-0", "cause_id": None,
+         "payload": {"rank": 2, "worker": "2", "age_seconds": 2.1,
+                     "interval": 0.5}},
+        {"id": "launcher-2-1", "ts": 200.05, "host": "launcher", "rank": 2,
+         "kind": "epoch.remove", "severity": "warning",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-0",
+         "payload": {"worker": "2", "rank": 2, "drain": False,
+                     "reason": "rank 2 heartbeat lease expired"}},
+        {"id": "launcher-2-2", "ts": 200.1, "host": "launcher", "rank": 2,
+         "kind": "abort.publish", "severity": "critical",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-1",
+         "payload": {"reason": "rank 2 lease expired", "epoch": 3,
+                     "source": "elastic_driver"}},
+        {"id": "launcher-2-3", "ts": 200.15, "host": "launcher",
+         "rank": None, "kind": "epoch.commit", "severity": "warning",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-1",
+         "payload": {"epoch": 4, "size": 2, "removed": ["2"],
+                     "admitted": [], "reason": "rank 2 lease expired"}},
+        {"id": "worker0-4-0", "ts": 200.4, "host": "worker0", "rank": 0,
+         "kind": "abort.observe", "severity": "warning",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-2",
+         "payload": {"epoch": 3, "worker": "0",
+                     "reason": "rank 2 lease expired"}},
+        {"id": "worker0-4-1", "ts": 200.45, "host": "worker0", "rank": 0,
+         "kind": "restore.source", "severity": "info",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-3",
+         "payload": {"epoch": 4, "gen": 4, "step": 40, "worker": "0",
+                     "source": "peer"}},
+        # the planted violation: 17 steps lost >> snapshot_every 5
+        {"id": "worker0-4-2", "ts": 200.5, "host": "worker0", "rank": 0,
+         "kind": "restart.resume", "severity": "info",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-3",
+         "payload": {"epoch": 4, "steps_lost": 17, "worker": "0"}},
+        {"id": "worker1-5-0", "ts": 200.5, "host": "worker1", "rank": 1,
+         "kind": "restart.resume", "severity": "info",
+         "correlation_id": "launcher-2-0", "cause_id": "launcher-2-3",
+         "payload": {"epoch": 4, "steps_lost": 3, "worker": "1"}},
+        # a later, clean drain commit: epoch keeps moving forward
+        {"id": "launcher-2-4", "ts": 201.0, "host": "launcher",
+         "rank": None, "kind": "epoch.commit", "severity": "warning",
+         "correlation_id": "launcher-2-4", "cause_id": None,
+         "payload": {"epoch": 5, "size": 1, "removed": ["1"],
+                     "admitted": [],
+                     "reason": "autoscale shrink (drained: in-flight "
+                               "work completed)"}},
+        # the planted exactly-once violation: req-7 completes twice
+        {"id": "serve-6-0", "ts": 200.8, "host": "serve0", "rank": 0,
+         "kind": "serve.complete", "severity": "info",
+         "correlation_id": "serve-6-0", "cause_id": None,
+         "payload": {"request_id": "req-7"}},
+        {"id": "serve-6-1", "ts": 201.1, "host": "serve1", "rank": 1,
+         "kind": "serve.complete", "severity": "info",
+         "correlation_id": "serve-6-1", "cause_id": None,
+         "payload": {"request_id": "req-7"}},
+        {"id": "serve-6-2", "ts": 201.2, "host": "serve1", "rank": 1,
+         "kind": "serve.complete", "severity": "info",
+         "correlation_id": "serve-6-2", "cause_id": None,
+         "payload": {"request_id": "req-8"}},
+    ]
+
+
+def evaluate_chaos_fixture(
+        events: List[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Run the full invariant catalogue over the fixture stream and
+    distil the verdict shape ``CHAOS_EXPECTED`` pins: which invariants
+    fired, which stayed green, and the causal chain behind the
+    steps-lost violation."""
+    from . import invariants as invariants_mod
+
+    evs = events if events is not None else chaos_fixture()
+    violations = invariants_mod.check_all(
+        evs, hb_interval=CHAOS_PARAMS["hb_interval"],
+        snapshot_every=CHAOS_PARAMS["snapshot_every"])
+    violated = sorted({v.invariant for v in violations})
+    steps = next((v for v in violations
+                  if v.invariant == "steps-lost-bound"), None)
+    dup = next((v for v in violations
+                if v.invariant == "serving-exactly-once"), None)
+    return {
+        "violated": violated,
+        "green": sorted(set(invariants_mod.INVARIANTS)
+                        - set(violated) - {"no-hanging-rank"}),
+        "steps_lost_chain_kinds": [e.get("kind")
+                                   for e in (steps.chain if steps
+                                             else [])],
+        "steps_lost": (steps.evidence.get("steps_lost")
+                       if steps else None),
+        "duplicate_request": (dup.evidence.get("request_id")
+                              if dup else None),
+        "completions": (dup.evidence.get("completions")
+                        if dup else None),
+        "violations": violations,
+    }

@@ -1,0 +1,252 @@
+"""``python -m horovod_tpu_torch.observe.watch`` — watch a running job's
+telemetry history and alert log: the port of ``scripts/hvd_watch.py``.
+
+The operator console for the observe plane: reads
+the launcher's signed ``GET /timeseries`` (the always-on ring-buffer
+history every rank flushes) and ``GET /alerts`` (the watchdog's
+detector verdicts, with any auto-armed trace window and profile
+attribution attached) and renders them as text or JSON.  ``--follow``
+tails the alert log; ``--check`` self-tests every detector on the
+built-in hand-computed fixture (the tier-1 bar).
+
+Run::
+
+    python -m horovod_tpu_torch.observe.watch HOST:PORT [--secret HEX] \
+        [--json] [--follow [--interval S]]
+    python -m horovod_tpu_torch.observe.watch --check
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+
+from .fixtures import WATCH_EXPECTED, evaluate_fixture
+
+
+def _approx(a, b, tol=1e-4) -> bool:
+    if a is None or b is None:
+        return a is b
+    return math.isclose(float(a), float(b), rel_tol=0, abs_tol=tol)
+
+
+def run_check() -> int:
+    """Self-test: every detector must reproduce the fixture's
+    hand-computed verdicts exactly — the regression fires at the pinned
+    step with the pinned threshold/EWMA, the straggler/MFU/beta/burn
+    alerts carry the pinned evidence, and the quiet traces fire
+    nothing."""
+    errors = []
+    got = evaluate_fixture()
+    exp = WATCH_EXPECTED
+
+    reg = got["regression"]
+    if reg is None:
+        errors.append("regression: no alert fired")
+    else:
+        e = exp["regression"]
+        if reg["severity"] != e["severity"]:
+            errors.append(f"regression severity {reg['severity']} != "
+                          f"{e['severity']}")
+        ev = reg["evidence"]
+        for field in ("baseline_median", "baseline_mad", "threshold",
+                      "ewma"):
+            if not _approx(ev[field], e[field], 1e-6):
+                errors.append(f"regression {field} {ev[field]} != "
+                              f"{e[field]}")
+        if ev["fired_step"] != e["fired_step"]:
+            errors.append(f"regression fired_step {ev['fired_step']} != "
+                          f"{e['fired_step']}")
+
+    st = got["straggler"]
+    if st is None:
+        errors.append("straggler: no alert fired")
+    else:
+        e = exp["straggler"]
+        ev = st["evidence"]
+        if st["severity"] != e["severity"] or ev["rank"] != e["rank"]:
+            errors.append(f"straggler {st['severity']}/{ev['rank']} != "
+                          f"{e['severity']}/{e['rank']}")
+        if not _approx(ev["ratio"], e["ratio"], 1e-6) or \
+                not _approx(ev["world_median"], e["world_median"], 1e-9):
+            errors.append(f"straggler ratio {ev['ratio']} != {e['ratio']}")
+
+    mf = got["mfu"]
+    if mf is None:
+        errors.append("mfu: no alert fired")
+    else:
+        e = exp["mfu"]
+        ev = mf["evidence"]
+        if mf["severity"] != e["severity"] or \
+                not _approx(ev["drop_pct"], e["drop_pct"], 1e-6) or \
+                not _approx(ev["baseline_mfu"], e["baseline_mfu"]) or \
+                not _approx(ev["recent_mfu"], e["recent_mfu"]):
+            errors.append(f"mfu alert {mf} != {e}")
+
+    bt = got["beta"]
+    if bt is None:
+        errors.append("beta: no alert fired")
+    else:
+        e = exp["beta"]
+        ev = bt["evidence"]
+        if bt["severity"] != e["severity"] or \
+                not _approx(ev["ratio"], e["ratio"], 1e-6) or \
+                not _approx(ev["measured_us_per_mib"],
+                            e["measured_us_per_mib"]):
+            errors.append(f"beta alert {bt} != {e}")
+
+    bn = got["burn"]
+    if bn is None:
+        errors.append("burn: no alert fired")
+    else:
+        e = exp["burn"]
+        ev = bn["evidence"]
+        if bn["severity"] != e["severity"] or \
+                ev["breaches"] != e["breaches"] or \
+                not _approx(ev["breach_fraction"], e["breach_fraction"],
+                            1e-9) or \
+                not _approx(ev["burn_rate"], e["burn_rate"], 1e-9):
+            errors.append(f"burn alert {bn} != {e}")
+
+    if got["quiet"]:
+        errors.append(f"quiet traces fired {len(got['quiet'])} alert(s): "
+                      f"{got['quiet']}")
+
+    if errors:
+        print("observe.watch --check FAILED:", file=sys.stderr)
+        for e in errors:
+            print(f"  {e}", file=sys.stderr)
+        return 1
+    print("observe.watch --check OK: regression fires at step "
+          f"{exp['regression']['fired_step']} (threshold "
+          f"{exp['regression']['threshold']:.7f}, "
+          f"{exp['regression']['severity']}), straggler rank "
+          f"{exp['straggler']['rank']} at {exp['straggler']['ratio']:.1f}x, "
+          f"mfu drop {exp['mfu']['drop_pct']:.0f}%, beta "
+          f"{exp['beta']['ratio']:.1f}x, burn "
+          f"{exp['burn']['burn_rate']:.1f}x; quiet traces silent")
+    return 0
+
+
+def _fetch(addr: str, port: int, secret):
+    from ..run.http_client import get_alerts, get_timeseries
+
+    return (get_timeseries(addr, port, secret=secret),
+            get_alerts(addr, port, secret=secret))
+
+
+def _print_alert(rec: dict) -> None:
+    ev = rec.get("evidence") or {}
+    win = rec.get("window") or {}
+    extras = []
+    if ev.get("rank") is not None:
+        extras.append(f"rank {ev['rank']}")
+    armed = rec.get("armed")
+    if armed:
+        extras.append(f"armed [{armed['start_step']}, "
+                      f"{armed['end_step']}]")
+    attr = rec.get("attribution")
+    if attr and attr.get("top_segment"):
+        extras.append(f"top segment {attr['top_segment']} "
+                      f"(slowest rank {attr.get('slowest_rank')})")
+    if rec.get("evicted"):
+        extras.append(f"evicted {rec['evicted']}")
+    tail = f"  [{', '.join(extras)}]" if extras else ""
+    print(f"  #{rec.get('id')} {rec.get('severity', '?'):<8} "
+          f"{rec.get('signal', '?'):<22} steps "
+          f"[{win.get('start_step')}, {win.get('end_step')}]{tail}")
+
+
+def _print_text(ts: dict, alerts: dict) -> None:
+    summary = ts.get("summary") or {}
+    print(f"timeseries: {len(ts.get('ranks') or {})} rank(s), "
+          f"{len(summary)} series")
+    for name, s in sorted(summary.items()):
+        ranks = s.get("ranks") or {}
+        lasts = [r.get("last") for r in ranks.values()
+                 if r.get("last") is not None]
+        last_s = f"{min(lasts):.4g}..{max(lasts):.4g}" if lasts else "n/a"
+        print(f"  {name:<22} ranks={len(ranks):<4} last={last_s}")
+    records = alerts.get("alerts") or []
+    counts = alerts.get("counts") or {}
+    print(f"alerts: {len(records)} "
+          f"({', '.join(f'{k}={v}' for k, v in sorted(counts.items()))})"
+          if records else "alerts: none")
+    for rec in records:
+        if isinstance(rec, dict):
+            _print_alert(rec)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="telemetry history + watchdog alert console "
+                    "(GET /timeseries + GET /alerts)")
+    p.add_argument("endpoint", nargs="?", metavar="HOST:PORT",
+                   help="the launcher's rendezvous server")
+    p.add_argument("--secret", default=None,
+                   help="hex HMAC secret (HVD_METRICS_SECRET)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable dump on stdout")
+    p.add_argument("--follow", action="store_true",
+                   help="keep polling, printing alerts as they appear")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="--follow poll interval seconds")
+    p.add_argument("--check", action="store_true",
+                   help="self-test every detector on the built-in "
+                        "hand-computed fixture")
+    args = p.parse_args(argv)
+
+    if args.check:
+        sys.exit(run_check())
+    if not args.endpoint:
+        p.error("HOST:PORT is required (or use --check)")
+    addr, _, port_s = args.endpoint.partition(":")
+    if not addr or not port_s.isdigit():
+        p.error(f"endpoint wants HOST:PORT, got {args.endpoint!r}")
+    port = int(port_s)
+    secret = bytes.fromhex(args.secret) if args.secret else None
+
+    if args.follow:
+        seen = set()
+        incarnation = None
+        while True:
+            try:
+                _, alerts = _fetch(addr, port, secret)
+            except Exception as e:  # noqa: BLE001 — keep tailing
+                print(f"poll failed: {e}", file=sys.stderr)
+                time.sleep(args.interval)
+                continue
+            # a new server incarnation (launcher restart, or a warm
+            # standby taking over) renumbers alert ids from 0 — the old
+            # `seen` set would either suppress the new alerts or
+            # re-print the dead server's, so mark the boundary and
+            # start over
+            sid = alerts.get("server_id")
+            if sid is not None and sid != incarnation:
+                if incarnation is not None:
+                    print("--- server restarted ---")
+                    seen = set()
+                incarnation = sid
+            for rec in reversed(alerts.get("alerts") or []):
+                if isinstance(rec, dict) and rec.get("id") not in seen:
+                    seen.add(rec.get("id"))
+                    if args.json:
+                        print(json.dumps(rec))
+                    else:
+                        _print_alert(rec)
+            sys.stdout.flush()
+            time.sleep(args.interval)
+
+    ts, alerts = _fetch(addr, port, secret)
+    if args.json:
+        print(json.dumps({"timeseries": ts, "alerts": alerts}, indent=2))
+    else:
+        _print_text(ts, alerts)
+    return {"timeseries": ts, "alerts": alerts}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,390 @@
+"""The launcher-side watchdog thread: detect → alert → arm → attribute —
+the port of ``horovod_tpu/observe/watchdog.py``.
+
+Runs next to the rendezvous server (run/run.py starts one per job by
+default, ``HVD_WATCH=0`` disables).  Every ``HVD_WATCH_INTERVAL_SECONDS`` tick:
+
+1. reads the flushed telemetry history straight off the in-process
+   server handle (``server.timeseries_report()`` — no HTTP round
+   trip) and runs the pure detectors (detectors.py) over it:
+   EWMA/MAD step-time regression and comm-β drift per rank, straggler
+   cadence skew across ranks, MFU drop, serving SLO burn rate;
+2. publishes each fired alert to the ``alerts`` KV scope (key = a
+   monotonically increasing id, so ``GET /alerts`` renders newest
+   first) and bumps ``hvd_alerts_total{signal,severity}``; a
+   per-signal cooldown (``HVD_WATCH_ARM_COOLDOWN_SECONDS``) stops a
+   persisting condition from flooding the log;
+3. a confirmed step-time or straggler alert **auto-arms** a
+   trace+profile window: the arm record is broadcast through
+   ``observe/arm`` (autoarm.py) with a start step far enough ahead
+   (``HVD_WATCH_ARM_MARGIN_STEPS`` past the newest cadence step) that
+   every rank applies it before the window opens;
+4. once the armed window's anatomies land in the ``profile`` scope,
+   the alert record is re-published with an ``attribution`` block —
+   top segment, its slowest rank, mean MFU, worst host gap — so the
+   alert names the block or rank instead of a bare number;
+5. a *critical* straggler alert optionally feeds the elastic driver's
+   removal path (``HVD_WATCH_EVICT=1`` + an attached driver).
+
+The watchdog never touches the step path: workers only pay the
+ring-buffer appends (metrics/timeseries.py).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+from ..utils import env as env_util
+from ..utils.logging import get_logger
+from . import autoarm, detectors
+
+log = get_logger(__name__)
+
+ALERTS_SCOPE = "alerts"
+
+#: signals whose confirmed alerts auto-arm a trace+profile window
+ARMING_SIGNALS = (detectors.SIGNAL_STEP_TIME, detectors.SIGNAL_STRAGGLER)
+
+
+def _samples(doc: Any, name: str) -> List[Any]:
+    """``[(step, value), ...]`` from one rank's pushed series doc."""
+    if not isinstance(doc, dict):
+        return []
+    entry = (doc.get("series") or {}).get(name)
+    if not isinstance(entry, dict):
+        return []
+    out = []
+    for s in entry.get("samples") or []:
+        if isinstance(s, (list, tuple)) and len(s) == 2:
+            out.append((s[0], float(s[1])))
+    return out
+
+
+class Watchdog(threading.Thread):
+    """One per job; ``start()`` after the rendezvous server is up,
+    ``stop()`` in the launcher's finally."""
+
+    def __init__(self, server: Any, driver: Any = None,
+                 interval: Optional[float] = None):
+        super().__init__(name="hvd-watchdog", daemon=True)
+        self._server = server
+        self._driver = driver
+        # not ``_stop``: that name is threading.Thread's own method, which
+        # join() and is_alive() call once the thread has ended
+        self._stop_event = threading.Event()
+        self.interval = interval if interval is not None else \
+            env_util.get_float(env_util.HVD_WATCH_INTERVAL_SECONDS,
+                               env_util.DEFAULT_WATCH_INTERVAL_SECONDS)
+        self.window = env_util.get_int(env_util.HVD_WATCH_WINDOW,
+                                       env_util.DEFAULT_WATCH_WINDOW)
+        self.alpha = env_util.get_float(env_util.HVD_WATCH_EWMA_ALPHA,
+                                        env_util.DEFAULT_WATCH_EWMA_ALPHA)
+        self.mad_k = env_util.get_float(env_util.HVD_WATCH_MAD_K,
+                                        env_util.DEFAULT_WATCH_MAD_K)
+        self.confirm = env_util.get_int(env_util.HVD_WATCH_CONFIRM,
+                                        env_util.DEFAULT_WATCH_CONFIRM)
+        self.skew = env_util.get_float(env_util.HVD_WATCH_STRAGGLER_SKEW,
+                                       env_util.DEFAULT_WATCH_STRAGGLER_SKEW)
+        self.mfu_drop_pct = env_util.get_float(
+            env_util.HVD_WATCH_MFU_DROP_PCT,
+            env_util.DEFAULT_WATCH_MFU_DROP_PCT)
+        self.beta_drift = env_util.get_float(env_util.HVD_WATCH_BETA_DRIFT,
+                                             env_util.DEFAULT_WATCH_BETA_DRIFT)
+        self.slo_ms = env_util.get_float(env_util.HVD_SERVE_SLO_MS,
+                                         env_util.DEFAULT_SERVE_SLO_MS)
+        self.slo_budget = env_util.get_float(
+            env_util.HVD_WATCH_SLO_BUDGET,
+            env_util.DEFAULT_WATCH_SLO_BUDGET)
+        self.burn_threshold = env_util.get_float(
+            env_util.HVD_WATCH_BURN_RATE, env_util.DEFAULT_WATCH_BURN_RATE)
+        self.arm_enabled = env_util.get_bool(env_util.HVD_WATCH_ARM, True)
+        self.arm_steps = env_util.get_int(env_util.HVD_WATCH_ARM_STEPS,
+                                          env_util.DEFAULT_WATCH_ARM_STEPS)
+        self.arm_margin = env_util.get_int(
+            env_util.HVD_WATCH_ARM_MARGIN_STEPS,
+            env_util.DEFAULT_WATCH_ARM_MARGIN_STEPS)
+        self.cooldown = env_util.get_float(
+            env_util.HVD_WATCH_ARM_COOLDOWN_SECONDS,
+            env_util.DEFAULT_WATCH_ARM_COOLDOWN_SECONDS)
+        self.evict = env_util.get_bool(env_util.HVD_WATCH_EVICT)
+        self._next_id = 0
+        # signal key -> mono time; none yet means no cooldown, even on a
+        # host up for less than the cooldown (the monotonic clock starts
+        # at boot, so a default of 0.0 silenced a fresh host)
+        self._last_emit: Dict[str, float] = {}
+        self._last_arm: Optional[float] = None
+        self._arm_seq = 0
+        self._pending_attribution: List[Dict[str, Any]] = []
+        self.alerts_emitted = 0
+        self.arms = 0
+        self.evictions = 0
+
+    # -- lifecycle -----------------------------------------------------------
+    def stop(self) -> None:
+        self._stop_event.set()
+
+    def attach_driver(self, driver: Any) -> None:
+        """The elastic supervisor re-creates its driver per restart
+        attempt; each new incarnation re-attaches here."""
+        self._driver = driver
+
+    def run(self) -> None:
+        while not self._stop_event.wait(self.interval):
+            try:
+                self.tick()
+            except Exception as e:  # noqa: BLE001 — the watchdog must outlive a bad tick
+                log.debug("watchdog tick failed: %s", e)
+
+    # -- one tick ------------------------------------------------------------
+    def tick(self) -> List[Dict[str, Any]]:
+        """Run every detector over the flushed history; returns the
+        alerts published this tick (the tests drive this directly)."""
+        report = self._server.timeseries_report()
+        ranks = report.get("ranks") or {}
+        fired: List[Any] = []            # (dedup key, alert record)
+
+        cadence: Dict[str, List[Any]] = {}
+        for rank, doc in ranks.items():
+            samples = _samples(doc, "step_seconds")
+            if samples:
+                cadence[rank] = samples
+
+        # per-rank step-time regression
+        for rank, samples in cadence.items():
+            alert = detectors.ewma_mad_regression(
+                samples[-self.window:], alpha=self.alpha, k=self.mad_k,
+                warmup=max(8, min(len(samples) - self.confirm,
+                                  self.window // 2)),
+                confirm=self.confirm)
+            if alert:
+                alert["evidence"]["rank"] = rank
+                fired.append((f"{alert['signal']}:{rank}", alert))
+
+        # cross-rank straggler drift
+        alert = detectors.straggler_drift(cadence, skew=self.skew,
+                                          window=self.window)
+        if alert:
+            fired.append((f"{alert['signal']}:{alert['evidence']['rank']}",
+                          alert))
+
+        # MFU drop + comm-beta drift + SLO burn, per reporting rank
+        for rank, doc in ranks.items():
+            mfu = _samples(doc, "mfu")
+            alert = detectors.mfu_drop(mfu[-self.window:],
+                                       drop_pct=self.mfu_drop_pct)
+            if alert:
+                alert["evidence"]["rank"] = rank
+                fired.append((f"{alert['signal']}:{rank}", alert))
+
+            beta = _samples(doc, "dispatch_us_per_mib")
+            if len(beta) >= 16:
+                # self-calibrated model point: the window's own early
+                # samples are the "healthy β" baseline (a launcher has
+                # no per-op α–β inputs)
+                baseline = sorted(v for _, v in beta[:8])
+                predicted = baseline[len(baseline) // 2]
+                alert = detectors.comm_beta_drift(
+                    beta[-self.window:], predicted,
+                    drift=self.beta_drift)
+                if alert:
+                    alert["evidence"]["rank"] = rank
+                    alert["evidence"]["predicted_source"] = "baseline"
+                    fired.append((f"{alert['signal']}:{rank}", alert))
+
+            p99 = _samples(doc, "serve_p99_ms")
+            alert = detectors.slo_burn_rate(
+                p99[-self.window:], self.slo_ms, budget=self.slo_budget,
+                burn_threshold=self.burn_threshold)
+            if alert:
+                alert["evidence"]["rank"] = rank
+                fired.append((f"{alert['signal']}:{rank}", alert))
+
+        published = []
+        now = time.monotonic()
+        for key, alert in fired:
+            last = self._last_emit.get(key)
+            if last is not None and now - last < self.cooldown:
+                continue
+            self._last_emit[key] = now
+            published.append(self._publish(alert, cadence))
+        self._enrich_pending()
+        return published
+
+    # -- publish / arm / evict ----------------------------------------------
+    def _publish(self, alert: Dict[str, Any],
+                 cadence: Dict[str, List[Any]]) -> Dict[str, Any]:
+        alert_id = self._next_id
+        self._next_id += 1
+        record = dict(alert)
+        record["id"] = str(alert_id)
+        record["ts"] = time.time()
+        try:
+            from .. import metrics
+
+            if metrics.on():
+                metrics.ALERTS_TOTAL.labels(record["signal"],
+                                            record["severity"]).inc()
+        except Exception as e:  # noqa: BLE001
+            log.debug("alert counter failed: %s", e)
+        # flight-recorder: the alert event roots a causal chain — the
+        # arm window and any eviction chain onto it (observe/events.py)
+        alert_eid = None
+        try:
+            from . import events as events_mod
+
+            alert_eid = events_mod.record_event(
+                "watchdog.alert",
+                severity=record.get("severity", "warning"),
+                payload={"signal": record["signal"],
+                         "alert_id": record["id"],
+                         "evidence": record.get("evidence")})
+        except Exception:  # noqa: BLE001 — recording is best-effort
+            pass
+        if alert_eid:
+            record["event_id"] = alert_eid
+        if self.arm_enabled and record["signal"] in ARMING_SIGNALS:
+            self._maybe_arm(record, cadence)
+        if record["signal"] == detectors.SIGNAL_STRAGGLER:
+            self._maybe_evict(record)
+        self._put_alert(record)
+        self.alerts_emitted += 1
+        log.warning("watchdog alert #%s: %s (%s) %s", record["id"],
+                    record["signal"], record["severity"],
+                    record["evidence"])
+        return record
+
+    def _put_alert(self, record: Dict[str, Any]) -> None:
+        try:
+            self._server.put(ALERTS_SCOPE, record["id"],
+                             json.dumps(record).encode())
+        except Exception as e:  # noqa: BLE001
+            log.debug("alert publish failed: %s", e)
+
+    def _maybe_arm(self, record: Dict[str, Any],
+                   cadence: Dict[str, List[Any]]) -> None:
+        now = time.monotonic()
+        if self._last_arm is not None and \
+                now - self._last_arm < self.cooldown:
+            return
+        newest = 0
+        for samples in cadence.values():
+            step = samples[-1][0]
+            if isinstance(step, (int, float)) and int(step) > newest:
+                newest = int(step)
+        start = newest + self.arm_margin
+        end = start + self.arm_steps - 1
+        self._arm_seq += 1
+        arm_id = f"arm-{self._arm_seq}"
+        trace_dir = env_util.get_str(env_util.HVD_TIMELINE) or \
+            env_util.get_str(env_util.HVD_TRACE_DIR)
+        if not trace_dir:
+            import os
+            import tempfile
+
+            trace_dir = os.path.join(tempfile.gettempdir(),
+                                     "hvd_watch_trace", arm_id)
+        try:
+            autoarm.broadcast_arm(self._server, arm_id, start, end,
+                                  record["signal"], trace_dir)
+        except Exception as e:  # noqa: BLE001
+            log.debug("arm broadcast failed: %s", e)
+            return
+        self._last_arm = now
+        self.arms += 1
+        record["armed"] = {"id": arm_id, "start_step": start,
+                           "end_step": end, "trace_dir": trace_dir}
+        try:
+            from . import events as events_mod
+
+            events_mod.record_event(
+                "watchdog.arm", severity="info",
+                payload={"arm_id": arm_id, "start_step": start,
+                         "end_step": end, "signal": record["signal"],
+                         "trace_dir": trace_dir},
+                cause_id=record.get("event_id"))
+        except Exception:  # noqa: BLE001 — recording is best-effort
+            pass
+        self._pending_attribution.append(record)
+        try:
+            from .. import metrics
+
+            if metrics.on():
+                metrics.WATCH_ARMS.inc()
+        except Exception as e:  # noqa: BLE001
+            log.debug("arm counter failed: %s", e)
+        log.warning("watchdog armed trace+profile window [%d, %d] "
+                    "(%s, alert #%s)", start, end, record["signal"],
+                    record["id"])
+
+    def _enrich_pending(self) -> None:
+        """Attach profile attribution to armed alerts once the window's
+        anatomies land in the ``profile`` scope, then re-publish."""
+        if not self._pending_attribution:
+            return
+        try:
+            profile = self._server.profile_report()
+        except Exception as e:  # noqa: BLE001
+            log.debug("profile report read failed: %s", e)
+            return
+        agg = (profile or {}).get("aggregate") or {}
+        top = agg.get("top_segments") or []
+        if not top:
+            return
+        segments = agg.get("segments") or {}
+        top_name = top[0]
+        seg = segments.get(top_name) or {}
+        mfu = agg.get("mfu") or {}
+        gap = agg.get("host_gap_per_step_us") or {}
+        attribution = {
+            "top_segment": top_name,
+            "slowest_rank": seg.get("slowest_rank"),
+            "spread_us": seg.get("spread_us"),
+            "mean_device_us": seg.get("mean_device_us"),
+            "mfu_mean": mfu.get("mean"),
+            "host_gap_max_rank": gap.get("max_rank"),
+        }
+        for record in self._pending_attribution:
+            record["attribution"] = attribution
+            self._put_alert(record)
+            log.info("alert #%s attributed: top segment %s (slowest "
+                     "rank %s)", record["id"], top_name,
+                     seg.get("slowest_rank"))
+        self._pending_attribution = []
+
+    def _maybe_evict(self, record: Dict[str, Any]) -> None:
+        """Critical straggler + HVD_WATCH_EVICT=1 + an attached elastic
+        driver → hand the rank to the driver's (drained) removal path;
+        the driver's own min_np floor and flap blocklist still apply."""
+        if not self.evict or record["severity"] != "critical":
+            return
+        driver = self._driver
+        if driver is None:
+            return
+        rank_s = str(record["evidence"].get("rank", ""))
+        try:
+            world = list(getattr(driver, "world", []) or [])
+            worker = world[int(rank_s)] if rank_s.isdigit() \
+                and int(rank_s) < len(world) else rank_s
+            ok = driver.remove(
+                worker, f"watchdog: straggler rank {rank_s} at "
+                f"{record['evidence'].get('ratio', 0):.2f}x world median",
+                drain=True, cause_id=record.get("event_id"))
+            if ok:
+                self.evictions += 1
+                record["evicted"] = worker
+                log.warning("watchdog evicted straggler %s (rank %s)",
+                            worker, rank_s)
+        except Exception as e:  # noqa: BLE001
+            log.warning("watchdog eviction failed: %s", e)
+
+
+def start_from_env(server: Any, driver: Any = None) -> Optional[Watchdog]:
+    """A started Watchdog when ``HVD_WATCH`` (default on) allows it."""
+    if not env_util.get_bool(env_util.HVD_WATCH, True):
+        return None
+    dog = Watchdog(server, driver=driver)
+    dog.start()
+    return dog

@@ -37,11 +37,10 @@ Control-plane tier additions (docs/control_plane.md):
   e.g. the heartbeat's piggybacked abort verdict).
 
 The peer state plane's shard reads and writes (:func:`push_shard`,
-:func:`pull_shard`, :func:`get_peerstate`) are here too.  The
-reference's clients of the planes the port has not reached (serving, the
-replay and projection summaries, the sanitizer and alert tables) come
-with those planes (ROADMAP items 14-15); the server already answers
-their routes.
+:func:`pull_shard`, :func:`get_peerstate`), the serving plane's signed
+POSTs (:func:`post_infer`, :func:`serve_pull`, :func:`serve_result`;
+:func:`get_serving`) and the watchdog's reads (:func:`get_timeseries`,
+:func:`get_alerts`) are here too, on the reference's wire.
 """
 
 from __future__ import annotations
@@ -543,6 +542,101 @@ def get_autotune(addr: str, port: int, secret: Optional[bytes] = None,
     with _request("GET", addr, port, "/autotune", secret=secret,
                   timeout=timeout) as resp:
         return json.loads(resp.read().decode())
+
+
+def get_timeseries(addr: str, port: int, secret: Optional[bytes] = None,
+                   timeout: float = 10.0) -> dict:
+    """The telemetry time-series table from ``GET /timeseries``:
+    per-rank ring-buffer histories plus the cross-rank summary — the
+    watchdog's and ``observe.watch``'s read."""
+    with _request("GET", addr, port, "/timeseries", secret=secret,
+                  timeout=timeout) as resp:
+        return _json.loads(resp.read().decode())
+
+
+def get_alerts(addr: str, port: int, secret: Optional[bytes] = None,
+               timeout: float = 10.0) -> dict:
+    """The watchdog alert log from ``GET /alerts``, newest first."""
+    with _request("GET", addr, port, "/alerts", secret=secret,
+                  timeout=timeout) as resp:
+        return _json.loads(resp.read().decode())
+
+
+def _post_json(addr: str, port: int, path: str, payload: dict,
+               secret: Optional[bytes] = None,
+               timeout: float = 30.0, retries: int = 0) -> dict:
+    """One signed JSON POST to a serving route.  POSTs default to no
+    transient retries (a retried /infer would double-submit); routes
+    that are idempotent server-side (result posts — the broker counts
+    and ignores duplicate completions) opt in via ``retries``.
+    4xx/5xx replies that carry a JSON body are surfaced as
+    RuntimeError with the server's error."""
+    body = _json.dumps(payload).encode()
+    try:
+        with _request("POST", addr, port, path, body, secret,
+                      timeout=timeout, retries=retries) as resp:
+            return _json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            detail = _json.loads(e.read().decode()).get("error")
+        except Exception:  # noqa: BLE001
+            detail = None
+        raise RuntimeError(
+            f"POST {path} -> {e.code}"
+            + (f": {detail}" if detail else "")) from e
+
+
+def post_infer(addr: str, port: int, inputs,
+               secret: Optional[bytes] = None,
+               timeout: float = 30.0) -> dict:
+    """One inference request through the serving front-end's signed
+    ``POST /infer``: returns ``{"id", "outputs", "latency_ms",
+    "replica"}``; raises RuntimeError carrying the server's error on 503
+    (queue full), 504 (request timeout), or 500 (replica failure)."""
+    import numpy as np
+
+    return _post_json(addr, port, "/infer",
+                      {"inputs": np.asarray(inputs).tolist()},
+                      secret=secret, timeout=timeout)
+
+
+def get_serving(addr: str, port: int, secret: Optional[bytes] = None,
+                timeout: float = 10.0) -> dict:
+    """The serving status page from ``GET /serving``: broker window
+    stats (queue depth, windowed p50/p99), SLO knobs, and the
+    autoscaler's world/events when one is attached."""
+    with _request("GET", addr, port, "/serving", secret=secret,
+                  timeout=timeout) as resp:
+        return _json.loads(resp.read().decode())
+
+
+def serve_pull(addr: str, port: int, replica_id: str, max_batch: int,
+               wait_ms: float = 0.0, secret: Optional[bytes] = None,
+               timeout: float = 40.0) -> dict:
+    """Remote-replica pull (serving/replica.py RemoteSource): long-poll
+    up to ``wait_ms`` for a batch of pending requests."""
+    return _post_json(addr, port, "/serving/pull",
+                      {"replica_id": str(replica_id),
+                       "max_batch": int(max_batch),
+                       "wait_ms": float(wait_ms)},
+                      secret=secret, timeout=timeout)
+
+
+def serve_result(addr: str, port: int, replica_id: str, results,
+                 secret: Optional[bytes] = None,
+                 timeout: float = 30.0) -> dict:
+    """Remote-replica completion post: ``results`` is a list of
+    ``{"id", "output"}`` (or ``{"id", "error"}``) records.  Retried on
+    transient failures — safe because the broker resolves each request
+    exactly once and drops duplicates — so one flaky connection doesn't
+    strand a computed answer."""
+    return _post_json(addr, port, "/serving/result",
+                      {"replica_id": str(replica_id),
+                       "results": list(results)},
+                      secret=secret, timeout=timeout,
+                      retries=env_util.get_int(
+                          env_util.HVD_HTTP_RETRIES,
+                          env_util.DEFAULT_HTTP_RETRIES))
 
 
 class RemoteStore:

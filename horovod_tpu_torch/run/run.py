@@ -41,10 +41,15 @@ reference.  What the port does differently (ROADMAP "Decisions"):
   membership epochs, each with a fresh ``ControllerServer`` (native) and
   a fresh ``TCPStore``.
 
-What the launcher cannot do yet raises ``NotImplementedError`` naming
-its ROADMAP item: ``--serve`` and the ``--serve-*`` knobs (item 14), and
-an explicit true ``HVD_WATCH`` (the watchdog, item 15; the reference
-starts it by default, the port does not start it at all).
+* ``--serve`` (and the ``--serve-*`` knobs, ``HVD_SERVE=1``): the
+  launcher attaches a request broker and its front-end
+  (serving/broker.py, serving/frontend.py) to its rendezvous server —
+  signed ``POST /infer``, ``GET /serving`` and the remote replicas'
+  ``/serving/pull`` / ``/serving/result`` — and exports ``HVD_SERVE=1``;
+  under ``--elastic`` a lossily removed replica's requests are requeued,
+  and ``--serve-autoscale`` lets load commit the epochs;
+* the watchdog (observe/watchdog.py) runs next to the rendezvous server
+  by default, as in the reference; ``HVD_WATCH=0`` turns it off.
 
 Also provides the in-process API ``horovod_tpu_torch.run.run(fn, ...)``
 (reference run/run.py:870-956 func mode: the pickled fn is shipped
@@ -392,28 +397,6 @@ def worker_envs(slots: List[SlotInfo], base_env: Dict[str, str],
     return envs
 
 
-def _refuse(what: str, feature: str, item) -> None:
-    raise NotImplementedError(
-        f"{what}: {feature} is not ported yet (ROADMAP queue 1, item "
-        f"{item})")
-
-
-def _refuse_unported(args, env: Dict[str, str]) -> None:
-    """Raise for every option of ``args`` / ``env`` that names a plane the
-    port has not reached yet (see the module docstring)."""
-    serve_opts = [f"--{k.replace('_', '-')}" for k in (
-        "serve", "serve_max_batch", "serve_max_wait_ms", "serve_slo_ms",
-        "serve_autoscale") if getattr(args, k, None) not in (None, False)]
-    if serve_opts or env_util.parse_bool(
-            env.get(env_util.HVD_SERVE, os.environ.get(env_util.HVD_SERVE))):
-        _refuse(" / ".join(serve_opts) or env_util.HVD_SERVE,
-                "the serving plane", 14)
-    if env_util.parse_bool(env.get(env_util.HVD_WATCH,
-                                   os.environ.get(env_util.HVD_WATCH))):
-        _refuse(f"{env_util.HVD_WATCH}=1", "the launcher-side watchdog "
-                "(observe/watchdog.py)", 15)
-
-
 def ssh_command(hostname: str, env: Dict[str, str], command: List[str],
                 ssh_port: Optional[int] = None, cwd: Optional[str] = None) -> str:
     """The remote launch line (reference gloo_run.py:142-259 ssh fan-out;
@@ -617,7 +600,6 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
     worker set, one process a slot, relaunching up to ``--restarts``
     times on failure (reference gloo_run.py:142-259, plus the
     failure-domain runtime of docs/fault_tolerance.md)."""
-    _refuse_unported(args, env)
     hosts = sorted({s.hostname for s in slots},
                    key=[s.hostname for s in slots].index)
     local = all(h in LOCAL_HOSTS for h in hosts)
@@ -723,6 +705,40 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
     elastic_store = rdv_server
     if elastic and rdv_server is None:
         elastic_store = _external_rendezvous(env, external_sink)
+    serve = bool(getattr(args, "serve", False)) or env_util.parse_bool(
+        env.get(env_util.HVD_SERVE, os.environ.get(env_util.HVD_SERVE)))
+    serve_broker = serve_frontend = None
+    if serve:
+        if rdv_server is None:
+            raise RuntimeError(
+                "--serve needs the launcher rendezvous plane: re-enable "
+                f"{env_util.HVD_METRICS} or heartbeats, and unset any "
+                f"external {env_util.HVD_METRICS_KV_ADDR} sink")
+        from ..serving.broker import RequestBroker
+        from ..serving.frontend import ServingFrontend
+
+        env = dict(env)
+        env[env_util.HVD_SERVE] = "1"
+        serve_broker = RequestBroker()
+        serve_frontend = ServingFrontend(serve_broker)
+        rdv_server.attach_serving(serve_frontend)
+        log.info("serving: signed POST http://%s:%d/infer routes requests "
+                 "to the replica fleet; GET http://%s:%d/serving is the "
+                 "status page", env[env_util.HVD_METRICS_KV_ADDR],
+                 rdv_server.port, env[env_util.HVD_METRICS_KV_ADDR],
+                 rdv_server.port)
+    # the online anomaly watchdog (observe/watchdog.py), on by default:
+    # detectors over the flushed telemetry history, alerts on GET
+    # /alerts, auto-armed trace+profile windows on confirmed step-time
+    # or straggler regressions
+    watchdog = None
+    if rdv_server is not None:
+        from ..observe import watchdog as watchdog_mod
+
+        watchdog = watchdog_mod.start_from_env(rdv_server)
+        if watchdog is not None:
+            log.info("watchdog: GET http://%s:%d/alerts is the alert log",
+                     env[env_util.HVD_METRICS_KV_ADDR], rdv_server.port)
     restarts = getattr(args, "restarts", 0) or 0
     backoff_base = env_util.get_float(env_util.HVD_RESTART_BACKOFF_SECONDS,
                                       env_util.DEFAULT_RESTART_BACKOFF_SECONDS)
@@ -748,6 +764,27 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
                     store_factory=lambda n, h=host: _coordinator_store(n, h))
                 controller_addr = driver.controller_addr
                 coordinator = driver.coordinator_addr or ""
+                if watchdog is not None:
+                    # critical straggler alerts can feed this attempt's
+                    # driver removal path (HVD_WATCH_EVICT=1)
+                    watchdog.attach_driver(driver)
+                if serve_broker is not None:
+                    # a lossily removed replica's in-flight requests go
+                    # back to the queue for a survivor (drained removals
+                    # already completed theirs)
+                    driver.on_remove = (
+                        lambda w, drained, _b=serve_broker:
+                        None if drained else _b.requeue(w))
+                    if getattr(args, "serve_autoscale", False) \
+                            or env_util.parse_bool(
+                                env.get(env_util.HVD_SERVE_AUTOSCALE)):
+                        from ..serving.autoscaler import ServingAutoscaler
+
+                        autoscaler = ServingAutoscaler(driver, serve_broker)
+                        driver.attach_autoscaler(autoscaler)
+                        serve_frontend.autoscaler = autoscaler
+                        log.info("serving: autoscaler attached — announced "
+                                 "spares are held and admitted under load")
             else:
                 store = _coordinator_store(len(slots), host)
                 coordinator = "" if store is None \
@@ -825,6 +862,11 @@ def launch_job(args, slots: List[SlotInfo], env: Dict[str, str]) -> int:
                 rdv_server.clear_scope(HEALTH_SCOPE)
                 rdv_server.clear_scope(MEMBERSHIP_SCOPE)
     finally:
+        if watchdog is not None:
+            watchdog.stop()
+            log.info("watchdog: %d alert(s), %d armed window(s), %d "
+                     "eviction(s)", watchdog.alerts_emitted, watchdog.arms,
+                     watchdog.evictions)
         if rdv_server is not None:
             rdv_server.stop()
 
@@ -1012,7 +1054,6 @@ def run(fn, args=(), kwargs=None, np: int = 1,
     (``HVD_COORDINATOR_ADDR``) when ``fn`` calls ``init``."""
     kwargs = kwargs or {}
     extra_env = dict(extra_env or {})
-    _refuse_unported(argparse.Namespace(), extra_env)
     blob = _dumps_fn((fn, args, kwargs))
     secret = _secrets.token_bytes(16)
     server = RendezvousServer(

@@ -49,7 +49,11 @@ forward again), the gradient all-reduce and the optimizer update — one
 by one, eagerly and uncaptured, each closed by a device sync and timed
 as a segment, ``in_graph_steps`` times a call.  They update the same
 state tensors in place that the captured graph reads, so the replays
-after the window resume from the updated state.
+after the window resume from the updated state.  With ``profile`` None
+and ``HVD_PROFILE`` off the step holds a dormant profiler, disabled (one
+bool check a call on the replay path) until the watchdog's arm record
+gives it a window (observe/autoarm.py); ``HVD_WATCH_ARM=0`` leaves it
+out.
 
 The tuners move the step's knobs through one rebuild seam (the
 reference's re-jit): ``autotune=True`` (``HVD_AUTOTUNE``) runs the GP
@@ -408,12 +412,18 @@ def _per_leaf(fn: Callable, grads: Dict[str, torch.Tensor]):
 
 def _profiler(profile: Optional[bool]):
     """The compute-anatomy profiler of a step: ``HVD_PROFILE``'s when
-    ``profile`` is None, one enabled when True (None when it has nowhere
-    to write), none when False."""
+    ``profile`` is None — or, with that off, a dormant one (disabled: one
+    bool check a call) that the watchdog's arm record enables for a
+    window (observe/autoarm.py; none under ``HVD_WATCH_ARM=0``) — one
+    enabled when True (None when it has nowhere to write), none when
+    False."""
     from .timeline import profiler as profiler_mod
 
     if profile is None:
-        return profiler_mod.from_env()
+        prof = profiler_mod.from_env()
+        if prof is None and env_util.get_bool(env_util.HVD_WATCH_ARM, True):
+            prof = profiler_mod.ComputeProfiler(enabled=False)
+        return prof
     if profile:
         prof = profiler_mod.ComputeProfiler(enabled=True)
         return prof if prof.enabled else None
@@ -500,7 +510,8 @@ def make_train_step(
 
     * ``profile`` (default ``HVD_PROFILE``) runs the compute-anatomy
       profiler over its window (module docstring); ``step.profiler`` is
-      it (None when off), ``step.profile_losses`` the losses of the
+      it (the dormant one when None and ``HVD_PROFILE`` is off, None
+      when False), ``step.profile_losses`` the losses of the
       profiled calls, read after their synced segments (each also sets
       ``hvd_train_loss``).
 
@@ -539,7 +550,8 @@ def make_train_step(
     profiler = _profiler(profile)
     if profiler is not None:
         # an arm record polled by the time-series flusher moves its
-        # window with the timeline's (observe/autoarm.py)
+        # window with the timeline's, or opens the dormant one's
+        # (observe/autoarm.py)
         from .observe import autoarm
 
         autoarm.register_profiler(profiler)

@@ -154,13 +154,42 @@ HVD_SNAPSHOT_STORAGE_EVERY = "HVD_SNAPSHOT_STORAGE_EVERY"  # every Nth save stil
 HVD_SNAPSHOT_TIMEOUT_SECONDS = "HVD_SNAPSHOT_TIMEOUT_SECONDS"  # per shard push/pull HTTP budget (default 30)
 HVD_SNAPSHOT_COPY = "HVD_SNAPSHOT_COPY"                # 1 also copies numpy leaves at enqueue (default off)
 HVD_PEER_REPLICAS = "HVD_PEER_REPLICAS"                # peer hosts holding each rank's shards, K (default 2)
-HVD_SERVE = "HVD_SERVE"                                # 1 = serving plane on (not ported)
+# the serving plane (serving/): continuous-batching replicas, one CUDA
+# graph a padded bucket, and the autoscaler on the elastic driver
+HVD_SERVE = "HVD_SERVE"                                # 1 = serving plane on (python -m horovod_tpu_torch.run --serve)
 HVD_SERVE_MAX_BATCH = "HVD_SERVE_MAX_BATCH"            # batcher admits up to this many requests (default 8)
 HVD_SERVE_MAX_WAIT_MS = "HVD_SERVE_MAX_WAIT_MS"        # flush deadline from first admitted request (default 5)
+HVD_SERVE_BUCKET_SIZES = "HVD_SERVE_BUCKET_SIZES"      # comma list of padded batch sizes (default pow2 <= max batch)
 HVD_SERVE_SLO_MS = "HVD_SERVE_SLO_MS"                  # p99 latency objective (default 100)
+HVD_SERVE_TIMEOUT_SECONDS = "HVD_SERVE_TIMEOUT_SECONDS"  # per-request wait budget (default 30)
+HVD_SERVE_QUEUE_LIMIT = "HVD_SERVE_QUEUE_LIMIT"        # admission cap; excess rejected (default 4096)
 HVD_SERVE_AUTOSCALE = "HVD_SERVE_AUTOSCALE"            # 1 = autoscaler drives the elastic driver
-HVD_WATCH = "HVD_WATCH"                                # the launcher-side watchdog (not ported: a true value raises)
-HVD_WATCH_ARM = "HVD_WATCH_ARM"                        # 0 stops arm records from moving trace windows (default 1)
+HVD_SERVE_QUEUE_HIGH = "HVD_SERVE_QUEUE_HIGH"          # per-replica queue depth read as overload (default 4)
+HVD_SERVE_QUEUE_LOW = "HVD_SERVE_QUEUE_LOW"            # per-replica queue depth read as idle (default 0.5)
+HVD_SERVE_HYSTERESIS_TICKS = "HVD_SERVE_HYSTERESIS_TICKS"  # sustained ticks before grow/shrink (default 3)
+HVD_SERVE_COOLDOWN_SECONDS = "HVD_SERVE_COOLDOWN_SECONDS"  # min spacing between autoscale actions (default 10)
+HVD_SERVE_MIN_REPLICAS = "HVD_SERVE_MIN_REPLICAS"      # shrink floor (default 1)
+HVD_SERVE_MAX_REPLICAS = "HVD_SERVE_MAX_REPLICAS"      # grow ceiling (default 0 = bounded by spares)
+HVD_SERVE_WEIGHT_COMPRESSION = "HVD_SERVE_WEIGHT_COMPRESSION"  # none|int8|fp8|fp8_e4m3|fp8_e5m2 at-rest weight format
+HVD_PROJECT_SLO_GUARD = "HVD_PROJECT_SLO_GUARD"        # 0 disables the autoscaler's projected-p99 shrink guard (default 1)
+# the watchdog (observe/watchdog.py): detectors over the time-series
+# history, the alerts scope, auto-armed trace+profile windows
+HVD_WATCH = "HVD_WATCH"                                # 0 disables the launcher-side watchdog (default on)
+HVD_WATCH_WINDOW = "HVD_WATCH_WINDOW"                  # detector trailing window, samples (default 64)
+HVD_WATCH_INTERVAL_SECONDS = "HVD_WATCH_INTERVAL_SECONDS"  # watchdog tick cadence (default 2)
+HVD_WATCH_EWMA_ALPHA = "HVD_WATCH_EWMA_ALPHA"          # step-time EWMA smoothing (default 0.5)
+HVD_WATCH_MAD_K = "HVD_WATCH_MAD_K"                    # regression threshold, robust sigmas above baseline (default 5)
+HVD_WATCH_CONFIRM = "HVD_WATCH_CONFIRM"                # consecutive breaches before an alert (default 3)
+HVD_WATCH_STRAGGLER_SKEW = "HVD_WATCH_STRAGGLER_SKEW"  # rank cadence / world median ratio read as straggling (default 1.3)
+HVD_WATCH_MFU_DROP_PCT = "HVD_WATCH_MFU_DROP_PCT"      # relative MFU drop vs baseline read as regression (default 20)
+HVD_WATCH_BETA_DRIFT = "HVD_WATCH_BETA_DRIFT"          # measured/predicted µs-per-MiB ratio read as comm drift (default 2)
+HVD_WATCH_SLO_BUDGET = "HVD_WATCH_SLO_BUDGET"          # tolerated SLO-breach sample fraction (default 0.01)
+HVD_WATCH_BURN_RATE = "HVD_WATCH_BURN_RATE"            # breach-fraction / budget ratio that alerts (default 2)
+HVD_WATCH_ARM = "HVD_WATCH_ARM"                        # 0 stops alerts from auto-arming trace windows and leaves the step without a dormant profiler (default 1)
+HVD_WATCH_ARM_STEPS = "HVD_WATCH_ARM_STEPS"            # auto-armed trace+profile window length (default 8)
+HVD_WATCH_ARM_MARGIN_STEPS = "HVD_WATCH_ARM_MARGIN_STEPS"  # arm start = newest observed step + margin (default 16)
+HVD_WATCH_ARM_COOLDOWN_SECONDS = "HVD_WATCH_ARM_COOLDOWN_SECONDS"  # min spacing between auto-arms (default 120)
+HVD_WATCH_EVICT = "HVD_WATCH_EVICT"                    # 1 feeds critical straggler alerts to the elastic removal path
 # the KV plane (run/store.py, run/http_server.py, run/relay.py)
 HVD_CP_SHARDS = "HVD_CP_SHARDS"                        # KV store shard count (default 8)
 HVD_RENDEZVOUS_ADDRS = "HVD_RENDEZVOUS_ADDRS"          # ordered host:port,host:port failover list (primary first)
@@ -192,6 +221,29 @@ DEFAULT_METRICS_BUCKET_FLOOR = 1e-4                # first latency bucket edge, 
 DEFAULT_METRICS_BUCKET_FACTOR = 2.0                # geometric bucket growth
 DEFAULT_METRICS_BUCKET_COUNT = 18                  # finite bucket count
 DEFAULT_SERVE_LATENCY_BUCKET_FLOOR = 2.5e-4        # serving histogram floor, seconds
+DEFAULT_SERVE_MAX_BATCH = 8                        # serving/batching.py admission cap
+DEFAULT_SERVE_MAX_WAIT_MS = 5.0                    # serving flush deadline from first admit
+DEFAULT_SERVE_SLO_MS = 100.0                       # serving p99 latency objective
+DEFAULT_SERVE_TIMEOUT_SECONDS = 30.0               # per-request wait budget
+DEFAULT_SERVE_QUEUE_LIMIT = 4096                   # broker admission cap
+DEFAULT_SERVE_QUEUE_HIGH = 4.0                     # overload threshold, per replica
+DEFAULT_SERVE_QUEUE_LOW = 0.5                      # idle threshold, per replica
+DEFAULT_SERVE_HYSTERESIS_TICKS = 3                 # sustained ticks before an autoscale action
+DEFAULT_SERVE_COOLDOWN_SECONDS = 10.0              # spacing between autoscale actions
+DEFAULT_SERVE_MIN_REPLICAS = 1                     # autoscaler shrink floor
+DEFAULT_WATCH_WINDOW = 64                          # observe/ detector trailing window, samples
+DEFAULT_WATCH_INTERVAL_SECONDS = 2.0               # watchdog tick cadence
+DEFAULT_WATCH_EWMA_ALPHA = 0.5                     # step-time regression EWMA smoothing
+DEFAULT_WATCH_MAD_K = 5.0                          # regression threshold in robust sigmas
+DEFAULT_WATCH_CONFIRM = 3                          # consecutive breaches before an alert
+DEFAULT_WATCH_STRAGGLER_SKEW = 1.3                 # cadence / world-median straggler ratio
+DEFAULT_WATCH_MFU_DROP_PCT = 20.0                  # relative MFU drop threshold, percent
+DEFAULT_WATCH_BETA_DRIFT = 2.0                     # measured/predicted comm-cost drift ratio
+DEFAULT_WATCH_SLO_BUDGET = 0.01                    # tolerated SLO-breach sample fraction
+DEFAULT_WATCH_BURN_RATE = 2.0                      # breach-fraction / budget alert ratio
+DEFAULT_WATCH_ARM_STEPS = 8                        # auto-armed trace+profile window length
+DEFAULT_WATCH_ARM_MARGIN_STEPS = 16                # arm start margin past the newest observed step
+DEFAULT_WATCH_ARM_COOLDOWN_SECONDS = 120.0         # min spacing between auto-arms
 DEFAULT_TIMESERIES_CAP = 512                       # metrics/timeseries.py raw-tier ring capacity
 DEFAULT_TIMESERIES_TIERS = 3                       # downsampling tiers including the raw tier
 DEFAULT_TIMESERIES_FACTOR = 8                      # per-tier downsample factor

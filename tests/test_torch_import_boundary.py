@@ -127,7 +127,21 @@ print(json.dumps(sorted(sys.modules)))
               "horovod_tpu_torch.elastic.peerstate",
               "horovod_tpu_torch.elastic.membership",
               "horovod_tpu_torch.elastic.driver",
-              "horovod_tpu_torch.examples.pytorch_imagenet_resnet50"):
+              "horovod_tpu_torch.examples.pytorch_imagenet_resnet50",
+              "horovod_tpu_torch.serving",
+              "horovod_tpu_torch.serving.__main__",
+              "horovod_tpu_torch.serving.broker",
+              "horovod_tpu_torch.serving.batching",
+              "horovod_tpu_torch.serving.replica",
+              "horovod_tpu_torch.serving.frontend",
+              "horovod_tpu_torch.serving.loadgen",
+              "horovod_tpu_torch.serving.autoscaler",
+              "horovod_tpu_torch.serving.plane",
+              "horovod_tpu_torch.observe.detectors",
+              "horovod_tpu_torch.observe.invariants",
+              "horovod_tpu_torch.observe.fixtures",
+              "horovod_tpu_torch.observe.watchdog",
+              "horovod_tpu_torch.observe.watch"):
         assert m in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -168,12 +182,17 @@ def _lazy_imports(path: Path):
     ("runtime/eager_controller.py", {"horovod_tpu_torch.runtime.ring",
                                      "horovod_tpu_torch.runtime.controller",
                                      "horovod_tpu_torch.elastic.faults"}),
+    ("serving/replica.py", {"horovod_tpu_torch.run.http_client",
+                            "horovod_tpu_torch.elastic.membership",
+                            "horovod_tpu_torch.utils.checkpoint",
+                            "horovod_tpu_torch.training"}),
 ])
 def test_lazy_imports_stay_within_the_port(module, reaches):
     """The tuners import the replay engine, the comm model and the
     loader inside their functions, as the state plane imports membership,
-    the peer tier and the rendezvous client, and the eager controller the
-    ring and the fault harness: those imports resolve into the port
+    the peer tier and the rendezvous client, the eager controller the
+    ring and the fault harness, and the serving plane the driver, the
+    rendezvous plane and its models: those imports resolve into the port
     (statically), and running them in a fresh interpreter brings in no
     JAX and nothing of the JAX package."""
     lazy = _lazy_imports(PKG / module)
@@ -198,6 +217,19 @@ elif {module!r} == "runtime/eager_controller.py":
     from horovod_tpu_torch.runtime import controller, ring
     from horovod_tpu_torch.elastic import faults
     faults.on_controller("x")
+elif {module!r} == "serving/replica.py":
+    # the CLI's check and an elastic plane (its driver, server and MLP),
+    # then the replica's own lazy imports
+    from horovod_tpu_torch.serving.__main__ import run_check
+    from horovod_tpu_torch.serving import plane
+    assert run_check("cpu") == 0
+    p = plane.LocalServingPlane(*plane.make_mlp_serving_fn(device="cpu")[:2],
+                                elastic=True, jit=False, device="cpu")
+    p.shutdown()
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.elastic import membership
+    from horovod_tpu_torch.run import http_client
+    from horovod_tpu_torch.utils import checkpoint
 elif {module!r} == "optim/profile_guided.py":
     d = tempfile.mkdtemp()
     write_autotune_fixture_trace(d)
@@ -219,7 +251,8 @@ print(json.dumps(sorted(sys.modules)))
 
 def test_ast_scan_finds_no_forbidden_import():
     files = sorted(PKG.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "torch_elastic_tasks.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "torch_elastic_tasks.py",
+        REPO / "scripts" / "torch_serve_tasks.py"]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f.read_text()) if _forbidden(m)]

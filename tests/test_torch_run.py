@@ -12,8 +12,9 @@ CPU.
   and cross ranks from the same slot table, the world size and, for more
   than one process, the launcher's store (``HVD_COORDINATOR_ADDR`` with
   ``HVD_COORDINATOR_SERVER=external``).
-* What the launcher cannot do yet (``--serve``, ``HVD_WATCH``) raises
-  ``NotImplementedError`` naming its ROADMAP item; ``--elastic`` /
+* ``--serve``, its knobs and ``HVD_WATCH`` (refused until the serving
+  plane and the watchdog were ported) plan their workers and map to the
+  reference's environment; ``--elastic`` /
   ``--min-np`` and ``--controller native`` (or ``auto`` over several
   hosts) plan their workers' environment; ``--dry-run`` prints the plan; ``--check-build``
   reports the port's stack; a missing ``yaml`` and a function the
@@ -168,18 +169,28 @@ def test_worker_envs_one_process_a_slot(spec, np_):
     assert "HVD_COORDINATOR_ADDR" not in one[0]
 
 
-@pytest.mark.parametrize("argv,env,item", [
-    (["--serve"], {}, "item 14"),
-    (["--serve-max-batch", "4"], {}, "item 14"),
-    ([], {"HVD_SERVE": "1"}, "item 14"),
-    ([], {"HVD_WATCH": "1"}, "item 15"),
+@pytest.mark.parametrize("argv,env,want", [
+    (["--serve"], {}, {"HVD_SERVE": "1"}),
+    (["--serve-max-batch", "4"], {}, {"HVD_SERVE_MAX_BATCH": "4"}),
+    ([], {"HVD_SERVE": "1"}, {}),
+    ([], {"HVD_WATCH": "1"}, {}),
 ])
-def test_unported_options_raise(monkeypatch, argv, env, item):
+def test_serve_and_watch_options_plan_their_workers(monkeypatch, capsys,
+                                                    argv, env, want):
+    """The serving options and ``HVD_WATCH``, which the launcher refused
+    before the serving plane and the watchdog were ported: the dry run
+    plans the workers, and the flags map to the reference's
+    environment."""
+    monkeypatch.delenv("HVD_METRICS_KV_ADDR", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        port_run.run_commandline(["-np", "2", *argv, "--dry-run", "python",
-                                  "-c", "pass"])
+    assert port_run.run_commandline(["-np", "2", *argv, "--dry-run",
+                                     "python", "-c", "pass"]) == 0
+    assert "[dry-run] process 1" in capsys.readouterr().out
+    argv = ["-np", "2", *argv, "python", "-c", "pass"]
+    got = config_parser.env_from_args(port_run.parse_args(argv))
+    assert got == ref_config.env_from_args(ref_run.parse_args(argv))
+    assert {k: got[k] for k in want} == want
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -461,14 +461,18 @@ def test_profile_runs_instead_of_raising(port_cpu_world, monkeypatch,
                                          tmp_path, how):
     """The compute-anatomy profiler is ported: ``profile=True`` (or
     ``HVD_PROFILE=1``) builds a step whose window writes compute.json;
-    without a trace directory there is no profiler, as in the
-    reference."""
+    without a trace directory there is no enabled profiler, as in the
+    reference: ``profile=True`` gets none, ``profile=None`` the dormant
+    one the watchdog arms."""
     model = MLP(4, (3,))
     kw = {"profile": True} if how == "argument" else {}
     monkeypatch.setenv("HVD_PROFILE", "1")
     step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
                                     optimizer=fused_sgd(0.1), **kw)
-    assert step.profiler is None
+    if how == "argument":
+        assert step.profiler is None
+    else:
+        assert not step.profiler.enabled
     monkeypatch.setenv("HVD_TRACE_DIR", str(tmp_path))
     step = training.make_train_step(apply_fn=model, loss_fn=F.cross_entropy,
                                     optimizer=fused_sgd(0.1), **kw)
