@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import fcntl
+import math
 import os
 import shutil
 import subprocess
@@ -52,10 +53,12 @@ FLASH_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
 flash_launches: Dict[str, int] = {
     f"{k}.{m}": 0 for k in FLASH_KINDS for m in FLASH_MAINLOOPS}
 
-#: launches of K6 (scale_bias_relu), K6' (relu_grad) and K7
-#: (residual_relu), counted likewise
-elementwise_launches: Dict[str, int] = {"scale_bias_relu": 0,
-                                        "relu_grad": 0, "residual_relu": 0}
+#: launches of K6 (scale_bias_relu), its backward (scale_bias_relu_bwd:
+#: the pass and its second pass), K6' (relu_grad) and K7 (residual_relu),
+#: counted likewise
+elementwise_launches: Dict[str, int] = {
+    "scale_bias_relu": 0, "scale_bias_relu_bwd": 0, "relu_grad": 0,
+    "residual_relu": 0}
 #: the mainloops of K8-K10 (see :func:`conv3x3_plan`)
 CONV_MAINLOOPS = ("wgmma", "mma_sync", "f32")
 #: launches of K8 (bn_relu), K9 (stats) and K10 (plain) per mainloop
@@ -211,16 +214,19 @@ def load() -> ctypes.CDLL:
     flash = (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv)
     for fn in flash:
         fn.argtypes = [ctypes.POINTER(_FlashArgs), ptr]
-    lib.hvd_residual_relu.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+    lib.hvd_residual_relu.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.hvd_relu_grad.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
     lib.hvd_scale_bias_relu.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
-                                        ptr]
+                                        i32, ptr]
+    lib.hvd_scale_bias_relu_bwd.argtypes = [ptr] * 8 + [i64, i64] + [
+        i32] * 3 + [ptr]
     lib.hvd_conv3x3.argtypes = [ctypes.POINTER(_ConvArgs), ptr]
     lib.hvd_conv3x3_wgmma_occupancy.argtypes = [i32,
                                                 ctypes.POINTER(i32)]
     for fn in (lib.hvd_sgd, lib.hvd_momentum, lib.hvd_adam,
                *flash, lib.hvd_residual_relu, lib.hvd_relu_grad,
-               lib.hvd_scale_bias_relu, lib.hvd_conv3x3,
+               lib.hvd_scale_bias_relu, lib.hvd_scale_bias_relu_bwd,
+               lib.hvd_conv3x3,
                lib.hvd_conv3x3_wgmma_occupancy):
         fn.restype = ctypes.c_int
     _lib = lib
@@ -480,8 +486,8 @@ def launch_flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
 
 
 def _check_elementwise(x: torch.Tensor, *others: torch.Tensor) -> None:
-    """Raises on anything K6, K6' and K7 do not take: device, dtype,
-    shape, layout."""
+    """Raises on anything K6, its backward, K6' and K7 do not take:
+    device, dtype, shape, layout."""
     ops = [x, *others]
     _check_on_card("K6-K7", ops)
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in others):
@@ -496,22 +502,136 @@ def _check_elementwise(x: torch.Tensor, *others: torch.Tensor) -> None:
                          f"{[t.stride() for t in ops]}")
 
 
-def launch_residual_relu(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K7: ``relu(x + y)`` in x's dtype, laid out like x."""
+def _check_channels(what: str, x: torch.Tensor,
+                    *vectors: torch.Tensor) -> int:
+    """Raises unless each of ``vectors`` is a contiguous float32 ``[C]``
+    on x's card, C x's last dim; returns C."""
+    _check_on_card(what, [x, *vectors])
+    c = x.shape[-1] if x.dim() else 0
+    for t in vectors:
+        if t.dtype != torch.float32 or t.shape != (c,) or \
+                not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous float32 scale and "
+                             f"bias [{c}], got {t.dtype} {tuple(t.shape)}")
+    return c
+
+
+#: the blocks csrc/elementwise.cu launches (its kJoin*, kBwd* and
+#: kBwdGeneralThreads), as the plan needs them: threads, and 16-byte packs
+#: a thread.  K6 and K7: a sweep over ResNet-50's join shapes at batch 128,
+#: 32 and 1 (scripts/elementwise_sweep.py, PERF.md section 6) found no
+#: block of 128-512 threads x 1-4 packs more than ~2% faster at any of
+#: them, and this one the fastest summed over each batch's joins
+EW_THREADS, EW_PACKS = 128, 2
+#: K6's backward on the channel loop: its block, and its blocks G, at most
+#: EW_BWD_BLOCKS_PER_SM an SM and at most one a round (the same sweep)
+EW_BWD_THREADS, EW_BWD_PACKS = 256, 4
+EW_BWD_BLOCKS_PER_SM = 2
+#: the general route of K6's backward: its block, and rows a block at
+#: least
+EW_BWD_GENERAL_THREADS = 128
+EW_BWD_GENERAL_ROWS = 64
+
+
+class ElementwisePlan(NamedTuple):
+    """How K6, its backward or K7 runs one launch: the loop
+    (``"channel"``, ``"stream"``, ``"flat_binary"`` or ``"general"``) and
+    the blocks of K6's backward, which size its scratch (``[2, blocks,
+    C]``); 0 where the loop's grid follows from the size."""
+
+    loop: str
+    blocks: int
+
+
+def elementwise_plan(kind: str, dtype: torch.dtype, shape: Tuple[int, ...],
+                     ptrs: Sequence[int], sms: int,
+                     loop: Optional[str] = None) -> ElementwisePlan:
+    """The dispatch rule of K7 (``kind="residual_relu"``), K6
+    (``"scale_bias_relu"``) and K6's backward (``"scale_bias_relu_bwd"``)
+    (csrc/elementwise.cu's header) for channels-last operands of
+    ``dtype`` and ``shape`` at addresses ``ptrs`` (every operand the
+    kernel reads or writes 16 bytes at a time: scale and bias too), on a
+    card of ``sms`` SMs.  A pack is 16 bytes: 8 bf16 or 4 float32.
+
+    * K7: the stream loop (with an operand misaligned, the loop's scalar
+      path).
+    * K6: the channel loop when C is a multiple of the pack, every operand
+      is 16-byte aligned and a block of :data:`EW_THREADS` is a whole
+      number of rows of packs (every ResNet ``BatchNormReLU``: C =
+      64-512); else flat_binary, the loop it ran before.
+    * K6's backward: under K6's condition at :data:`EW_BWD_THREADS`, the
+      channel loop on min(sms x :data:`EW_BWD_BLOCKS_PER_SM`, rounds of
+      :data:`EW_BWD_THREADS` x :data:`EW_BWD_PACKS` packs) blocks; else
+      the general route, on min(sms x :data:`EW_BWD_BLOCKS_PER_SM`, rows /
+      :data:`EW_BWD_GENERAL_ROWS`) blocks.  Either depends on the shape
+      and the card alone, so the sums' order does too.
+
+    ``loop="flat_binary"`` asks K6 or K7 for their old loop instead
+    (``chip_smoke.py`` times the two side by side); nothing else may be
+    asked for."""
+    if kind not in ("residual_relu", "scale_bias_relu",
+                    "scale_bias_relu_bwd"):
+        raise ValueError(f"unknown elementwise kernel {kind!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"K6-K7 take float32 or bfloat16, got {dtype}")
+    if loop is not None and (loop != "flat_binary" or
+                             kind == "scale_bias_relu_bwd"):
+        raise ValueError(f"{kind} has no loop {loop!r}: its plan's (None) "
+                         "or, for K6 and K7, 'flat_binary'")
+    pack = 16 // (4 if dtype == torch.float32 else 2)
+    n = math.prod(shape)
+    c = shape[-1] if shape else 1
+    aligned = all(p % 16 == 0 for p in ptrs)
+    if loop == "flat_binary":
+        return ElementwisePlan("flat_binary", 0)
+    if kind == "residual_relu":
+        return ElementwisePlan("stream", 0)
+    threads = EW_THREADS if kind == "scale_bias_relu" else EW_BWD_THREADS
+    channel = aligned and c and c % pack == 0 and threads % (c // pack) == 0
+    if kind == "scale_bias_relu":
+        return ElementwisePlan("channel" if channel else "flat_binary", 0)
+    cap = sms * EW_BWD_BLOCKS_PER_SM
+    if channel:
+        rounds = -(-(n // pack) // (EW_BWD_THREADS * EW_BWD_PACKS))
+        return ElementwisePlan("channel", min(cap, rounds))
+    rows = n // c if c else 0
+    return ElementwisePlan("general",
+                           max(1, min(cap, rows // EW_BWD_GENERAL_ROWS)))
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(index: int) -> int:
+    """The SMs of CUDA card ``index``, asked once per card."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _ew_plan(kind: str, x: torch.Tensor, ptrs: Sequence[int],
+             loop: Optional[str] = None) -> ElementwisePlan:
+    return elementwise_plan(kind, x.dtype, tuple(x.shape), ptrs,
+                            card_sms(x.device.index), loop)
+
+
+def launch_residual_relu(x: torch.Tensor, y: torch.Tensor, *,
+                         loop: Optional[str] = None) -> torch.Tensor:
+    """K7: ``relu(x + y)`` in x's dtype, laid out like x, on the stream
+    loop; ``loop="flat_binary"`` asks for the one-pack loop it ran before,
+    kept to be timed beside it."""
     _check_elementwise(x, y)
     out = torch.empty_like(x)
     if x.numel():
+        ptrs = (x.data_ptr(), y.data_ptr(), out.data_ptr())
+        p = _ew_plan("residual_relu", x, ptrs, loop)
         _launch("hvd_residual_relu", elementwise_launches, "residual_relu",
-                x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                x.numel(), _DTYPES[x.dtype])
+                x.device, *ptrs, x.numel(), _DTYPES[x.dtype],
+                int(p.loop == "flat_binary"))
     return out
 
 
 def launch_relu_grad(out: torch.Tensor, g: torch.Tensor, *,
                      loop: Optional[str] = None) -> torch.Tensor:
     """K6': ``where(out > 0, g, 0)``, laid out like out, on its own loop;
-    ``loop="flat_binary"`` asks for the one-pack loop of K6 and K7 that it
-    ran before, kept to be timed beside it."""
+    ``loop="flat_binary"`` asks for the one-pack loop it ran before, kept
+    to be timed beside it."""
     if loop not in (None, "flat_binary"):
         raise ValueError(f"K6' has no loop {loop!r}: its own (None) or "
                          f"'flat_binary'")
@@ -526,24 +646,58 @@ def launch_relu_grad(out: torch.Tensor, g: torch.Tensor, *,
 
 
 def launch_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
+                           bias: torch.Tensor, *, loop: Optional[str] = None
+                           ) -> torch.Tensor:
     """K6: ``relu(x * scale + bias)`` over x's last dim (the channels),
-    float32 ``scale`` and ``bias`` of that length; x's dtype out."""
+    float32 ``scale`` and ``bias`` of that length; x's dtype out.  The loop
+    is :func:`elementwise_plan`'s; ``loop="flat_binary"`` asks for the one
+    it ran before, kept to be timed beside it."""
     _check_elementwise(x)
-    _check_on_card("K6", [x, scale, bias])
-    c = x.shape[-1] if x.dim() else 0
-    for t in (scale, bias):
-        if t.dtype != torch.float32 or t.shape != (c,) or \
-                not t.is_contiguous():
-            raise ValueError(f"K6 takes contiguous float32 scale and bias "
-                             f"[{c}], got {t.dtype} {tuple(t.shape)}")
+    c = _check_channels("K6", x, scale, bias)
     out = torch.empty_like(x)
     if x.numel():
+        ptrs = (x.data_ptr(), out.data_ptr(), scale.data_ptr(),
+                bias.data_ptr())
+        p = _ew_plan("scale_bias_relu", x, ptrs, loop)
         _launch("hvd_scale_bias_relu", elementwise_launches,
                 "scale_bias_relu", x.device, x.data_ptr(), scale.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), x.numel() // c, c,
-                _DTYPES[x.dtype])
+                _DTYPES[x.dtype], int(p.loop == "flat_binary"))
     return out
+
+
+def launch_scale_bias_relu_bwd(x: torch.Tensor, scale: torch.Tensor,
+                               out: torch.Tensor, g: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """K6's backward from its input ``x``, ``scale``, its output ``out``
+    and the upstream gradient ``g`` (all channels-last, contiguous):
+    ``(dx, dscale, dbias)``, dx in x's dtype, the sums float32 ``[C]``
+    over every row.  One pass writes dx and each block's sums into a
+    ``[2, blocks, C]`` float32 scratch from the caching allocator (safe
+    inside a CUDA graph), a second adds them in a fixed order; the route
+    and the blocks are :func:`elementwise_plan`'s."""
+    _check_elementwise(x, out, g)
+    c = _check_channels("K6's backward", x, scale)
+    dx = torch.empty_like(x)
+    # the second pass writes every channel's sums; with no rows nothing
+    # runs, and the sums are 0
+    sums = torch.empty if x.numel() else torch.zeros
+    dscale = sums(c, dtype=torch.float32, device=x.device)
+    dbias = sums(c, dtype=torch.float32, device=x.device)
+    if x.numel():
+        ptrs = (x.data_ptr(), out.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                scale.data_ptr())
+        p = _ew_plan("scale_bias_relu_bwd", x, ptrs)
+        partial = torch.empty((2, p.blocks, c), dtype=torch.float32,
+                              device=x.device)
+        _launch("hvd_scale_bias_relu_bwd", elementwise_launches,
+                "scale_bias_relu_bwd", x.device, x.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+                dbias.data_ptr(), x.numel() // c, c, _DTYPES[x.dtype],
+                int(p.loop == "general"), p.blocks)
+    return dx, dscale, dbias
 
 
 def _check_conv(x: torch.Tensor, w: torch.Tensor,
@@ -634,8 +788,7 @@ def wgmma_card(index: int) -> Tuple[int, int]:
                 raise RuntimeError(f"hvd_conv3x3_wgmma_occupancy failed: "
                                    f"CUDA error {err}")
             per_sm.append(n.value)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms, min(per_sm)
+    return card_sms(index), min(per_sm)
 
 
 def conv3x3_stats_scratch(plan: ConvPlan, cout: int,

@@ -13,6 +13,8 @@ kernels themselves are held to those bit for bit on the card (the test
 marked ``cuda`` here, and ``python3 chip_smoke.py``).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -327,7 +329,8 @@ def test_kernels_are_bit_equal_to_plain_versions_on_card(shape, dtype):
                        ew.plain_scale_bias_relu(x, s, b))
     assert {k: kernels.elementwise_launches[k] - before[k]
             for k in before} == {"scale_bias_relu": 1, "relu_grad": 1,
-                                 "residual_relu": 1}
+                                 "residual_relu": 1,
+                                 "scale_bias_relu_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -355,3 +358,217 @@ def test_relu_grad_loops_are_bit_equal_on_card(shape, offset, dtype):
         got = kernels.launch_relu_grad(out, g, loop=loop)
         torch.cuda.synchronize()
         assert np.array_equal(_bits(got.cpu()), _bits(want.cpu())), loop
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_bias_relu_bwd_matches_reference(dtype):
+    """K6's backward: its plain version, and scale_bias_relu's backward
+    through hvd::scale_bias_relu_bwd, against jax.vjp of the reference's
+    scale_bias_relu (its Pallas kernels in interpret mode), from inputs
+    whose outputs hold +0, -0 and NaN: dx bit for bit, dscale and dbias at
+    the JAX tests' 1e-5 (NaN where the reference has NaN)."""
+    shape = (3, 5, 7, 36)
+    c = shape[-1]
+    x, tx = _jt(_edges(shape, 20), dtype)
+    g, tg = _jt(np.random.default_rng(21).normal(size=shape)
+                .astype(np.float32), dtype)
+    s = np.random.default_rng(22).uniform(0.5, 1.5, c).astype(np.float32)
+    b = np.random.default_rng(23).normal(size=c).astype(np.float32)
+    b[::3] = 0.0
+    _, vjp = jax.vjp(lambda xx, ss, bb: ref_scale_bias_relu(
+        xx, ss, bb, 1024, True), x, s, b)
+    want = vjp(g)
+    out = ew._scale_bias_relu(tx, _t(s), _t(b))
+    plain = ew.plain_scale_bias_relu_bwd(tx, _t(s), out, tg)
+    tx.requires_grad_()
+    ts, tb = _t(s, True), _t(b, True)
+    ew.scale_bias_relu(tx, ts, tb).backward(tg)
+    for got in (plain, (tx.grad, ts.grad, tb.grad)):
+        assert got[0].dtype == tx.dtype
+        np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+        for a, w in zip(got[1:], want[1:]):
+            assert a.dtype == torch.float32
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(w),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_scale_bias_relu_bwd_op_under_make_fx_and_flop_counter():
+    """hvd::scale_bias_relu_bwd is what make_fx records of K6's backward
+    and what FlopCounterMode counts (5 FLOPs an element); the traced graph
+    gives eager's results."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x, _, s, b, g = (_t(a) for a in _inputs((2, 3, 5, 16), 24))
+    out = ew.plain_scale_bias_relu(x, s, b)
+    args = (x, s, out, g)
+    graph = make_fx(ew._scale_bias_relu_bwd)(*args)
+    targets = [str(n.target) for n in graph.graph.nodes
+               if n.op == "call_function"]
+    assert targets == ["hvd.scale_bias_relu_bwd.default",
+                       "<built-in function getitem>"] + \
+        ["<built-in function getitem>"] * 2
+    for a, w in zip(graph(*args), ew.plain_scale_bias_relu_bwd(*args)):
+        assert torch.equal(a, w)
+    with FlopCounterMode(display=False) as counter:
+        ew._scale_bias_relu_bwd(*args)
+    assert counter.get_total_flops() == 5 * x.numel()
+    assert ew.EW_FLOPS_PER_ELEMENT["scale_bias_relu_bwd"] == 5
+
+
+#: ResNet-50's BatchNormReLU joins (spatial size, C) and a card's SMs
+RESNET_K6 = [(112, 64), (56, 64), (56, 128), (28, 128), (28, 256),
+             (14, 256), (14, 512), (7, 512)]
+SMS = 132
+
+
+def _plan(kind, t, ptrs=(0,), loop=None):
+    """kernels.elementwise_plan for a meta tensor ``t``."""
+    return kernels.elementwise_plan(kind, t.dtype, tuple(t.shape), ptrs,
+                                    SMS, loop)
+
+
+@pytest.mark.parametrize("batch", [128, 32, 1])
+@pytest.mark.parametrize("s,c", RESNET_K6)
+def test_elementwise_plan_takes_resnet_joins_onto_the_channel_loop(batch, s,
+                                                                   c):
+    """Every ResNet-50 K6 shape, training and serving, runs K6 and its
+    backward on the channel loop and K7 on the stream loop; the backward's
+    blocks follow from the shape and the SMs alone."""
+    x = torch.empty(batch, s, s, c, dtype=torch.bfloat16, device="meta")
+    assert _plan("scale_bias_relu", x) == kernels.ElementwisePlan(
+        "channel", 0)
+    assert _plan("residual_relu", x) == kernels.ElementwisePlan("stream", 0)
+    rounds = -(-x.numel() // 8 // (kernels.EW_BWD_THREADS *
+                                   kernels.EW_BWD_PACKS))
+    assert _plan("scale_bias_relu_bwd", x) == kernels.ElementwisePlan(
+        "channel", min(SMS * kernels.EW_BWD_BLOCKS_PER_SM, rounds))
+
+
+@pytest.mark.parametrize("cu_name,py_name", [
+    ("kJoinThreads", "EW_THREADS"), ("kJoinPacks", "EW_PACKS"),
+    ("kBwdThreads", "EW_BWD_THREADS"), ("kBwdPacks", "EW_BWD_PACKS"),
+    ("kBwdGeneralThreads", "EW_BWD_GENERAL_THREADS"),
+])
+def test_elementwise_plan_mirrors_the_librarys_blocks(cu_name, py_name):
+    """The plan sizes the backward's scratch and picks K6's loop from the
+    blocks csrc/elementwise.cu launches; the two must name one block."""
+    src = (kernels.CSRC / "elementwise.cu").read_text()
+    found = re.findall(rf"\b{cu_name} = (\d+)[,;]", src)
+    assert len(found) == 1, (cu_name, found)
+    assert int(found[0]) == getattr(kernels, py_name)
+
+
+@pytest.mark.parametrize("dtype,shape,ptrs,fwd,bwd", [
+    # C = 36 and 30: no whole number of rows of packs a block
+    (torch.bfloat16, (3, 5, 7, 36), (0,), "flat_binary", "general"),
+    (torch.float32, (3, 5, 7, 36), (0,), "flat_binary", "general"),
+    (torch.float32, (3, 5, 7, 32), (0,), "channel", "channel"),
+    (torch.float32, (3, 5, 7, 30), (0,), "flat_binary", "general"),
+    # one operand off 16-byte alignment
+    (torch.bfloat16, (2, 5, 7, 64), (0, 2), "flat_binary", "general"),
+    (torch.float32, (2, 5, 7, 64), (4, 0), "flat_binary", "general"),
+    # a row wider than K6's block, then than the backward's
+    (torch.bfloat16, (2, 7, 7, 2048), (0,), "flat_binary", "channel"),
+    (torch.bfloat16, (2, 7, 7, 4096), (0,), "flat_binary", "general"),
+    (torch.float32, (2, 7, 7, 1024), (0,), "flat_binary", "channel"),
+    (torch.float32, (2, 7, 7, 512), (0,), "channel", "channel"),
+])
+def test_elementwise_plan_routes_by_channels_dtype_and_alignment(
+        dtype, shape, ptrs, fwd, bwd):
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    assert _plan("scale_bias_relu", x, ptrs).loop == fwd
+    plan = _plan("scale_bias_relu_bwd", x, ptrs)
+    assert plan.loop == bwd and 1 <= plan.blocks <= \
+        SMS * kernels.EW_BWD_BLOCKS_PER_SM
+    # K7 keeps the stream loop; a misaligned operand takes its scalar path
+    assert _plan("residual_relu", x, ptrs).loop == "stream"
+
+
+def test_elementwise_plan_sizes_the_backwards_blocks():
+    """The backward's blocks: one a round of packs up to 2 an SM on the
+    channel loop; one a EW_BWD_GENERAL_ROWS rows, at least 1, on the
+    general route."""
+    small = torch.empty(1, 7, 7, 512, dtype=torch.bfloat16, device="meta")
+    big = torch.empty(128, 112, 112, 64, dtype=torch.bfloat16,
+                      device="meta")
+    odd = torch.empty(1000, 36, dtype=torch.bfloat16, device="meta")
+    assert _plan("scale_bias_relu_bwd", small).blocks == 4  # 3136 packs
+    assert _plan("scale_bias_relu_bwd", big).blocks == 2 * SMS
+    assert _plan("scale_bias_relu_bwd", odd).blocks == 1000 // 64
+    assert _plan("scale_bias_relu_bwd", odd[:10]).blocks == 1
+
+
+def test_elementwise_plan_takes_only_its_own_loops():
+    x = torch.empty(2, 8, 8, 64, dtype=torch.bfloat16, device="meta")
+    for kind in ("scale_bias_relu", "residual_relu"):
+        assert _plan(kind, x, loop="flat_binary") == \
+            kernels.ElementwisePlan("flat_binary", 0)
+    for kind, loop in (("scale_bias_relu_bwd", "flat_binary"),
+                       ("scale_bias_relu", "stream"),
+                       ("residual_relu", "channel")):
+        with pytest.raises(ValueError, match="has no loop"):
+            _plan(kind, x, loop=loop)
+    with pytest.raises(ValueError, match="unknown elementwise kernel"):
+        _plan("relu_grad", x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _plan("residual_relu", x.half())
+
+
+def test_k6_backward_wrapper_never_falls_back_for_card_tensors():
+    """K6's backward on tensors off the CPU goes to its kernel or raises:
+    meta tensors (stand-ins for card tensors) raise before any build."""
+    x = torch.empty(2, 3, 3, 8, device="meta")
+    c = torch.empty(8, device="meta")
+    before = dict(kernels.elementwise_launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ew._scale_bias_relu_bwd(x, c, x, x)
+    assert kernels.elementwise_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((2, 7, 7, 256), False),
+                                          ((3, 5, 7, 36), False),
+                                          ((1001, 64), False),
+                                          ((2, 5, 7, 64), True)])
+def test_k6_k7_loops_and_k6_backward_on_card(shape, offset, dtype):
+    """K6 and K7 on their plans' loops and on flat_binary, bit for bit
+    against their plain versions, and K6's backward: dx bit for bit, the
+    sums within 1e-5 of each channel's sum of |terms|, two calls
+    bit-identical; aligned, a ragged row count, C = 36 and an operand off
+    16-byte alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("K6, its backward and K7 are CUDA C++ and run only on "
+                    "an NVIDIA card (python3 chip_smoke.py runs them there)")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x, y, g = (torch.randn(shape, device="cuda", generator=gen).to(dt)
+               for _ in range(3))
+    if offset:
+        buf = torch.empty(x.numel() + 1, device="cuda", dtype=dt)
+        x = buf[1:].view(shape).copy_(x)
+    c = shape[-1]
+    s = torch.rand(c, device="cuda", generator=gen) + 0.5
+    b = torch.randn(c, device="cuda", generator=gen)
+    for loop in (None, "flat_binary"):
+        assert torch.equal(kernels.launch_scale_bias_relu(x, s, b, loop=loop),
+                           ew.plain_scale_bias_relu(x, s, b)), loop
+        assert torch.equal(kernels.launch_residual_relu(x, y, loop=loop),
+                           ew.plain_residual_relu(x, y)), loop
+    out = ew.plain_scale_bias_relu(x, s, b)
+    got = kernels.launch_scale_bias_relu_bwd(x, s, out, g)
+    again = kernels.launch_scale_bias_relu_bwd(x, s, out, g)
+    want = ew.plain_scale_bias_relu_bwd(x, s, out, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    gm = ew.plain_relu_grad(out, g).float().reshape(-1, c)
+    for a, w, terms in zip(got[1:], want[1:],
+                           (gm * x.float().reshape(-1, c), gm)):
+        den = terms.abs().double().sum(0).clamp_min(1e-30)
+        assert ((a.double() - w.double()).abs() / den).max() < 1e-5
+    for a, w in zip(got, again):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           w.view(torch.int16 if w.dtype == torch.bfloat16
+                                  else torch.int32))

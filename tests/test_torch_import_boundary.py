@@ -252,7 +252,8 @@ print(json.dumps(sorted(sys.modules)))
 def test_ast_scan_finds_no_forbidden_import():
     files = sorted(PKG.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "torch_elastic_tasks.py",
-        REPO / "scripts" / "torch_serve_tasks.py"]
+        REPO / "scripts" / "torch_serve_tasks.py",
+        REPO / "scripts" / "torch_trace_rate_probe.py"]
     assert len(files) > 15
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _absolute_imports(f.read_text()) if _forbidden(m)]
@@ -358,7 +359,8 @@ def test_resnet_variant_wrappers_bind_every_kernel_entry_point():
     binding = (PKG / "kernels.py").read_text()
     for src, fns in (("elementwise.cu", ("hvd_residual_relu",
                                          "hvd_relu_grad",
-                                         "hvd_scale_bias_relu")),
+                                         "hvd_scale_bias_relu",
+                                         "hvd_scale_bias_relu_bwd")),
                      ("conv_bn.cu", ("hvd_conv3x3",
                                      "hvd_conv3x3_wgmma_occupancy"))):
         text = (PKG / "csrc" / src).read_text()
@@ -483,7 +485,8 @@ def test_the_kernels_are_library_ops_with_flop_formulas():
     assert counter.get_total_flops() == 2 * 16 * 2 * 2 * pairs + 2 * 5
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "fused_update", "residual_relu", "relu_grad",
-                 "scale_bias_relu", "conv3x3_bn_relu", "conv3x3_stats",
+                 "scale_bias_relu", "scale_bias_relu_bwd",
+                 "conv3x3_bn_relu", "conv3x3_stats",
                  "conv3x3_plain"):
         packet = getattr(torch.ops.hvd, name)
         assert packet in flop_registry, name
